@@ -6,9 +6,12 @@ Phases (any failure raises and exits non-zero):
   1. device: card name, power limit, versions; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, in parallel);
   2. medium path (n = 20k SIFT-like, paper build FULL, 500 queries, L = K = 64,
-     top-10), once through the kernels and once through their plain PyTorch
-     versions, both on the card, from one seed: recall@10, out-degree and
-     connectivity bars, and the two runs within 0.01 recall of each other;
+     top-10) for the f32 corpus and for the int8 and PQ (m = 32) coded
+     corpora with the exact-f32 rerank tail (width 64), each once through
+     the kernels and once through their plain PyTorch versions, both on the
+     card, from one seed: recall@10, out-degree and connectivity bars, the
+     two runs within 0.01 recall of each other, the coded routes near the
+     f32 route and near the JAX package's number;
   3. main path at full size (n = 1M, d = 128, FULL; 10k queries; hashed
      search_tiled): launch counts are zeroed just before and read just after,
      and every kernel must have launched; then the dense-visited oracle at
@@ -22,7 +25,16 @@ Phases (any failure raises and exits non-zero):
   5. build-side witness: the same full-size build through the sort-oracle
      merge, whose recall and graph quality (share of sampled rows holding
      their exact nearest neighbours) must be no worse than the bucketed
-     build's.
+     build's;
+  6. coded paths at full size (n = 1M, FULL, 10k queries): int8 (encode ->
+     build whose every sweep prunes through rng_prune_int8 -> search through
+     beam_score_int8 -> rerank -> recall) and PQ (train + encode -> build
+     over the decoded corpus through rng_prune -> search through
+     beam_score_pq -> rerank -> recall), launch counts zeroed before and read
+     after each, recall held to the f32 path's times the codes' rerank
+     ceiling (brute force over the decoded corpus, exact rerank); then each
+     coded kernel against its plain version on that path's own data, timed
+     as in phase 4.
 The last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -38,6 +50,7 @@ import time
 
 import torch
 
+T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -46,7 +59,25 @@ HBM_RATE = 3.35e12   # H100 SXM HBM3, bytes/s
 SEED = 0
 FULL_N, FULL_Q = 1_000_000, 10_000
 MEDIUM_N, MEDIUM_Q = 20_000, 500
-REF_MEDIUM = {"recall_at_10": 0.998, "avg_out_degree": 12.5}  # reference package, CPU, n = 20k
+# The JAX package on the CPU at the medium configuration (its own draw of the
+# same mixture): scripts/reference_medium.py.
+REF_MEDIUM = {"f32": {"recall_at_10": 0.998, "avg_out_degree": 12.5},
+              "int8": {"recall_at_10": 0.9986, "avg_out_degree": 12.49},
+              "pq": {"recall_at_10": 0.9744, "avg_out_degree": 13.34}}
+QUANT_KW = {"int8": {"mode": "int8", "rerank_k": 64},
+            "pq": {"mode": "pq", "m": 32, "rerank_k": 64}}
+# the kernels each corpus mode's path must launch (and no other)
+PATH_KERNELS = {"f32": {"rng_prune", "beam_score", "pairwise_l2"},
+                "int8": {"rng_prune_int8", "beam_score_int8"},
+                "pq": {"rng_prune", "beam_score_pq"}}
+# coded recall@10 within this much of the f32 route (benchmarks/bench_quant.py)
+CODED_DELTA = {"int8": 0.03, "pq": 0.05}
+# At 1M a coded path's recall@10 must reach f32 recall x its rerank ceiling
+# (rerank_ceiling: the best any search over these codes with a 64-wide exact
+# rerank can return) minus this slack. It catches a broken path; with a
+# ceiling of 1 (int8) it is "f32 minus 0.05". PQ's ceiling is far below 1
+# at 1M (PERF.md): the quantizer's loss, not the graph's.
+FULL_CODED_SLACK = 0.05
 
 
 def check(cond: bool, msg: str) -> None:
@@ -115,13 +146,17 @@ def plain_versions():
     from repro_torch.kernels.beam_score import ops as B
     from repro_torch.kernels.pairwise_l2 import ops as P
     from repro_torch.kernels.rng_prune import ops as R
-    saved = (R.rng_prune, B.beam_score, P.pairwise_l2)
-    R.rng_prune, B.beam_score, P.pairwise_l2 = R.rng_prune_plain, B.beam_score_ref, \
-        P.pairwise_l2_ref
+    swaps = ((R, "rng_prune", R.rng_prune_plain), (R, "rng_prune_int8", R.rng_prune_int8_plain),
+             (B, "beam_score", B.beam_score_ref), (B, "beam_score_int8", B.beam_score_int8_ref),
+             (B, "beam_score_pq", B.beam_score_pq_ref), (P, "pairwise_l2", P.pairwise_l2_ref))
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        R.rng_prune, B.beam_score, P.pairwise_l2 = saved
+        for (mod, name, _), orig in zip(swaps, saved):
+            setattr(mod, name, orig)
 
 
 @contextlib.contextmanager
@@ -169,17 +204,50 @@ def graph_quality(x, g, rows: int, gen_seed: int) -> dict:
             "nn10_in_graph": float(hit.float().mean())}
 
 
+@contextlib.contextmanager
+def captured(module, name):
+    """Record every result of ``module.<name>`` while the block runs."""
+    orig, out = getattr(module, name), []
+
+    def wrapper(*a, **kw):
+        res = orig(*a, **kw)
+        out.append(res)
+        return res
+    setattr(module, name, wrapper)
+    try:
+        yield out
+    finally:
+        setattr(module, name, orig)
+
+
+def check_launches(launches: dict, mode: str, route: str = "kernel") -> None:
+    """The path of corpus ``mode`` launched exactly its kernels (none on the
+    plain route)."""
+    want = PATH_KERNELS[mode] if route == "kernel" else set()
+    got = {k for k, v in launches.items() if v > 0}
+    check(got == want, f"{mode} {route} route launched {got}, expected {want}")
+
+
 def run_path(x, q, n_queries_tile: int, gen_seed: int, medium: bool,
-             merge: str = "bucketed"):
-    """Build (FULL), ground truth, hashed tiled search (SEARCH, top-10)."""
+             merge: str = "bucketed", mode: str = "f32", gt=None):
+    """Build (FULL), ground truth (unless ``gt`` is given), hashed tiled
+    search (SEARCH, top-10). A coded ``mode`` ("int8", "pq") builds under
+    that quantization (the build encodes the corpus itself), encodes the
+    corpus again for the search, as a server would, and searches the codes
+    with the rerank tail."""
     from repro_torch.core import eval as E
     from repro_torch.core import rnn_descent as rd
     from repro_torch.core import search as S
+    from repro_torch.quant import Quantization, corpus_bytes, encode_corpus
+    from repro_torch.quant import quantization as Qm
+    quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
     cfg = rd.RNNDescentConfig(s=20, r=96, t1=4, t2=15, capacity=128,
-                              chunk=4096 if medium else 512, merge=merge)
-    scfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10)
-    res = {}
-    with event_timed(rd, ("prune_rows", "update_neighbors", "add_reverse_edges")) as ev:
+                              chunk=4096 if medium else 512, merge=merge, quant=quant)
+    scfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10, quant=quant)
+    res = {"mode": mode}
+    with event_timed(rd, ("prune_rows", "update_neighbors", "add_reverse_edges")) as ev, \
+            event_timed(Qm, ("quantize_int8", "train_pq", "encode_pq_rows")) as qev, \
+            captured(Qm, "encode_corpus") as built_qx:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         g = rd.build(x, cfg, torch.Generator(device=x.device).manual_seed(gen_seed))
@@ -189,15 +257,27 @@ def run_path(x, q, n_queries_tile: int, gen_seed: int, medium: bool,
     res["merge_s"] = (sum(ev["update_neighbors"]) - sum(ev["prune_rows"])) / 1e3
     res["reverse_s"] = sum(ev["add_reverse_edges"]) / 1e3
     res["sweeps"] = len(ev["update_neighbors"])
-    t0 = time.perf_counter()
-    _, gt = E.ground_truth(x, q, k=10, tile=1024)
-    torch.cuda.synchronize()
-    res["gt_s"] = time.perf_counter() - t0
+    qx = None
+    if quant.is_coded:
+        res["train_s"] = sum(qev["train_pq"] + qev["quantize_int8"]) / 1e3
+        res["encode_s"] = sum(qev["encode_pq_rows"]) / 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qx = encode_corpus(x, quant)
+        torch.cuda.synchronize()
+        res["search_side_encode_s"] = time.perf_counter() - t0
+        res["codes_equal_to_build"] = bool(torch.equal(qx.codes, built_qx[0].codes))
+        res.update(corpus_bytes(qx, *x.shape))
+    if gt is None:
+        t0 = time.perf_counter()
+        _, gt = E.ground_truth(x, q, k=10, tile=1024)
+        torch.cuda.synchronize()
+        res["gt_s"] = time.perf_counter() - t0
     ep = S.default_entry_point(x)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ids, dists, stats = S.search_tiled(x, g, q, ep, scfg, tile_b=n_queries_tile,
-                                       with_stats=True)
+                                       with_stats=True, qx=qx)
     torch.cuda.synchronize()
     res["search_s"] = time.perf_counter() - t0
     res["qps"] = q.shape[0] / res["search_s"]
@@ -211,34 +291,48 @@ def run_path(x, q, n_queries_tile: int, gen_seed: int, medium: bool,
     res["avg_out_degree"] = E.degree_stats(g)["avg_out_degree"]
     res["connectivity"] = E.connectivity_lower_bound(g, int(ep))
     res["search_work"], res["search_launched"] = stats["work"], stats["launched"]
-    return g, gt, ids, res
+    return g, gt, ids, qx, res
 
 
 def medium_phase():
+    """Every corpus mode through the kernels and through the plain versions."""
     from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
     from repro_torch.kernels import LAUNCHES, reset_launches
-    out = {}
-    for route in ("kernel", "plain"):
-        gen = torch.Generator(device="cuda").manual_seed(SEED)
-        x, q = clustered_vectors(VectorDatasetSpec.sift_like(MEDIUM_N, MEDIUM_Q), gen, "cuda")
-        reset_launches()
-        ctx = plain_versions() if route == "plain" else contextlib.nullcontext()
-        with ctx:
-            g, _, _, res = run_path(x, q, MEDIUM_Q, SEED + 1, medium=True)
-        launches = res["launches"] = dict(LAUNCHES)
-        if route == "plain":
-            check(sum(launches.values()) == 0, "a kernel launched on the plain route")
-        else:
-            check(all(v > 0 for v in launches.values()), f"kernel not launched: {launches}")
-        res.update(graph_quality(x, g, 10_000, SEED + 11))
-        emit({"phase": "medium", "route": route, "n": MEDIUM_N, "queries": MEDIUM_Q, **res})
-        check(res["recall_at_10"] >= 0.97, f"{route}: recall@10 {res['recall_at_10']} < 0.97")
-        check(abs(res["avg_out_degree"] - REF_MEDIUM["avg_out_degree"])
-              <= 0.1 * REF_MEDIUM["avg_out_degree"], f"{route}: out-degree off by > 10 %")
-        check(res["connectivity"] >= 0.99, f"{route}: connectivity {res['connectivity']}")
-        out[route] = res
-    delta = abs(out["kernel"]["recall_at_10"] - out["plain"]["recall_at_10"])
-    check(delta <= 0.01, f"kernel vs plain recall@10 differ by {delta}")
+    out, gt = {}, None
+    for mode in ("f32", "int8", "pq"):
+        ref = REF_MEDIUM[mode]
+        for route in ("kernel", "plain"):
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            x, q = clustered_vectors(VectorDatasetSpec.sift_like(MEDIUM_N, MEDIUM_Q), gen,
+                                     "cuda")
+            reset_launches()
+            ctx = plain_versions() if route == "plain" else contextlib.nullcontext()
+            with ctx:
+                g, gt_r, _, qx, res = run_path(x, q, MEDIUM_Q, SEED + 1, medium=True,
+                                               mode=mode, gt=None if mode == "f32" else gt)
+            if mode == "f32" and route == "kernel":
+                gt = gt_r          # the exact ground truth for every later route
+            launches = res["launches"] = dict(LAUNCHES)
+            check_launches(launches, mode, route)
+            if qx is not None:
+                res["rerank_ceiling_recall_at_10"] = rerank_ceiling(x, q, gt, qx)
+            res.update(graph_quality(x, g, 10_000, SEED + 11))
+            emit({"phase": "medium", "mode": mode, "route": route, "n": MEDIUM_N,
+                  "queries": MEDIUM_Q, "reference": ref, **res})
+            r10 = res["recall_at_10"]
+            check(r10 >= 0.97 if mode == "f32" else r10 >= ref["recall_at_10"] - 0.03,
+                  f"{mode} {route}: recall@10 {r10} against the reference's "
+                  f"{ref['recall_at_10']}")
+            check(abs(res["avg_out_degree"] - ref["avg_out_degree"])
+                  <= 0.1 * ref["avg_out_degree"], f"{mode} {route}: out-degree off by > 10 %")
+            check(res["connectivity"] >= 0.99,
+                  f"{mode} {route}: connectivity {res['connectivity']}")
+            out[mode, route] = res
+        delta = abs(out[mode, "kernel"]["recall_at_10"] - out[mode, "plain"]["recall_at_10"])
+        check(delta <= 0.01, f"{mode}: kernel vs plain recall@10 differ by {delta}")
+        if mode != "f32":
+            gap = out["f32", "kernel"]["recall_at_10"] - out[mode, "kernel"]["recall_at_10"]
+            check(gap <= CODED_DELTA[mode], f"{mode} recall@10 {gap} below the f32 route's")
     return out
 
 
@@ -250,9 +344,9 @@ def full_phase():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    g, gt, ids, res = run_path(x, q, 1024, SEED + 1, medium=False)
+    g, gt, ids, _, res = run_path(x, q, 1024, SEED + 1, medium=False)
     launches = dict(LAUNCHES)
-    check(all(v > 0 for v in launches.values()), f"kernel not launched: {launches}")
+    check_launches(launches, "f32")
     res["launches"] = launches
     res["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     res.update(graph_quality(x, g, 10_000, SEED + 11))
@@ -263,15 +357,15 @@ def full_phase():
     check(res["recall_at_10"] >= 0.78, f"full-size recall@10 {res['recall_at_10']}")
     search_checks(x, q, g, gt, ids, res["recall_at_10"])
     search_trace(x, q, g, res["search_s"])
-    return x, q, g, launches, res
+    return x, q, g, gt, launches, res
 
 
-def sort_oracle_build(x, q, res):
+def sort_oracle_build(x, q, gt, res):
     """Build-side witness at full size: the same build from the same seed
     through the sort-oracle merge (global lexsorts over the edge list). The
     bucketed merge keeps one candidate per hashed slot, so it may only lose
     candidates: the oracle's graph must be at least as good."""
-    g, _, _, srt = run_path(x, q, 1024, SEED + 1, medium=False, merge="sort")
+    g, _, _, _, srt = run_path(x, q, 1024, SEED + 1, medium=False, merge="sort", gt=gt)
     srt.update(graph_quality(x, g, 10_000, SEED + 11))
     emit({"phase": "sort_oracle", "n": FULL_N, **srt,
           "bucketed": {k: res[k] for k in ("recall_at_10", "recall_at_1", "avg_out_degree",
@@ -281,19 +375,21 @@ def sort_oracle_build(x, q, res):
         check(srt[key] >= res[key] - 0.01, f"sort-oracle {key} {srt[key]} < bucketed {res[key]}")
 
 
-def search_trace(x, q, g, search_s):
-    """The main path's search (L = 64, hashed, 10k queries) under
-    torch.profiler: device busy time against the untraced run's wall time,
-    and the share of the beam_score kernel."""
+def search_trace(x, q, g, search_s, mode: str = "f32", qx=None):
+    """A path's search (L = 64, hashed, 10k queries) under torch.profiler:
+    device busy time against the untraced run's wall time, and the share of
+    its beam kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import search as S
-    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10)
+    from repro_torch.quant import Quantization
+    quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
+    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10, quant=quant)
     ep = S.default_entry_point(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        S.search_tiled(x, g, q, ep, cfg, tile_b=1024)
+        S.search_tiled(x, g, q, ep, cfg, tile_b=1024, qx=qx)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     spans, per_name = [], {}
@@ -311,7 +407,7 @@ def search_trace(x, q, g, search_s):
             end = b
     beam = [v for k, v in per_name.items() if "beam_score" in k]
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
-    emit({"phase": "search_trace", "device_events": len(spans),
+    emit({"phase": "search_trace", "mode": mode, "device_events": len(spans),
           "device_busy_ms": busy_ms if spans else None,
           "traced_wall_ms": 1e3 * traced_s, "untraced_wall_ms": 1e3 * search_s,
           "idle_share_of_untraced_wall": 1 - busy_ms / (1e3 * search_s) if spans else None,
@@ -343,10 +439,46 @@ def search_checks(x, q, g, gt, ids, recall):
         emit(row)
 
 
+def _prune_agreement(name, ker, ref, lim, extra) -> float:
+    """Hold a prune kernel's (keep, red_w, red_d) against its plain version;
+    returns the red_d error over the slots where both redirect alike."""
+    agree = float((ker[0] == ref[0]).float().mean())
+    w_agree = float((ker[1] == ref[1]).float().mean())
+    same = (ker[1] == ref[1]) & (ker[1] >= 0)
+    err = float((ker[2] - ref[2])[same].abs().max()) if bool(same.any()) else 0.0
+    emit({"kernel": name, **extra, "keep_agree": agree, "red_w_agree": w_agree,
+          "red_d_max_abs_err": err, "limit": lim})
+    check(agree >= 0.999, f"{name} {extra}: keep agreement {agree}")
+    check(w_agree >= 0.999, f"{name} {extra}: red_w agreement {w_agree}")
+    check(err <= lim, f"{name} {extra}: red_d error {err} > {lim}")
+    return err
+
+
+def _bound(flops: float, byts: float) -> dict:
+    return {"bound_ms": 1e3 * max(flops / F32_PEAK, byts / HBM_RATE),
+            "bound_by": "operations" if flops / F32_PEAK > byts / HBM_RATE else "bytes"}
+
+
+def _hold_beam(name, ker, ref, lim, extra) -> float:
+    """Hold a beam kernel's (ids, dists, keys) against its plain version."""
+    from repro_torch.core import graph as G
+    ki, kd, kk = ker
+    ri, rd_, _ = ref
+    check(torch.equal(ki, ri), f"{name} {extra}: ids differ")
+    check(torch.equal(G.key_dist(kk), kd), f"{name}: dists do not decode from keys")
+    fin = torch.isfinite(rd_)
+    check(torch.equal(fin, torch.isfinite(kd)), f"{name}: padding differs")
+    err = ((kd - rd_).abs() / lim)[fin]
+    rel = float(err.max()) if bool(fin.any()) else 0.0
+    abs_err = float((kd - rd_)[fin].abs().max()) if bool(fin.any()) else 0.0
+    emit({"kernel": name, **extra, "max_abs_err": abs_err, "max_err_over_limit": rel})
+    check(rel <= 1.0, f"{name} {extra}: dists error {rel} of its limit")
+    return abs_err
+
+
 def kernel_phase(x, q, g, launches):
     """Each kernel beside its plain version on the main path's data."""
     from repro_torch.core import graph as G
-    from repro_torch.core import rnn_descent as rd
     from repro_torch.kernels.beam_score import ops as B
     from repro_torch.kernels.pairwise_l2 import ops as P
     from repro_torch.kernels.rng_prune import ops as R
@@ -367,45 +499,34 @@ def kernel_phase(x, q, g, launches):
         ref = R.rng_prune_plain(xi, ids, di, flags, metric, chunk=1024)
         check(all(torch.equal(a, b) for a, b in zip(ker, ref)),
               f"rng_prune integer-valued {metric}: kernel != plain")
-    worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        xx = x.to(dtype)
-        for metric in ("l2", "ip", "cos"):
-            ker = R.rng_prune(xx, ids, dists, flags, metric)
-            ref = R.rng_prune_plain(xx, ids, dists, flags, metric, chunk=1024)
-            agree = float((ker[0] == ref[0]).float().mean())
-            w_agree = float((ker[1] == ref[1]).float().mean())
-            same = (ker[1] == ref[1]) & (ker[1] >= 0)
-            err = float((ker[2] - ref[2])[same].abs().max()) if bool(same.any()) else 0.0
-            emit({"kernel": "rng_prune", "dtype": str(dtype), "metric": metric,
-                  "rows": rows, "M": ids.shape[1], "d": d, "keep_agree": agree,
-                  "red_w_agree": w_agree, "red_d_max_abs_err": err})
-            check(agree >= 0.999, f"rng_prune {dtype} {metric}: keep agreement {agree}")
-            check(w_agree >= 0.999, f"rng_prune {dtype} {metric}: red_w agreement {w_agree}")
-            worst[(dtype, metric)] = err
     # l2 pair distances cancel (|a|^2 + |b|^2 - 2ab): tolerance scaled by the
     # norms. Kernel and plain version read the same (bf16 or f32) inputs and
     # both accumulate in f32, so bf16 is held to the f32 limit; ip scales with
     # |a||b| <= max|x|^2, cos is bounded by 2.
     sq = (x * x).sum(1)
     scale = 2 * float(sq.max())
-    for (dtype, metric), err in worst.items():
-        lim = 1e-5 * (2.0 if metric == "cos" else scale)
-        check(err <= lim, f"rng_prune {dtype} {metric}: red_d error {err} > {lim}")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xx = x.to(dtype)
+        for metric in ("l2", "ip", "cos"):
+            ker = R.rng_prune(xx, ids, dists, flags, metric)
+            ref = R.rng_prune_plain(xx, ids, dists, flags, metric, chunk=1024)
+            worst[(dtype, metric)] = _prune_agreement(
+                "rng_prune", ker, ref, 1e-5 * (2.0 if metric == "cos" else scale),
+                {"dtype": str(dtype), "metric": metric, "rows": rows, "M": ids.shape[1],
+                 "d": d})
     valid = (ids >= 0).sum(1).double()
-    flops = float((2 * valid * valid * d).sum())
-    byts = float(valid.sum()) * d * 4 + rows * ids.shape[1] * 18
     report.append({
         "name": "rng_prune", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rng_prune.cu",
-        "replaces": "src/repro/kernels/rng_prune/kernel.py:161",
+        "replaces": "src/repro/kernels/rng_prune/kernel.py:162",
         "launches": launches["rng_prune"], "max_abs_err": worst[(torch.float32, "l2")],
         "tolerance": f"keep, red_w agreement >= 0.999; red_d <= 1e-5 * 2 max|x|^2 = "
                      f"{1e-5 * scale:.3g} (f32 and bf16)",
         **_timed_keys(time_ms(lambda i: R.rng_prune(x, ids, dists, flags, "l2"), inner=20),
                       time_ms(lambda i: R.rng_prune_plain(x, ids, dists, flags, "l2", 1024),
                               inner=1, rounds=3, warmup=1)),
-        "bound_ms": 1e3 * max(flops / F32_PEAK, byts / HBM_RATE),
-        "bound_by": "operations" if flops / F32_PEAK > byts / HBM_RATE else "bytes",
+        **_bound(float((2 * valid * valid * d).sum()),
+                 float(valid.sum()) * d * 4 + rows * ids.shape[1] * 18),
         "device_ms": device_ms(lambda i: R.rng_prune(x, ids, dists, flags, "l2"), 20,
                                "rng_prune_kernel"),
         "library_ms": None, "shape": {"rows": rows, "M": ids.shape[1], "d": d}})
@@ -424,23 +545,14 @@ def kernel_phase(x, q, g, launches):
     for dtype in (torch.float32, torch.bfloat16):
         xx = x.to(dtype)
         for metric in ("l2", "ip", "cos"):
-            ki, kd, kk = B.beam_score(xx, g.neighbors, us[0], qb, k, metric)
-            ri, rd_, _ = B.beam_score_ref(xx, g.neighbors, us[0], qb, k, metric)
-            check(torch.equal(ki, ri), f"beam_score {dtype} {metric}: ids differ")
-            check(torch.equal(G.key_dist(kk), kd), "beam_score: dists do not decode from keys")
-            fin = torch.isfinite(rd_)
-            check(torch.equal(fin, torch.isfinite(kd)), "beam_score: padding differs")
-            err = float((kd - rd_)[fin].abs().max()) if bool(fin.any()) else 0.0
-            errs[(dtype, metric)] = err
-            emit({"kernel": "beam_score", "dtype": str(dtype), "metric": metric, "B": b,
-                  "k": k, "d": d, "max_abs_err": err, "limit": lims[metric]})
-            check(err <= lims[metric], f"beam_score {dtype} {metric}: dists error {err}")
+            args = (xx, g.neighbors, us[0], qb, k, metric)
+            errs[(dtype, metric)] = _hold_beam(
+                "beam_score", B.beam_score(*args), B.beam_score_ref(*args), lims[metric],
+                {"dtype": str(dtype), "metric": metric, "B": b, "k": k, "d": d})
     nvalid = float((g.neighbors[us[0].long()][:, :k] >= 0).sum())
-    flops = 4.0 * nvalid * d
-    byts = nvalid * d * 4 + b * k * 4 + b * d * 4 + b * 4 + b * k * 12
     report.append({
         "name": "beam_score", "route": "cuda", "source": "src/repro_torch/kernels/csrc/beam_score.cu",
-        "replaces": "src/repro/kernels/beam_score/kernel.py:196",
+        "replaces": "src/repro/kernels/beam_score/kernel.py:197",
         "launches": launches["beam_score"], "max_abs_err": errs[(torch.float32, "l2")],
         "tolerance": f"ids exact; dists <= 1e-5 * (|q|^2 + |x|^2) = {1e-5 * qs:.3g} "
                      "(l2, ip; f32 and bf16), 2e-5 (cos)",
@@ -449,8 +561,7 @@ def kernel_phase(x, q, g, launches):
                     inner=n_us),
             time_ms(lambda i: B.beam_score_ref(x, g.neighbors, us[i % n_us], qb, k, "l2"),
                     inner=n_us)),
-        "bound_ms": 1e3 * max(flops / F32_PEAK, byts / HBM_RATE),
-        "bound_by": "operations" if flops / F32_PEAK > byts / HBM_RATE else "bytes",
+        **_bound(4.0 * nvalid * d, nvalid * d * 4 + b * k * 4 + b * d * 4 + b * 4 + b * k * 12),
         "device_ms": device_ms(
             lambda i: B.beam_score(x, g.neighbors, us[i % n_us], qb, k, "l2"), n_us,
             "beam_score_kernel"),
@@ -470,22 +581,201 @@ def kernel_phase(x, q, g, launches):
           "pairwise_l2 integer-valued: kernel != plain")
     emit({"kernel": "pairwise_l2", "na": 1024, "nb": n, "d": d, "max_abs_err": err,
           "max_err_over_norms": rel})
-    flops = 2.0 * 1024 * n * d
-    byts = (1024 * d + n * d + 1024 * n) * 4.0
     report.append({
         "name": "pairwise_l2", "route": "cuda", "source": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
-        "replaces": "src/repro/kernels/pairwise_l2/kernel.py:48",
+        "replaces": "src/repro/kernels/pairwise_l2/kernel.py:49",
         "launches": launches["pairwise_l2"], "max_abs_err": err,
         "tolerance": "|err| <= 1e-5 * (|a|^2 + |b|^2)",
         **_timed_keys(time_ms(lambda i: P.pairwise_l2(qa, x), inner=5),
                       time_ms(lambda i: P.pairwise_l2_ref(qa, x), inner=5)),
-        "bound_ms": 1e3 * max(flops / F32_PEAK, byts / HBM_RATE),
-        "bound_by": "operations" if flops / F32_PEAK > byts / HBM_RATE else "bytes",
+        **_bound(2.0 * 1024 * n * d, (1024 * d + n * d + 1024 * n) * 4.0),
         "device_ms": device_ms(lambda i: P.pairwise_l2(qa, x), 5, "pairwise_l2_kernel"),
         "library_ms": time_ms(lambda i: torch.cdist(qa, x), inner=5)["ms"],
         "library_call": "torch.cdist (Euclidean, i.e. the square root of the same matrix)",
         "shape": {"na": 1024, "nb": n, "d": d}})
     return report
+
+
+def rerank_ceiling(x, q, gt, qx, width: int = 64) -> float:
+    """recall@10 of the best result any search with an exact rerank tail of
+    ``width`` can return over these codes: the exact top-``width`` by coded
+    l2 distance (brute force over the decoded corpus; PQ's table sums are
+    these distances), re-ranked by exact f32 distance to ``x``. It separates
+    what the quantizer loses from what the graph and beam lose."""
+    from repro_torch.core import distances as D
+    from repro_torch.core import eval as E
+    from repro_torch.kernels.beam_score.ref import score_block
+    from repro_torch.quant import dequantize
+    _, cand = E.ground_truth(dequantize(qx), q, k=width)
+    out = []
+    for s in range(0, q.shape[0], 1024):
+        c = cand[s:s + 1024]
+        exact = score_block(x[c.long()], q[s:s + 1024], "l2")
+        out.append(torch.gather(c, 1, D.topk_smallest(exact, 10)[1]))
+    return E.recall_topk(torch.cat(out), gt)
+
+
+def coded_full_phase(x, q, gt, mode: str, f32_res: dict):
+    """The coded path at full size, launch counts zeroed just before and
+    read just after: every sweep prunes through the mode's prune kernel
+    (rng_prune_int8 over codes; rng_prune over the decoded corpus for PQ)
+    and the search scores through its beam kernel."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    g, _, ids, qx, res = run_path(x, q, 1024, SEED + 1, medium=False, mode=mode, gt=gt)
+    launches = res["launches"] = dict(LAUNCHES)
+    res["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["rerank_ceiling_recall_at_10"] = rerank_ceiling(x, q, gt, qx)
+    res.update(graph_quality(x, g, 10_000, SEED + 11))
+    search_trace(x, q, g, res["search_s"], mode, qx)
+    prune = "rng_prune_int8" if mode == "int8" else "rng_prune"
+    emit({"phase": "coded_path", "n": FULL_N, "d": 128, "queries": FULL_Q,
+          "build": "FULL s=20 r=96 t1=4 t2=15 M=128",
+          "search": f"L=64 K=64 topk=10 hashed, {QUANT_KW[mode]}", "reduced": None,
+          "f32_recall_at_10": f32_res["recall_at_10"], **res})
+    check_launches(launches, mode)
+    check(launches[prune] == res["sweeps"] == 60,
+          f"{mode}: {prune} launched {launches[prune]} times over {res['sweeps']} sweeps")
+    floor = f32_res["recall_at_10"] * res["rerank_ceiling_recall_at_10"] - FULL_CODED_SLACK
+    check(res["recall_at_10"] >= floor, f"{mode} recall@10 {res['recall_at_10']} < {floor}")
+    return g, qx, launches
+
+
+def int8_kernel_phase(x, q, g, qx, launches):
+    """rng_prune_int8 and beam_score_int8 beside their plain versions on the
+    int8 path's graph and codes."""
+    from repro_torch.core import distances as D
+    from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.kernels.rng_prune import ops as R
+    from repro_torch.quant import int8_decode
+    n, d = x.shape
+    rows = 8192
+    ids, dists, flags = (t[:rows].contiguous() for t in g)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    # integer-valued code space over the same codes (dyadic scale, integer
+    # zero): every Gram entry is exact, so kernel and plain agree bit for bit
+    sc_i = 2.0 ** -torch.randint(1, 4, (d,), generator=gen, device="cuda").float()
+    ze_i = torch.randint(-3, 4, (d,), generator=gen, device="cuda").float()
+    src = torch.arange(rows, device="cuda", dtype=torch.int32)[:, None].expand(rows, ids.shape[1])
+    di = D.gather_dists(int8_decode(qx.codes, sc_i, ze_i), src.reshape(-1), ids.reshape(-1),
+                        "l2").reshape(rows, -1)
+    for metric in ("l2", "ip"):
+        ker = R.rng_prune_int8(qx.codes, sc_i, ze_i, ids, di, flags, metric)
+        ref = R.rng_prune_int8_plain(qx.codes, sc_i, ze_i, ids, di, flags, metric, chunk=1024)
+        check(all(torch.equal(a, b) for a, b in zip(ker, ref)),
+              f"rng_prune_int8 integer-valued {metric}: kernel != plain")
+    xh = int8_decode(qx.codes, qx.scale, qx.zero)
+    sq = (xh * xh).sum(1)
+    del xh
+    scale = 2 * float(sq.max())
+    errs = {}
+    for metric in ("l2", "ip", "cos"):
+        lim = 1e-5 * (2.0 if metric == "cos" else scale)
+        ker = R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists, flags, metric)
+        ref = R.rng_prune_int8_plain(qx.codes, qx.scale, qx.zero, ids, dists, flags, metric,
+                                     chunk=1024)
+        errs[metric] = _prune_agreement("rng_prune_int8", ker, ref, lim,
+                                        {"metric": metric, "rows": rows, "M": ids.shape[1],
+                                         "d": d})
+    valid = (ids >= 0).sum(1).double()
+    report = [{
+        "name": "rng_prune_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rng_prune.cu",
+        "replaces": "src/repro/kernels/rng_prune/kernel.py:129",
+        "launches": launches["rng_prune_int8"], "max_abs_err": errs["l2"],
+        "tolerance": f"keep, red_w agreement >= 0.999; red_d <= 1e-5 * 2 max|x_hat|^2 = "
+                     f"{1e-5 * scale:.3g} (l2, ip), 2e-5 (cos); exact on an integer-valued "
+                     "code space",
+        **_timed_keys(
+            time_ms(lambda i: R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists, flags),
+                    inner=20),
+            time_ms(lambda i: R.rng_prune_int8_plain(qx.codes, qx.scale, qx.zero, ids, dists,
+                                                     flags, "l2", 1024),
+                    inner=1, rounds=3, warmup=1)),
+        **_bound(float((2 * valid * valid * d).sum()),
+                 float(valid.sum()) * d + rows * ids.shape[1] * 18 + 2 * d * 4),
+        "device_ms": device_ms(
+            lambda i: R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists, flags), 20,
+            "rng_prune_kernel"),
+        "library_ms": None, "shape": {"rows": rows, "M": ids.shape[1], "d": d}}]
+
+    b, k, n_us = 1024, 64, 200
+    us = [torch.randint(0, n, (b,), generator=gen, device="cuda", dtype=torch.int32)
+          for _ in range(n_us)]
+    qb = q[:b].contiguous()
+    qs = (qb * qb).sum(1, keepdim=True) + float(sq.max())
+    errs = {}
+    for metric in ("l2", "ip", "cos"):
+        lim = 1e-5 * qs if metric != "cos" else torch.full_like(qs, 2e-5)
+        args = (qx.codes, qx.scale, qx.zero, g.neighbors, us[0], qb, k, metric)
+        errs[metric] = _hold_beam("beam_score_int8", B.beam_score_int8(*args),
+                                  B.beam_score_int8_ref(*args), lim,
+                                  {"metric": metric, "B": b, "k": k, "d": d})
+    nvalid = float((g.neighbors[us[0].long()][:, :k] >= 0).sum())
+    report.append({
+        "name": "beam_score_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/beam_score.cu",
+        "replaces": "src/repro/kernels/beam_score/kernel.py:231",
+        "launches": launches["beam_score_int8"], "max_abs_err": errs["l2"],
+        "tolerance": "ids exact; dists <= 1e-5 * (|q|^2 + max|x_hat|^2) (l2, ip), 2e-5 (cos)",
+        **_timed_keys(
+            time_ms(lambda i: B.beam_score_int8(qx.codes, qx.scale, qx.zero, g.neighbors,
+                                                us[i % n_us], qb, k, "l2"), inner=n_us),
+            time_ms(lambda i: B.beam_score_int8_ref(qx.codes, qx.scale, qx.zero, g.neighbors,
+                                                    us[i % n_us], qb, k, "l2"), inner=n_us)),
+        **_bound(6.0 * nvalid * d,
+                 nvalid * d + b * k * 4 + b * d * 4 + b * 4 + b * k * 12 + 2 * d * 4),
+        "device_ms": device_ms(
+            lambda i: B.beam_score_int8(qx.codes, qx.scale, qx.zero, g.neighbors, us[i % n_us],
+                                        qb, k, "l2"), n_us, "beam_score_kernel"),
+        "library_ms": None, "shape": {"B": b, "k": k, "M": g.capacity, "d": d, "n": n}})
+    return report
+
+
+def pq_kernel_phase(x, q, g, qx, launches):
+    """beam_score_pq beside its plain version on the PQ path's graph, codes
+    and the tables of its first 1024 queries."""
+    from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.quant import pq_lut
+    n, mq = qx.codes.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    b, k, n_us = 1024, 64, 200
+    us = [torch.randint(0, n, (b,), generator=gen, device="cuda", dtype=torch.int32)
+          for _ in range(n_us)]
+    qb = q[:b].contiguous()
+    errs, luts = {}, {}
+    for metric in ("l2", "ip", "cos"):
+        lut = luts[metric] = pq_lut(qb, qx.codebooks, metric)
+        # the m terms add in another order: error scales with their magnitudes
+        lim = (1e-5 * lut[0].abs().amax(dim=2).sum(1, keepdim=True) if metric != "cos"
+               else torch.full((b, 1), 2e-5, device="cuda"))
+        args = (qx.codes, g.neighbors, us[0], *lut, k, metric)
+        errs[metric] = _hold_beam("beam_score_pq", B.beam_score_pq(*args),
+                                  B.beam_score_pq_ref(*args), lim,
+                                  {"metric": metric, "B": b, "k": k, "m": mq})
+    lut = luts["l2"]
+    nvalid = float((g.neighbors[us[0].long()][:, :k] >= 0).sum())
+    return [{
+        "name": "beam_score_pq", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/beam_score_pq.cu",
+        "replaces": "src/repro/kernels/beam_score/kernel.py:267",
+        "launches": launches["beam_score_pq"], "max_abs_err": errs["l2"],
+        "tolerance": "ids exact; dists <= 1e-5 * sum_s max_c |lut_a[b, s, c]| (l2, ip), "
+                     "2e-5 (cos)",
+        **_timed_keys(
+            time_ms(lambda i: B.beam_score_pq(qx.codes, g.neighbors, us[i % n_us], *lut, k,
+                                              "l2"), inner=n_us),
+            time_ms(lambda i: B.beam_score_pq_ref(qx.codes, g.neighbors, us[i % n_us], *lut,
+                                                  k, "l2"), inner=n_us)),
+        # bytes: the valid candidates' code rows and the table entries they
+        # index, the adjacency prefixes, frontier ids and outputs
+        **_bound(nvalid * mq, nvalid * mq * 5 + b * k * 4 + b * 4 + b * k * 12),
+        "device_ms": device_ms(
+            lambda i: B.beam_score_pq(qx.codes, g.neighbors, us[i % n_us], *lut, k, "l2"),
+            n_us, "beam_score_pq_kernel"),
+        "library_ms": None, "shape": {"B": b, "k": k, "M": g.capacity, "m": mq, "n": n}}]
 
 
 def warm_up() -> None:
@@ -496,8 +786,16 @@ def warm_up() -> None:
     from repro_torch.kernels.rng_prune import ops as R
     x = torch.zeros(4, 8, device="cuda")
     ids = torch.tensor([[1, 2], [0, -1], [3, 0], [-1, -1]], dtype=torch.int32, device="cuda")
+    u = ids[:, 0].clamp(min=0).contiguous()
+    codes = torch.zeros(4, 8, dtype=torch.int8, device="cuda")
+    ones, zeros = torch.ones(8, device="cuda"), torch.zeros(8, device="cuda")
+    pq = torch.zeros(4, 2, dtype=torch.uint8, device="cuda")
     R.rng_prune(x, ids, torch.zeros(4, 2, device="cuda"))
-    B.beam_score(x, ids, ids[:, 0].clamp(min=0).contiguous(), x, 2)
+    R.rng_prune_int8(codes, ones, zeros, ids, torch.zeros(4, 2, device="cuda"))
+    B.beam_score(x, ids, u, x, 2)
+    B.beam_score_int8(codes, ones, zeros, ids, u, x, 2)
+    B.beam_score_pq(pq, ids, u, torch.zeros(4, 2, 256, device="cuda"),
+                    torch.zeros(2, 256, device="cuda"), torch.zeros(4, device="cuda"), 2)
     P.pairwise_l2(x, x)
     torch.cuda.synchronize()
 
@@ -518,13 +816,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
     warm_up()
-    t0 = time.perf_counter()
     medium_phase()
-    x, q, g, launches, res = full_phase()
+    x, q, g, gt, launches, res = full_phase()
     report = kernel_phase(x, q, g, launches)
     del g
-    sort_oracle_build(x, q, res)
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    sort_oracle_build(x, q, gt, res)
+    g, qx, coded = coded_full_phase(x, q, gt, "int8", res)
+    report += int8_kernel_phase(x, q, g, qx, coded)
+    del g, qx
+    g, qx, coded = coded_full_phase(x, q, gt, "pq", res)
+    report += pq_kernel_phase(x, q, g, qx, coded)
+    del g, qx
+    emit({"phase": "done", "seconds": time.perf_counter() - T0,
+          "kernel_build_s": built["seconds"]})
     emit({"kernels": report})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,51 @@
+"""The JAX package's numbers for the medium configuration of chip_smoke.py.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py [f32 int8 pq]
+
+Runs the reference (``repro``, jnp paths, CPU) on the SIFT-like mixture at
+n = 20k with 500 queries: build ``rnnd_ann.FULL`` under each corpus mode,
+then hashed ``search_tiled`` at L = K = 64, top-10 (int8 and PQ with m = 32
+and the exact-f32 rerank tail of width 64). Prints one JSON line per mode
+with recall@10, recall@1, the average out-degree and the seconds taken.
+``chip_smoke.py`` keeps these numbers as ``REF_MEDIUM``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+
+import jax
+
+from repro.configs.rnnd_ann import FULL, SEARCH
+from repro.core import eval as E
+from repro.core import rnn_descent as rd
+from repro.core import search as S
+from repro.data.synthetic import VectorDatasetSpec, clustered_vectors
+from repro.quant import Quantization, encode_corpus
+
+QUANTS = {"f32": Quantization(), "int8": Quantization(mode="int8", rerank_k=64),
+          "pq": Quantization(mode="pq", m=32, rerank_k=64)}
+
+
+def main(modes) -> None:
+    x, q = clustered_vectors(jax.random.PRNGKey(0), VectorDatasetSpec.sift_like(20_000, 500))
+    _, gt = E.ground_truth(x, q, k=10)
+    ep = S.default_entry_point(x)
+    for mode in modes:
+        quant = QUANTS[mode]
+        t0 = time.perf_counter()
+        g = rd.build(x, dataclasses.replace(FULL, quant=quant), jax.random.PRNGKey(1))
+        qx = encode_corpus(x, quant) if quant.is_coded else None
+        cfg = dataclasses.replace(SEARCH, topk=10, quant=quant)
+        ids, _ = S.search_tiled(x, g, q, ep, cfg, tile_b=500, qx=qx)
+        print(json.dumps({"mode": mode, "n": 20_000, "queries": 500,
+                          "recall_at_10": float(E.recall_topk(ids, gt)),
+                          "recall_at_1": float(E.recall_at_k(ids, gt)),
+                          "avg_out_degree": E.degree_stats(g)["avg_out_degree"],
+                          "seconds": time.perf_counter() - t0}), flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:] or list(QUANTS))

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.graph import Graph
+from repro_torch.quant import QuantizedCorpus
 
 
 def graph_from_numpy(neighbors, dists, flags, device: str | torch.device = "cuda") -> Graph:
@@ -25,6 +26,20 @@ def graph_from_numpy(neighbors, dists, flags, device: str | torch.device = "cuda
 
 def graph_to_numpy(g: Graph) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return tuple(t.cpu().numpy() for t in g)
+
+
+def quantized_from_numpy(qx, device: str | torch.device = "cuda") -> QuantizedCorpus:
+    """``(codes, scale, zero, codebooks)`` arrays (the reference's
+    ``QuantizedCorpus`` has these fields in this order; unused ones None)
+    -> the port's coded corpus on ``device``."""
+    dev = resolve_device(device)
+    return QuantizedCorpus(*(None if a is None else torch.tensor(np.asarray(a), device=dev)
+                             for a in qx))
+
+
+def quantized_to_numpy(qx: QuantizedCorpus) -> tuple:
+    """(codes, scale, zero, codebooks) as numpy arrays (None where unused)."""
+    return tuple(None if a is None else a.cpu().numpy() for a in qx)
 
 
 def key_to_reference(k) -> np.ndarray:

@@ -8,7 +8,9 @@
 Every vertex is updated in parallel per sweep; replacement edges (w -> v)
 from the fused RNG prune are buffered and merged (bucketed merge by default,
 the sort oracle on request). The fused prune is the ``rng_prune`` CUDA kernel
-on the card and its plain version on the CPU.
+on the card and its plain version on the CPU; under ``quant.mode="int8"``
+it is ``rng_prune_int8``, which gathers code rows and decodes them in
+registers.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch import as_tensor
 from repro_torch.core import graph as G
 from repro_torch.kernels.rng_prune import ops as rng_ops
+from repro_torch.quant import Quantization, QuantizedCorpus, prep_corpus
 
 GRAM_DTYPES = ("f32", "bf16")
 
@@ -37,6 +40,7 @@ class RNNDescentConfig:
     gram_dtype: str = "f32"    # "bf16": the prune gathers bf16 rows, f32 Gram
     merge: str = "bucketed"    # "bucketed" (scatter buckets) | "sort" (oracle)
     n_buckets: int | None = None   # bucket width override (power of two)
+    quant: Quantization = Quantization()  # corpus representation at build time
 
     def __post_init__(self):
         if self.capacity < self.r:
@@ -51,6 +55,20 @@ class RNNDescentConfig:
             raise ValueError(
                 f"unknown gram_dtype {self.gram_dtype!r}: expected one of "
                 f"{GRAM_DTYPES}")
+        if not isinstance(self.quant, Quantization):
+            raise ValueError(
+                f"quant must be a repro_torch.quant.Quantization, got "
+                f"{type(self.quant).__name__}")
+        if self.quant.is_coded and self.gram_dtype == "bf16":
+            raise ValueError(
+                f"quant.mode={self.quant.mode!r} conflicts with "
+                "gram_dtype=\"bf16\": pick one compression (use "
+                "quant.mode=\"bf16\" for half-width gathers)")
+
+    @property
+    def effective_gram_dtype(self) -> str:
+        """``quant.mode="bf16"`` selects the bf16-gather path."""
+        return "bf16" if self.quant.mode == "bf16" else self.gram_dtype
 
 
 def random_init(x: torch.Tensor, cfg: RNNDescentConfig,
@@ -60,25 +78,33 @@ def random_init(x: torch.Tensor, cfg: RNNDescentConfig,
 
 
 def gram_input(x: torch.Tensor, cfg: RNNDescentConfig) -> torch.Tensor:
-    """The corpus as the prune gathers it (bf16 under ``gram_dtype="bf16"``)."""
-    return x.to(torch.bfloat16) if cfg.gram_dtype == "bf16" else x
+    """The corpus as the prune gathers it (bf16 under the effective gram
+    dtype "bf16")."""
+    return x.to(torch.bfloat16) if cfg.effective_gram_dtype == "bf16" else x
 
 
 def prune_rows(x: torch.Tensor, ids: torch.Tensor, dists: torch.Tensor,
-               flags: torch.Tensor, cfg: RNNDescentConfig):
-    """Fused prune over a block of adjacency rows -> (keep bool, red_w, red_d)."""
-    keep, red_w, red_d = rng_ops.rng_prune(x, ids, dists, flags,
-                                           metric=cfg.metric, chunk=cfg.chunk)
+               flags: torch.Tensor, cfg: RNNDescentConfig,
+               qx: QuantizedCorpus | None = None):
+    """Fused prune over a block of adjacency rows -> (keep bool, red_w,
+    red_d). ``qx`` (int8 codes) prunes over the code rows instead of ``x``."""
+    if qx is not None:
+        keep, red_w, red_d = rng_ops.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists,
+                                                    flags, metric=cfg.metric, chunk=cfg.chunk)
+    else:
+        keep, red_w, red_d = rng_ops.rng_prune(x, ids, dists, flags,
+                                               metric=cfg.metric, chunk=cfg.chunk)
     return keep.bool(), red_w, red_d
 
 
-def update_neighbors(x: torch.Tensor, g: G.Graph, cfg: RNNDescentConfig) -> G.Graph:
+def update_neighbors(x: torch.Tensor, g: G.Graph, cfg: RNNDescentConfig,
+                     qx: QuantizedCorpus | None = None) -> G.Graph:
     """Paper Algorithm 4, one parallel sweep over all vertices: keep the RNG
     survivors (flags become "old"), and merge each dropped v's replacement
     edge (w -> v) into w's row, flagged "new". ``x`` is cast to the gram
-    dtype if it is not in it already."""
+    dtype if it is not in it already; ``qx`` (int8) prunes over codes."""
     keep, red_w, red_d = prune_rows(gram_input(x, cfg), g.neighbors, g.dists,
-                                    g.flags, cfg)
+                                    g.flags, cfg, qx=qx)
     inf = torch.tensor(float("inf"), device=g.dists.device)
     pruned = G.sort_rows(G.Graph(
         neighbors=torch.where(keep, g.neighbors, -1),
@@ -100,15 +126,20 @@ def build(x, cfg: RNNDescentConfig, generator: torch.Generator | None = None,
           device: str | torch.device = "cuda") -> G.Graph:
     """Paper Algorithm 6. ``x`` (n, d) float32: a tensor runs on its own
     device; numpy input is placed on ``device``. ``generator`` (on x's
-    device) draws the random initial graph; None seeds one with 0."""
+    device) draws the random initial graph; None seeds one with 0.
+
+    ``cfg.quant`` int8/pq builds the graph over the decoded corpus
+    (:func:`prep_corpus`), the geometry the coded search traverses; the int8
+    prune gathers code rows instead of f32 rows."""
     x = as_tensor(x, device, torch.float32)
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
+    x, qx = prep_corpus(x, cfg.quant)
     g = random_init(x, cfg, generator)
     xg = gram_input(x, cfg)              # cast once per build, not per sweep
     for t1 in range(cfg.t1):
         for _ in range(cfg.t2):
-            g = update_neighbors(xg, g, cfg)
+            g = update_neighbors(xg, g, cfg, qx=qx)
         if t1 != cfg.t1 - 1:
             g = add_reverse_edges(g, cfg)
     return g

@@ -7,6 +7,13 @@ truncates each expanded vertex's adjacency to its first K entries (rows are
 distance-sorted). The gather+score step is the ``beam_score`` CUDA kernel on
 the card and its plain version on the CPU.
 
+Coded corpora (``quant.mode`` int8 or pq, codes passed as ``qx=``): the
+seeds and every beam step score through the codes (``beam_score_int8``
+decodes code rows in registers; ``beam_score_pq`` looks codes up in
+per-query tables that ``pq_lut`` forms once per tile, outside the loop), and
+an exact-f32 rerank tail re-scores the best ``quant.rerank_k`` beam entries
+against ``x``, the only place a coded search reads it.
+
 Visited state: ``"dense"`` is the exact oracle, a (B, n+1) bool mask (column
 n is scratch); ``"hashed"`` an open-addressed table of ``slots`` int32 ids
 per lane, probed linearly, with one scratch column. Hashed inserts that race
@@ -32,6 +39,13 @@ from repro_torch.core import distances as D
 from repro_torch.core import graph as G
 from repro_torch.kernels.beam_score import ops as bs_ops
 from repro_torch.kernels.beam_score.ref import score_block
+from repro_torch.quant import (
+    Quantization,
+    QuantizedCorpus,
+    int8_score_block,
+    pq_lut,
+    pq_score_codes,
+)
 
 METRICS = ("l2", "ip", "cos")
 GRAM_DTYPES = ("f32", "bf16")
@@ -49,6 +63,7 @@ class SearchConfig:
     slots: int | None = None  # hashed table size (power of two); None -> resolve_slots
     probes: int = 8          # linear-probe attempts per hashed lookup/insert
     gram_dtype: str = "f32"  # neighbour-gather dtype: "f32" | "bf16"
+    quant: Quantization = Quantization()  # corpus representation: f32/bf16/int8/pq
 
     def __post_init__(self):
         if self.metric not in METRICS:
@@ -77,6 +92,27 @@ class SearchConfig:
                 self.slots < 8 or (self.slots & (self.slots - 1)) != 0):
             raise ValueError(
                 f"slots must be a power of two >= 8, got {self.slots}")
+        if not isinstance(self.quant, Quantization):
+            raise ValueError(
+                f"quant must be a repro_torch.quant.Quantization, got "
+                f"{type(self.quant).__name__}")
+        if self.quant.is_coded:
+            if self.gram_dtype == "bf16":
+                raise ValueError(
+                    f"quant.mode={self.quant.mode!r} conflicts with "
+                    "gram_dtype=\"bf16\": the coded paths gather codes, not "
+                    "vectors; pick one compression (use quant.mode=\"bf16\" "
+                    "for half-width gathers)")
+            if 0 < self.quant.rerank_k < self.topk:
+                raise ValueError(
+                    f"quant.rerank_k={self.quant.rerank_k} is smaller than "
+                    f"topk={self.topk}: the exact-f32 rerank tail must cover "
+                    "at least the returned results (or be 0 to disable)")
+
+    @property
+    def effective_gram_dtype(self) -> str:
+        """``quant.mode="bf16"`` selects the bf16-gather path."""
+        return "bf16" if self.quant.mode == "bf16" else self.gram_dtype
 
 
 def _next_pow2(v: int) -> int:
@@ -162,9 +198,21 @@ def _merge_smallest(d: torch.Tensor, l: int, *others: torch.Tensor):
             *(torch.gather(t, 1, order) for t in others))
 
 
+def _check_codes(cfg: SearchConfig, qx: QuantizedCorpus | None) -> str | None:
+    """The coded mode of ``cfg`` (None for f32/bf16); raises when it has no
+    codes to search."""
+    qmode = cfg.quant.mode if cfg.quant.is_coded else None
+    if qmode and qx is None:
+        raise ValueError(
+            f"cfg.quant selects mode {qmode!r} but no quantized corpus was "
+            "passed (qx=): encode with repro_torch.quant.encode_corpus")
+    return qmode
+
+
 def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
                  eps: torch.Tensor, cfg: SearchConfig,
-                 lane_valid: torch.Tensor | None = None):
+                 lane_valid: torch.Tensor | None = None,
+                 qx: QuantizedCorpus | None = None):
     """Returns (ids, dists, work, iters): results, per-lane expansion counts
     and the executed iteration count (a 0-d device tensor)."""
     n = x.shape[0]
@@ -173,14 +221,25 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
     dev = queries.device
     k = min(cfg.k, g.capacity)
     inf = torch.tensor(float("inf"), device=dev)
-    xg = x.to(torch.bfloat16) if cfg.gram_dtype == "bf16" else x
+    qmode = _check_codes(cfg, qx)
+    xg = x.to(torch.bfloat16) if cfg.effective_gram_dtype == "bf16" else x
+    if qmode == "pq":
+        # loop-invariant: once per tile, never inside the beam loop
+        lut_a, lut_b, qsq = pq_lut(queries, qx.codebooks, cfg.metric)
 
     # --- seed the beam with E entries (duplicate seeds within a lane inert);
-    # seeds read the f32 corpus and score through score_block
+    # seeds score through the corpus the beam scores (f32 rows through
+    # score_block, or the codes), so every beam distance lives on one scale
     ar = torch.arange(e, device=dev)
     dup = ((eps[:, :, None] == eps[:, None, :])
            & (ar[None, :, None] > ar[None, None, :])).any(dim=-1)
-    ep_d = score_block(x[eps.long()], queries, cfg.metric)        # (B, E)
+    if qmode == "int8":
+        ep_d = int8_score_block(qx.codes[eps.long()], qx.scale, qx.zero, queries,
+                                cfg.metric)
+    elif qmode == "pq":
+        ep_d = pq_score_codes(qx.codes[eps.long()], lut_a, lut_b, qsq, cfg.metric)
+    else:
+        ep_d = score_block(x[eps.long()], queries, cfg.metric)    # (B, E)
     beam_ids = torch.full((b, cfg.l), -1, dtype=torch.int32, device=dev)
     beam_ids[:, :e] = torch.where(dup, -1, eps)
     beam_d = torch.full((b, cfg.l), float("inf"), device=dev)
@@ -218,8 +277,16 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
         u = torch.where(active, torch.gather(beam_ids, 1, slot)[:, 0], 0)
         expanded.scatter_(1, slot, torch.gather(expanded, 1, slot) | active[:, None])
 
-        nbrs, cand_d, _ = bs_ops.beam_score(xg, g.neighbors, u, queries, k=k,
-                                            metric=cfg.metric)
+        if qmode == "int8":
+            nbrs, cand_d, _ = bs_ops.beam_score_int8(qx.codes, qx.scale, qx.zero,
+                                                     g.neighbors, u, queries, k=k,
+                                                     metric=cfg.metric)
+        elif qmode == "pq":
+            nbrs, cand_d, _ = bs_ops.beam_score_pq(qx.codes, g.neighbors, u, lut_a, lut_b,
+                                                   qsq, k=k, metric=cfg.metric)
+        else:
+            nbrs, cand_d, _ = bs_ops.beam_score(xg, g.neighbors, u, queries, k=k,
+                                                metric=cfg.metric)
         cand_ok = (nbrs >= 0) & active[:, None]
         if dense:
             seen = torch.gather(visited, 1, nbrs.clamp(min=0).long())
@@ -237,33 +304,48 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
             torch.cat([beam_ids, torch.where(fresh, nbrs, -1)], dim=1),
             torch.cat([expanded, ~fresh], dim=1))
         go = (~done).any()
+    rerank = min(cfg.quant.rerank_k, cfg.l) if qmode else 0
+    if rerank:
+        # exact-f32 rerank tail: re-score the best `rerank` beam entries
+        # against x, then take the top-k of the exact distances (-1/+inf pad)
+        q_d, rids = _merge_smallest(torch.where(beam_ids >= 0, beam_d, inf), rerank,
+                                    beam_ids)
+        exact = score_block(x[rids.clamp(min=0).long()], queries, cfg.metric)
+        exact = torch.where(q_d < inf, exact, inf)
+        out_d, out_ids = _merge_smallest(exact, cfg.topk, rids)
+        return torch.where(out_d < inf, out_ids, -1), out_d, work, iters
     return beam_ids[:, :cfg.topk], beam_d[:, :cfg.topk], work, iters
 
 
 def search(x: torch.Tensor, g: G.Graph, queries: torch.Tensor, entry_points,
-           cfg: SearchConfig):
+           cfg: SearchConfig, qx: QuantizedCorpus | None = None):
     """Returns (ids, dists) of shape (B, topk), ascending distance.
-    ``entry_points``: scalar | (B,) | (B, E)."""
+    ``entry_points``: scalar | (B,) | (B, E). ``qx``: the encoded corpus
+    (``repro_torch.quant.encode_corpus``), required when ``cfg.quant`` is
+    int8/pq; ``x`` is then read only by the rerank tail."""
     eps = _validate_entry_points(entry_points, queries.shape[0], cfg.l, queries.device)
-    ids, dists, _, _ = _search_impl(x, g, queries, eps, cfg)
+    ids, dists, _, _ = _search_impl(x, g, queries, eps, cfg, qx=qx)
     return ids, dists
 
 
 def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
                  tile_b: int = 256, with_stats: bool = False,
                  lane_valid: torch.Tensor | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 qx: QuantizedCorpus | None = None):
     """Stream an arbitrary query count through ``tile_b``-lane tiles; only
     one tile's search state is alive at a time. Results equal :func:`search`.
 
     ``x``/``queries`` as tensors run on their device; numpy input is placed
     on ``device``. The last tile is padded to ``tile_b`` lanes that start
     retired. ``lane_valid`` (B,) bool retires the lanes marked False at
-    iteration 0 (their rows are unspecified). ``with_stats`` also returns
+    iteration 0 (their rows are unspecified). ``qx``: the encoded corpus for
+    a coded ``cfg.quant`` (see :func:`search`). ``with_stats`` also returns
     {"work": lane-iterations expanded, "launched": iterations executed x
     lanes launched, "tiles", "tile_lanes"}."""
     x = as_tensor(x, device, torch.float32)
     queries = as_tensor(queries, x.device, torch.float32)
+    _check_codes(cfg, qx)
     b = queries.shape[0]
     eps = _validate_entry_points(entry_points, b, cfg.l, x.device)
     if lane_valid is not None and tuple(lane_valid.shape) != (b,):
@@ -281,7 +363,7 @@ def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
     ids, dists, work, iters = [], [], [], []
     for s in range(0, b + pad, tile_b):
         out = _search_impl(x, g, queries[s:s + tile_b], eps[s:s + tile_b], cfg,
-                           lane_valid=lv[s:s + tile_b])
+                           lane_valid=lv[s:s + tile_b], qx=qx)
         for acc, val in zip((ids, dists, work, iters), out):
             acc.append(val)
     if ids:

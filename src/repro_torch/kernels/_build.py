@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels: ``nvcc`` into plain-C shared libraries,
 loaded with ``ctypes``.
 
-Each ``csrc/<name>.cu`` compiles on its own (one ``nvcc`` per source, all
-started together by :func:`build_all`) into ``build/kernels/<name>-<hash>.so``
-at the repository root; the hash covers the source and the flags, so a stale
-library is never loaded. A build error raises with nvcc's output.
+Each ``csrc/<source>.cu`` compiles on its own (one ``nvcc`` per source, all
+started together by :func:`build_all`) into
+``build/kernels/<source>-<hash>.so`` at the repository root; a source may
+hold several entry points (``beam_score`` and ``beam_score_int8``). The hash
+covers the source and the flags, so a stale library is never loaded. A
+build error raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("rng_prune", "beam_score", "pairwise_l2")
+KERNELS = ("rng_prune", "beam_score", "beam_score_pq", "pairwise_l2")  # sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,16 +75,18 @@ def build_all(names=KERNELS) -> dict:
     return {"seconds": time.perf_counter() - t0, "ptxas": reports}
 
 
-def load(name: str, argtypes: str):
-    """The C entry point ``name`` of ``csrc/<name>.cu`` (built on first use),
+def load(name: str, argtypes: str, source: str | None = None):
+    """The C entry point ``name`` of ``csrc/<source>.cu`` (``source``
+    defaults to ``name``; built on first use),
     typed from ``argtypes``: one letter per argument, ``p`` a pointer or the
     stream (``c_void_p``: a Python int would be cut to 32 bits), ``i`` an
     int. It returns a ``cudaError_t`` as int."""
     fn = _LIBS.get(name)
     if fn is None:
-        path = _lib_path(name)
+        source = source or name
+        path = _lib_path(source)
         if not path.exists():
-            build_all((name,))
+            build_all((source,))
         fn = getattr(ctypes.CDLL(str(path)), name)
         fn.argtypes = [{"p": ctypes.c_void_p, "i": ctypes.c_int}[c] for c in argtypes]
         fn.restype = ctypes.c_int

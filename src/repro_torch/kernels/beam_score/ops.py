@@ -1,28 +1,41 @@
-"""Fused beam expansion (gather adjacency prefix, gather vectors, score):
-wrapper of ``csrc/beam_score.cu``; its plain version is :func:`beam_score_ref`."""
+"""Fused beam expansion (gather adjacency prefix, gather rows, score):
+wrappers of ``csrc/beam_score.cu`` (f32/bf16 rows, int8 code rows) and
+``csrc/beam_score_pq.cu`` (PQ codes against per-query tables); their plain
+versions are in ``ref.py``."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, metric_code
-from repro_torch.kernels.beam_score.ref import beam_score_ref
+from repro_torch.kernels.beam_score.ref import (
+    beam_score_int8_ref,
+    beam_score_pq_ref,
+    beam_score_ref,
+)
 
 
-def _check(x, neighbors, u, queries):
-    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x must be (n, d) float32 or bfloat16, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+def _check_rows(x, neighbors, u, dtypes, *rest):
+    if x.dim() != 2 or x.dtype not in dtypes:
+        raise ValueError(f"x must be (n, d) of {dtypes}, got {tuple(x.shape)} {x.dtype}")
     if neighbors.dim() != 2 or neighbors.dtype != torch.int32 \
             or neighbors.shape[0] != x.shape[0]:
         raise ValueError("neighbors must be (n, M) int32 over the rows of x")
     if u.dim() != 1 or u.dtype != torch.int32:
         raise ValueError(f"u must be (B,) int32, got {tuple(u.shape)} {u.dtype}")
-    if queries.shape != (u.shape[0], x.shape[1]) or queries.dtype != torch.float32:
-        raise ValueError(f"queries must be (B, d) = ({u.shape[0]}, {x.shape[1]}) "
-                         f"float32, got {tuple(queries.shape)} {queries.dtype}")
-    devs = {t.device for t in (x, neighbors, u, queries)}
+    devs = {t.device for t in (x, neighbors, u, *rest)}
     if len(devs) != 1:
         raise ValueError(f"all inputs must share one device, got {devs}")
+
+
+def _check_f32(name, t, shape):
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be {tuple(shape)} float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def _check(x, neighbors, u, queries):
+    _check_rows(x, neighbors, u, (torch.float32, torch.bfloat16), queries)
+    _check_f32("queries", queries, (u.shape[0], x.shape[1]))
 
 
 def beam_score(x: torch.Tensor, neighbors: torch.Tensor, u: torch.Tensor,
@@ -39,19 +52,20 @@ def beam_score(x: torch.Tensor, neighbors: torch.Tensor, u: torch.Tensor,
     return _launch(x, neighbors, u, queries, k, metric)
 
 
-def _launch(x, neighbors, u, queries, k, metric):
-    n, d = x.shape
-    m = neighbors.shape[1]
-    b = u.shape[0]
-    k = max(0, min(k, m))
-    if n >= 2**31:
+def _outputs(x, neighbors, u, k):
+    if x.shape[0] >= 2**31:
         raise ValueError("n must fit int32")
-    x, neighbors, u, queries = (t.contiguous() for t in (x, neighbors, u, queries))
-    ids = torch.empty((b, k), dtype=torch.int32, device=x.device)
-    dists = torch.empty((b, k), dtype=torch.float32, device=x.device)
-    keys = torch.empty((b, k), dtype=torch.int32, device=x.device)
-    if b == 0 or k == 0:
+    b, k = u.shape[0], max(0, min(k, neighbors.shape[1]))
+    return tuple(torch.empty((b, k), dtype=dt, device=x.device)
+                 for dt in (torch.int32, torch.float32, torch.int32))
+
+
+def _launch(x, neighbors, u, queries, k, metric):
+    ids, dists, keys = _outputs(x, neighbors, u, k)
+    if ids.numel() == 0:
         return ids, dists, keys
+    (n, d), m, (b, k) = x.shape, neighbors.shape[1], ids.shape
+    x, neighbors, u, queries = (t.contiguous() for t in (x, neighbors, u, queries))
     rc = _build.load("beam_score", "ppppiiiiiiipppp")(
         x.data_ptr(), neighbors.data_ptr(), u.data_ptr(), queries.data_ptr(),
         n, d, m, b, k, metric_code(metric), int(x.dtype == torch.bfloat16),
@@ -59,4 +73,66 @@ def _launch(x, neighbors, u, queries, k, metric):
         _build.stream_handle(x.device))
     _build.check(rc, "beam_score")
     LAUNCHES["beam_score"] += 1
+    return ids, dists, keys
+
+
+def beam_score_int8(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                    neighbors: torch.Tensor, u: torch.Tensor, queries: torch.Tensor,
+                    k: int, metric: str = "l2"):
+    """:func:`beam_score` over an int8 corpus ``codes`` (n, d) with per-dim
+    ``scale``/``zero`` (d,): the gathered code rows are decoded in registers
+    (``codes * scale + zero``, two roundings) and scored as f32 rows. CPU
+    tensors run :func:`beam_score_int8_ref`; CUDA tensors the kernel."""
+    metric_code(metric)
+    _check_rows(codes, neighbors, u, (torch.int8,), scale, zero, queries)
+    d = codes.shape[1]
+    _check_f32("scale", scale, (d,))
+    _check_f32("zero", zero, (d,))
+    _check_f32("queries", queries, (u.shape[0], d))
+    if codes.device.type == "cpu":
+        return beam_score_int8_ref(codes, scale, zero, neighbors, u, queries, k, metric)
+    ids, dists, keys = _outputs(codes, neighbors, u, k)
+    if ids.numel() == 0:
+        return ids, dists, keys
+    n, m, (b, k) = codes.shape[0], neighbors.shape[1], ids.shape
+    codes, scale, zero, neighbors, u, queries = (
+        t.contiguous() for t in (codes, scale, zero, neighbors, u, queries))
+    rc = _build.load("beam_score_int8", "ppppppiiiiiipppp", source="beam_score")(
+        codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), neighbors.data_ptr(),
+        u.data_ptr(), queries.data_ptr(), n, d, m, b, k, metric_code(metric),
+        ids.data_ptr(), dists.data_ptr(), keys.data_ptr(),
+        _build.stream_handle(codes.device))
+    _build.check(rc, "beam_score_int8")
+    LAUNCHES["beam_score_int8"] += 1
+    return ids, dists, keys
+
+
+def beam_score_pq(codes: torch.Tensor, neighbors: torch.Tensor, u: torch.Tensor,
+                  lut_a: torch.Tensor, lut_b: torch.Tensor, qsq: torch.Tensor,
+                  k: int, metric: str = "l2"):
+    """:func:`beam_score` over PQ codes (n, m) uint8, scored against the
+    per-query tables of ``pq_lut``: ``lut_a`` (B, m, 256), ``lut_b``
+    (m, 256), ``qsq`` (B,). CPU tensors run :func:`beam_score_pq_ref`;
+    CUDA tensors the kernel."""
+    metric_code(metric)
+    _check_rows(codes, neighbors, u, (torch.uint8,), lut_a, lut_b, qsq)
+    b, mq = u.shape[0], codes.shape[1]
+    _check_f32("lut_a", lut_a, (b, mq, 256))
+    _check_f32("lut_b", lut_b, (mq, 256))
+    _check_f32("qsq", qsq, (b,))
+    if codes.device.type == "cpu":
+        return beam_score_pq_ref(codes, neighbors, u, lut_a, lut_b, qsq, k, metric)
+    ids, dists, keys = _outputs(codes, neighbors, u, k)
+    if ids.numel() == 0:
+        return ids, dists, keys
+    n, m, k = codes.shape[0], neighbors.shape[1], ids.shape[1]
+    codes, neighbors, u, lut_a, lut_b, qsq = (
+        t.contiguous() for t in (codes, neighbors, u, lut_a, lut_b, qsq))
+    rc = _build.load("beam_score_pq", "ppppppiiiiiipppp")(
+        codes.data_ptr(), neighbors.data_ptr(), u.data_ptr(), lut_a.data_ptr(),
+        lut_b.data_ptr(), qsq.data_ptr(), n, mq, m, b, k, metric_code(metric),
+        ids.data_ptr(), dists.data_ptr(), keys.data_ptr(),
+        _build.stream_handle(codes.device))
+    _build.check(rc, "beam_score_pq")
+    LAUNCHES["beam_score_pq"] += 1
     return ids, dists, keys

@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the fused gather+score beam step.
+"""Plain PyTorch versions of the fused gather+score beam step, over an f32
+or bf16 corpus, int8 codes or PQ codes.
 
 :func:`score_block` mirrors ``repro.kernels.beam_score.ref.score_block``:
 l2 is ``max(||q||^2 + ||v||^2 - 2 q.v, 0)`` (not the diff form), ip is
@@ -39,7 +40,35 @@ def beam_score_ref(x: torch.Tensor, neighbors: torch.Tensor, u: torch.Tensor,
     dists f32 (+inf pad), keys i32), each (B, k)."""
     k = min(k, neighbors.shape[1])
     nbrs = neighbors[u.long()][:, :k]
-    d = score_block(x[nbrs.clamp(min=0).long()], queries, metric)
+    return _finish(nbrs, score_block(x[nbrs.clamp(min=0).long()], queries, metric))
+
+
+def _finish(nbrs: torch.Tensor, d: torch.Tensor):
     valid = nbrs >= 0
     d = torch.where(valid, d, torch.tensor(float("inf"), device=d.device))
     return torch.where(valid, nbrs, -1), d, dist_key(d)
+
+
+def beam_score_int8_ref(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                        neighbors: torch.Tensor, u: torch.Tensor, queries: torch.Tensor,
+                        k: int, metric: str = "l2"):
+    """int8 corpus: gather (B, k, d) code rows, decode and score through
+    ``int8_score_block``. Same return as :func:`beam_score_ref`."""
+    from repro_torch.quant.quantization import int8_score_block
+    k = min(k, neighbors.shape[1])
+    nbrs = neighbors[u.long()][:, :k]
+    d = int8_score_block(codes[nbrs.clamp(min=0).long()], scale, zero, queries, metric)
+    return _finish(nbrs, d)
+
+
+def beam_score_pq_ref(codes: torch.Tensor, neighbors: torch.Tensor, u: torch.Tensor,
+                      lut_a: torch.Tensor, lut_b: torch.Tensor, qsq: torch.Tensor,
+                      k: int, metric: str = "l2"):
+    """PQ corpus: gather (B, k, m) uint8 code rows and score them against the
+    per-query tables of ``pq_lut`` through ``pq_score_codes``. Same return
+    as :func:`beam_score_ref`."""
+    from repro_torch.quant.quantization import pq_score_codes
+    k = min(k, neighbors.shape[1])
+    nbrs = neighbors[u.long()][:, :k]
+    d = pq_score_codes(codes[nbrs.clamp(min=0).long()], lut_a, lut_b, qsq, metric)
+    return _finish(nbrs, d)

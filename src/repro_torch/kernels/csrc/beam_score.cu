@@ -2,7 +2,8 @@
 // score against the query, CUDA C++ for sm_90a.
 //
 // Replaces: src/repro/kernels/beam_score/kernel.py : beam_score_tiles
-//           (_beam_score_body).
+//           (_beam_score_body), and beam_score_int8_tiles
+//           (_beam_score_int8_body: the same over int8 code rows).
 //
 // What bounds it on an H100: irregular row gathers. Per lane it reads one
 // adjacency prefix (k ids) and k corpus rows of d elements scattered over x,
@@ -18,9 +19,18 @@
 // load and every sum is f32. Padded slots give id -1 and +inf; the int32
 // key is the port's order-preserving key of the f32 distance, so the
 // distance decodes from it exactly.
+//
+// int8 variant (T = int8_t): a 128-byte code row is read as 4-byte words,
+// one per lane, a quarter of the f32 row's bytes. Each code decodes in
+// registers as __fadd_rn(__fmul_rn(c, scale[i]), zero[i]) (multiply, then
+// add, two roundings: the plain version's codes.float() * scale + zero, so
+// no FMA contraction), then scores as an f32 row; scale and zero sit in
+// shared memory beside the query.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -62,17 +72,55 @@ __device__ __forceinline__ void acc_pack(const __nv_bfloat16* row, const float* 
   }
 }
 
+__device__ __forceinline__ float decode(int c, float scale, float zero) {
+  return __fadd_rn(__fmul_rn(static_cast<float>(c), scale), zero);
+}
+
+// 4-byte packs of int8 codes: elements 4p .. 4p + 3, decoded in registers
+__device__ __forceinline__ void acc_pack(const int8_t* row, const float* q,
+                                         const float* sc, const float* ze, int p,
+                                         float& vv, float& qv) {
+  const uint32_t w = reinterpret_cast<const uint32_t*>(row)[p];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int i = 4 * p + h;
+    const float v = decode(static_cast<int8_t>(w >> (8 * h)), sc[i], ze[i]);
+    vv = fmaf(v, v, vv);
+    qv = fmaf(v, q[i], qv);
+  }
+}
+
+template <typename T>
+constexpr bool kCoded = std::is_same<T, int8_t>::value;
+
+template <typename T>
+__device__ __forceinline__ float load_elem(const T* row, int i, const float* sc,
+                                           const float* ze) {
+  if constexpr (kCoded<T>)
+    return decode(row[i], sc[i], ze[i]);
+  else
+    return to_f32(row[i]);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-beam_score_kernel(const T* __restrict__ x, const int* __restrict__ nbrs,
+beam_score_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ zero, const int* __restrict__ nbrs,
                   const int* __restrict__ u, const float* __restrict__ queries,
                   int n, int d, int m, int k, int metric, int vec,
                   int* __restrict__ ids_out, float* __restrict__ dist_out,
                   int* __restrict__ key_out) {
   extern __shared__ __align__(16) float s_q[];
+  const int aux = kCoded<T> ? d : 0;    // int8: scale and zero after the query
+  float* s_scale = s_q + d;
+  float* s_zero = s_scale + aux;
   const int b = blockIdx.x;
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   for (int i = t; i < d; i += THREADS) s_q[i] = queries[(long long)b * d + i];
+  for (int i = t; i < aux; i += THREADS) {
+    s_scale[i] = scale[i];
+    s_zero[i] = zero[i];
+  }
   __syncthreads();
 
   float qq = 0.f;
@@ -81,7 +129,7 @@ beam_score_kernel(const T* __restrict__ x, const int* __restrict__ nbrs,
 
   const int uid = u[b];
   const bool urow = uid >= 0 && uid < n;   // an id outside [0, n) reads as padding
-  constexpr int PACK = 16 / sizeof(T);
+  constexpr int PACK = kCoded<T> ? 4 : 16 / sizeof(T);
   const int npack = d / PACK;
 #pragma unroll 2
   for (int j = warp; j < k; j += WARPS) {
@@ -91,10 +139,15 @@ beam_score_kernel(const T* __restrict__ x, const int* __restrict__ nbrs,
     if (id >= 0) {
       const T* row = x + (long long)id * d;
       if (vec) {
-        for (int p = lane; p < npack; p += 32) acc_pack(row, s_q, p, vv, qv);
+        for (int p = lane; p < npack; p += 32) {
+          if constexpr (kCoded<T>)
+            acc_pack(row, s_q, s_scale, s_zero, p, vv, qv);
+          else
+            acc_pack(row, s_q, p, vv, qv);
+        }
       } else {
         for (int i = lane; i < d; i += 32) {
-          const float v = to_f32(row[i]);
+          const float v = load_elem(row, i, s_scale, s_zero);
           vv = fmaf(v, v, vv);
           qv = fmaf(v, s_q[i], qv);
         }
@@ -123,17 +176,19 @@ beam_score_kernel(const T* __restrict__ x, const int* __restrict__ nbrs,
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const int* nbrs, const int* u, const float* q,
-                   int n, int d, int m, int b, int k, int metric, int* ids,
-                   float* dists, int* keys, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)d;
+cudaError_t launch(const void* x, const float* scale, const float* zero, const int* nbrs,
+                   const int* u, const float* q, int n, int d, int m, int b, int k,
+                   int metric, int* ids, float* dists, int* keys, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)d * (kCoded<T> ? 3 : 1);
   cudaError_t err = cudaFuncSetAttribute(beam_score_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  const int vec = (d * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const size_t align = kCoded<T> ? 4 : 16;
+  const int vec = (d * sizeof(T)) % align == 0 && reinterpret_cast<uintptr_t>(x) % align == 0;
   beam_score_kernel<T><<<b, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), nbrs, u, q, n, d, m, k, metric, vec, ids, dists, keys);
+      static_cast<const T*>(x), scale, zero, nbrs, u, q, n, d, m, k, metric, vec, ids,
+      dists, keys);
   return cudaGetLastError();
 }
 
@@ -150,7 +205,22 @@ extern "C" int beam_score(const void* x, const int* nbrs, const int* u,
   if (k < 1 || k > m || d < 1 || b < 1 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = x_bf16
-      ? launch<__nv_bfloat16>(x, nbrs, u, queries, n, d, m, b, k, metric, ids, dists, keys, stream)
-      : launch<float>(x, nbrs, u, queries, n, d, m, b, k, metric, ids, dists, keys, stream);
+      ? launch<__nv_bfloat16>(x, nullptr, nullptr, nbrs, u, queries, n, d, m, b, k, metric,
+                              ids, dists, keys, stream)
+      : launch<float>(x, nullptr, nullptr, nbrs, u, queries, n, d, m, b, k, metric, ids,
+                      dists, keys, stream);
   return (int)err;
+}
+
+// The same over an int8 corpus: codes (n, d) int8 decoded with scale/zero
+// (d,) f32. Launches on `stream`, allocates nothing, returns
+// cudaGetLastError().
+extern "C" int beam_score_int8(const int8_t* codes, const float* scale, const float* zero,
+                               const int* nbrs, const int* u, const float* queries, int n,
+                               int d, int m, int b, int k, int metric, int* ids,
+                               float* dists, int* keys, cudaStream_t stream) {
+  if (k < 1 || k > m || d < 1 || b < 1 || metric < 0 || metric > 2)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<int8_t>(codes, scale, zero, nbrs, u, queries, n, d, m, b, k, metric,
+                             ids, dists, keys, stream);
 }

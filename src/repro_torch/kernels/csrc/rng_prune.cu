@@ -2,18 +2,25 @@
 // (RNN-Descent Alg. 4 core), CUDA C++ for sm_90a.
 //
 // Replaces: src/repro/kernels/rng_prune/kernel.py : rng_prune_tiles
-//           (_rng_prune_body -> _prune_scan).
+//           (_rng_prune_body -> _prune_scan), and rng_prune_int8_tiles
+//           (_rng_prune_int8_body: the same over int8 code rows).
 //
 // What bounds it on an H100: the Gram, 2*R*M*M*d flops in f32 outside the
 // tensor cores (67 TFLOP/s), against R*M*d*bytes of gathered rows
-// (3.35 TB/s): at M = d = 128 that is ~64 flops per gathered byte, so the
-// f32 SIMT rate bounds it, not memory.
+// (3.35 TB/s): at M = d = 128 that is ~64 flops per gathered byte (256 for
+// int8 code rows), so the f32 SIMT rate bounds it, not memory.
 //
 // Design: one block per vertex row, 256 threads.
 //  * The block reads x by candidate id itself (the reference gathers the
 //    (R, M, d) block outside the kernel; at n = 1M that block is 64 GiB), in
 //    d-chunks of 32 staged transposed in shared memory (conflict-free: the
 //    row stride is MT + 1 words).
+//  * int8 variant (T = int8_t): the block reads code rows by id and decodes
+//    each element in registers as __fadd_rn(__fmul_rn(c, scale[j]), zero[j]):
+//    multiply, then add, two roundings, exactly the plain version's
+//    codes.float() * scale + zero, so the decode never contracts to an FMA.
+//    scale/zero (d floats each) sit in shared memory. Every metric is
+//    supported, as for f32 (the Pallas int8 body is L2-only).
 //  * Each thread keeps an (MT/16) x (MT/16) register micro-tile of the
 //    MT x MT Gram (rows ty + 16 r, columns tx + 16 s: every shared read is a
 //    broadcast or a unit-stride row), accumulated in f32 whatever x's type
@@ -24,11 +31,13 @@
 //  * The serial scan over i runs in one warp: lane l owns candidates
 //    j = l + 32 q and keeps their keep bits in a register; "first failing j"
 //    is a __ballot_sync + __ffs per q. No block barrier inside the scan.
-//  * Shared memory ~83 KiB at MT = 128: two blocks per SM, so one block's
-//    scan overlaps the other's Gram.
+//  * Shared memory ~83 KiB at MT = 128 (+ 2 d floats for int8): two blocks
+//    per SM, so one block's scan overlaps the other's Gram.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -45,9 +54,13 @@ constexpr size_t smem_bytes() {
          sizeof(int) * (MT /*ids*/ + MT /*red_w*/) + 2 * MT /*old, keep*/;
 }
 
+template <typename T>
+constexpr bool kCoded = std::is_same<T, int8_t>::value;
+
 template <typename T, int MT>
 __global__ void __launch_bounds__(THREADS, 2)
-rng_prune_kernel(const T* __restrict__ x, const int* __restrict__ ids,
+rng_prune_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                 const float* __restrict__ zero, const int* __restrict__ ids,
                  const float* __restrict__ dists, const uint8_t* __restrict__ flags,
                  int n, int d, int m, int metric, uint8_t* __restrict__ keep_out,
                  int* __restrict__ redw_out, float* __restrict__ redd_out) {
@@ -55,7 +68,10 @@ rng_prune_kernel(const T* __restrict__ x, const int* __restrict__ ids,
   constexpr int LD = MT + 1;
   constexpr int Q = MT / 32;
   extern __shared__ float smem[];
-  float* pair = smem;                    // MT * MT
+  const int aux = kCoded<T> ? d : 0;     // int8: scale and zero, d floats each
+  float* s_scale = smem;
+  float* s_zero = smem + aux;
+  float* pair = smem + 2 * aux;          // MT * MT
   float* chunk = pair + MT * MT;         // DC * LD, transposed: chunk[c * LD + j]
   float* sq = chunk + DC * LD;           // MT
   float* s_dist = sq + MT;               // MT
@@ -81,6 +97,10 @@ rng_prune_kernel(const T* __restrict__ x, const int* __restrict__ ids,
     s_old[j] = old;
     sq[j] = 0.f;
   }
+  for (int i = t; i < aux; i += THREADS) {
+    s_scale[i] = scale[i];
+    s_zero[i] = zero[i];
+  }
   __syncthreads();
 
   const int tx = t % 16, ty = t / 16;
@@ -96,7 +116,13 @@ rng_prune_kernel(const T* __restrict__ x, const int* __restrict__ ids,
       const int j = idx / DC, c = idx % DC;
       const int id = s_id[j];
       float v = 0.f;
-      if (id >= 0 && d0 + c < d) v = to_f32(x[(long long)id * d + d0 + c]);
+      if (id >= 0 && d0 + c < d) {
+        const T e = x[(long long)id * d + d0 + c];
+        if constexpr (kCoded<T>)
+          v = __fadd_rn(__fmul_rn(static_cast<float>(e), s_scale[d0 + c]), s_zero[d0 + c]);
+        else
+          v = to_f32(e);
+      }
       chunk[c * LD + j] = v;
     }
     __syncthreads();
@@ -191,16 +217,18 @@ rng_prune_kernel(const T* __restrict__ x, const int* __restrict__ ids,
 }
 
 template <typename T, int MT>
-cudaError_t launch(const void* x, const int* ids, const float* dists,
-                   const uint8_t* flags, int n, int d, int rows, int m, int metric,
-                   uint8_t* keep, int* red_w, float* red_d, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<MT>();
+cudaError_t launch(const void* x, const float* scale, const float* zero, const int* ids,
+                   const float* dists, const uint8_t* flags, int n, int d, int rows,
+                   int m, int metric, uint8_t* keep, int* red_w, float* red_d,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes<MT>() + (kCoded<T> ? 2 * sizeof(float) * (size_t)d : 0);
   cudaError_t err = cudaFuncSetAttribute(rng_prune_kernel<T, MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   rng_prune_kernel<T, MT><<<rows, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), ids, dists, flags, n, d, m, metric, keep, red_w, red_d);
+      static_cast<const T*>(x), scale, zero, ids, dists, flags, n, d, m, metric, keep,
+      red_w, red_d);
   return cudaGetLastError();
 }
 
@@ -221,9 +249,22 @@ extern "C" int rng_prune(const void* x, const int* ids, const float* dists,
   if (m < 1 || m > TILE_M || d < 1 || rows < 1 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      x_bf16 ? launch<__nv_bfloat16, TILE_M>(x, ids, dists, flags, n, d, rows, m, metric,
-                                             keep, red_w, red_d, stream)
-             : launch<float, TILE_M>(x, ids, dists, flags, n, d, rows, m, metric, keep,
-                                     red_w, red_d, stream);
+      x_bf16 ? launch<__nv_bfloat16, TILE_M>(x, nullptr, nullptr, ids, dists, flags, n, d,
+                                             rows, m, metric, keep, red_w, red_d, stream)
+             : launch<float, TILE_M>(x, nullptr, nullptr, ids, dists, flags, n, d, rows, m,
+                                     metric, keep, red_w, red_d, stream);
   return (int)err;
+}
+
+// The same over an int8 corpus: codes (n, d) int8 decoded with scale/zero
+// (d,) f32. Launches on `stream`, allocates nothing, returns
+// cudaGetLastError().
+extern "C" int rng_prune_int8(const int8_t* codes, const float* scale, const float* zero,
+                              const int* ids, const float* dists, const uint8_t* flags,
+                              int n, int d, int rows, int m, int metric, uint8_t* keep,
+                              int* red_w, float* red_d, cudaStream_t stream) {
+  if (m < 1 || m > TILE_M || d < 1 || rows < 1 || metric < 0 || metric > 2)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<int8_t, TILE_M>(codes, scale, zero, ids, dists, flags, n, d, rows, m,
+                                     metric, keep, red_w, red_d, stream);
 }

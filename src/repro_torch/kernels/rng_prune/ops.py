@@ -1,9 +1,10 @@
-"""Fused gather + candidate Gram + RNG prune: wrapper of
-``csrc/rng_prune.cu`` and its plain version.
+"""Fused gather + candidate Gram + RNG prune: wrappers of
+``csrc/rng_prune.cu`` (an f32/bf16 corpus, or int8 codes decoded in
+registers) and their plain versions.
 
-The kernel reads ``x`` by id itself, so one launch covers all rows: the
+The kernel reads the corpus by id itself, so one launch covers all rows: the
 (rows, M, d) gathered block never exists (64 GiB at n = 1M, M = d = 128).
-The plain version gathers ``cfg.chunk`` rows at a time.
+The plain versions gather ``chunk`` rows at a time.
 """
 from __future__ import annotations
 
@@ -15,10 +16,9 @@ from repro_torch.kernels.rng_prune.ref import rng_prune_ref
 MAX_M = 128          # candidate tile of the kernel (csrc/rng_prune.cu)
 
 
-def _check(x, ids, dists, flags):
-    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x must be (n, d) float32 or bfloat16, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+def _check(x, ids, dists, flags, dtypes=(torch.float32, torch.bfloat16)):
+    if x.dim() != 2 or x.dtype not in dtypes:
+        raise ValueError(f"x must be (n, d) of {dtypes}, got {tuple(x.shape)} {x.dtype}")
     if ids.dim() != 2 or ids.dtype != torch.int32:
         raise ValueError(f"ids must be (R, M) int32, got {tuple(ids.shape)} {ids.dtype}")
     if dists.shape != ids.shape or dists.dtype != torch.float32:
@@ -64,14 +64,9 @@ def rng_prune_plain(x, ids, dists, flags=None, metric: str = "l2", chunk: int = 
 def _launch(x, ids, dists, flags, metric):
     r, m = ids.shape
     n, d = x.shape
-    if m > MAX_M:
-        raise ValueError(f"capacity M={m} exceeds the kernel's candidate tile {MAX_M}")
-    if n >= 2**31 or r >= 2**31:
-        raise ValueError("n and R must fit int32")
+    _check_launch(n, r, m)
     x, ids, dists, flags = (t.contiguous() for t in (x, ids, dists, flags))
-    keep = torch.empty((r, m), dtype=torch.uint8, device=x.device)
-    red_w = torch.empty((r, m), dtype=torch.int32, device=x.device)
-    red_d = torch.empty((r, m), dtype=torch.float32, device=x.device)
+    keep, red_w, red_d = _outputs(r, m, x.device)
     if r == 0 or m == 0:
         return keep, red_w, red_d
     rc = _build.load("rng_prune", "ppppiiiiiipppp")(
@@ -81,4 +76,77 @@ def _launch(x, ids, dists, flags, metric):
         _build.stream_handle(x.device))
     _build.check(rc, "rng_prune")
     LAUNCHES["rng_prune"] += 1
+    return keep, red_w, red_d
+
+
+def _check_int8(codes, scale, zero, ids, dists, flags):
+    _check(codes, ids, dists, flags, (torch.int8,))
+    d = codes.shape[1]
+    for name, t in (("scale", scale), ("zero", zero)):
+        if t.shape != (d,) or t.dtype != torch.float32 or t.device != codes.device:
+            raise ValueError(f"{name} must be ({d},) float32 on the device of the codes")
+
+
+def rng_prune_int8(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                   ids: torch.Tensor, dists: torch.Tensor,
+                   flags: torch.Tensor | None = None, metric: str = "l2",
+                   chunk: int = 512):
+    """:func:`rng_prune` over an int8 corpus ``codes`` (n, d) with per-dim
+    ``scale``/``zero`` (d,): candidate code rows are decoded after the
+    gather (``codes * scale + zero``, two roundings), then the same Gram and
+    scan. CPU tensors run :func:`rng_prune_int8_plain`; CUDA tensors the
+    kernel, which reads an id outside [0, n) as padding."""
+    if flags is None:
+        flags = torch.ones_like(ids, dtype=torch.uint8)
+    metric_code(metric)
+    _check_int8(codes, scale, zero, ids, dists, flags)
+    if codes.device.type == "cpu":
+        return rng_prune_int8_plain(codes, scale, zero, ids, dists, flags, metric, chunk)
+    return _launch_int8(codes, scale, zero, ids, dists, flags, metric)
+
+
+def rng_prune_int8_plain(codes, scale, zero, ids, dists, flags=None, metric: str = "l2",
+                         chunk: int = 512):
+    """Plain PyTorch version: gather ``chunk`` rows' code rows, decode,
+    f32 Gram, scan."""
+    from repro_torch.quant.quantization import int8_decode
+    if flags is None:
+        flags = torch.ones_like(ids, dtype=torch.uint8)
+    outs = []
+    for s in range(0, max(ids.shape[0], 1), chunk):
+        cid = ids[s:s + chunk]
+        vecs = int8_decode(codes[cid.clamp(min=0).long()], scale, zero)
+        outs.append(rng_prune_ref(cid, dists[s:s + chunk], flags[s:s + chunk], vecs, metric))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _outputs(r, m, device):
+    return (torch.empty((r, m), dtype=torch.uint8, device=device),
+            torch.empty((r, m), dtype=torch.int32, device=device),
+            torch.empty((r, m), dtype=torch.float32, device=device))
+
+
+def _check_launch(n, r, m):
+    if m > MAX_M:
+        raise ValueError(f"capacity M={m} exceeds the kernel's candidate tile {MAX_M}")
+    if n >= 2**31 or r >= 2**31:
+        raise ValueError("n and R must fit int32")
+
+
+def _launch_int8(codes, scale, zero, ids, dists, flags, metric):
+    r, m = ids.shape
+    n, d = codes.shape
+    _check_launch(n, r, m)
+    codes, scale, zero, ids, dists, flags = (
+        t.contiguous() for t in (codes, scale, zero, ids, dists, flags))
+    keep, red_w, red_d = _outputs(r, m, codes.device)
+    if r == 0 or m == 0:
+        return keep, red_w, red_d
+    rc = _build.load("rng_prune_int8", "ppppppiiiiipppp", source="rng_prune")(
+        codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), ids.data_ptr(),
+        dists.data_ptr(), flags.data_ptr(), n, d, r, m, metric_code(metric),
+        keep.data_ptr(), red_w.data_ptr(), red_d.data_ptr(),
+        _build.stream_handle(codes.device))
+    _build.check(rc, "rng_prune_int8")
+    LAUNCHES["rng_prune_int8"] += 1
     return keep, red_w, red_d

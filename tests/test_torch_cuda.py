@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card (f32,
+bf16, int8 and PQ variants).
 
 Marked ``cuda``: on a machine without a card every test skips. On the card
 (no JAX there, so without the JAX conftest):
@@ -98,6 +99,157 @@ def test_pairwise_l2_matches_plain(dev, dtype):
     ai = torch.randint(-8, 9, (200, 64), generator=gen, device=dev).float()
     bi = torch.randint(-8, 9, (3000, 64), generator=gen, device=dev).float()
     torch.testing.assert_close(P.pairwise_l2(ai, bi), P.pairwise_l2_ref(ai, bi), rtol=0, atol=0)
+
+
+def _int8_space(gen, n, d, dev, integer):
+    codes = torch.randint(-127, 128, (n, d), generator=gen, device=dev).to(torch.int8)
+    if integer:   # dyadic scale, integer zero: every decoded value and score exact
+        scale = 2.0 ** -torch.randint(1, 4, (d,), generator=gen, device=dev).float()
+        zero = torch.randint(-3, 4, (d,), generator=gen, device=dev).float()
+    else:
+        scale = torch.rand(d, generator=gen, device=dev) * 0.05 + 0.005
+        zero = torch.randn(d, generator=gen, device=dev)
+    return codes, scale, zero
+
+
+def _with_bad_ids(nbrs, n, gen):
+    """Plant ids outside [0, n) (the kernels read them as padding); returns
+    (planted, what the plain version must see: -1 in their place)."""
+    bad = torch.rand(nbrs.shape, generator=gen, device=nbrs.device) < 0.02
+    planted = torch.where(bad, n + 5, nbrs).to(torch.int32)
+    return planted, torch.where(bad, -1, nbrs).to(torch.int32)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("m", [32, 50, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_rng_prune_int8_matches_plain(dev, metric, m, integer):
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.rng_prune import ops as R
+    from repro_torch.quant import int8_decode
+    gen = torch.Generator(device=dev).manual_seed(4)
+    codes, scale, zero = _int8_space(gen, 3000, 64, dev, integer)
+    ids, dists, flags = _graph(int8_decode(codes, scale, zero), m, gen)
+    planted, ids = _with_bad_ids(ids, 3000, gen)
+    before = LAUNCHES["rng_prune_int8"]
+    ker = R.rng_prune_int8(codes, scale, zero, planted, dists, flags, metric)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rng_prune_int8"] == before + 1
+    ref = R.rng_prune_int8_plain(codes, scale, zero, ids, dists, flags, metric)
+    if integer and metric != "cos":
+        for a, b in zip(ker, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        return
+    # f32 Gram sums in another order: keep/red_w may flip only at rounding ties
+    assert float((ker[0] == ref[0]).float().mean()) >= 0.999
+    assert float((ker[1] == ref[1]).float().mean()) >= 0.999
+    same = (ker[1] == ref[1]) & (ker[1] >= 0)
+    xh = int8_decode(codes, scale, zero)
+    lim = 1e-5 * (2.0 if metric == "cos" else 2 * float((xh * xh).sum(1).max()))
+    assert float((ker[2] - ref[2])[same].abs().max()) <= lim
+
+
+def _frontier(gen, n, m, b, dev):
+    nbrs = torch.randint(-1, n, (n, m), generator=gen, device=dev, dtype=torch.int32)
+    u = torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+    return nbrs, u
+
+
+def _hold(ker, ref, exact, scale):
+    from repro_torch.core.graph import key_dist
+    ids, d, keys = ker
+    torch.testing.assert_close(ids, ref[0], rtol=0, atol=0)
+    fin = torch.isfinite(ref[1])
+    assert torch.equal(fin, torch.isfinite(d))
+    if exact:
+        torch.testing.assert_close(d, ref[1], rtol=0, atol=0)
+        torch.testing.assert_close(keys, ref[2], rtol=0, atol=0)
+    else:
+        assert float(((d - ref[1]).abs() / scale)[fin].max()) <= 1e-5
+    torch.testing.assert_close(key_dist(keys), d, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("m", [32, 50, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_beam_score_int8_matches_plain(dev, metric, m, integer):
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.quant import int8_decode
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, d, b = 3000, 128, 300
+    codes, scale, zero = _int8_space(gen, n, d, dev, integer)
+    nbrs, u = _frontier(gen, n, m, b, dev)
+    planted, nbrs = _with_bad_ids(nbrs, n, gen)
+    q = (torch.randint(-8, 9, (b, d), generator=gen, device=dev).float() if integer
+         else torch.randn(b, d, generator=gen, device=dev))
+    before = LAUNCHES["beam_score_int8"]
+    for k in (32, m + 7):    # k > M clamps to M
+        ker = B.beam_score_int8(codes, scale, zero, planted, u, q, k, metric)
+        ref = B.beam_score_int8_ref(codes, scale, zero, nbrs, u, q, k, metric)
+        assert ker[0].shape == (b, min(k, m))
+        xh = int8_decode(codes, scale, zero)
+        scl = ((q * q).sum(1, keepdim=True) + float((xh * xh).sum(1).max())
+               if metric != "cos" else 1.0)
+        _hold(ker, ref, integer and metric != "cos", scl)
+    torch.cuda.synchronize()
+    assert LAUNCHES["beam_score_int8"] == before + 2
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("mq", [8, 32])
+@pytest.mark.parametrize("m", [32, 50, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_beam_score_pq_matches_plain(dev, metric, m, mq, integer):
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.quant import pq_lut
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, d, b = 3000, 128, 300
+    shape = (mq, 256, d // mq)
+    cb = (torch.randint(-4, 5, shape, generator=gen, device=dev).float() if integer
+          else torch.randn(shape, generator=gen, device=dev))
+    q = (torch.randint(-4, 5, (b, d), generator=gen, device=dev).float() if integer
+         else torch.randn(b, d, generator=gen, device=dev))
+    codes = torch.randint(0, 256, (n, mq), generator=gen, device=dev).to(torch.uint8)
+    nbrs, u = _frontier(gen, n, m, b, dev)
+    planted, nbrs = _with_bad_ids(nbrs, n, gen)
+    lut = pq_lut(q, cb, metric)
+    before = LAUNCHES["beam_score_pq"]
+    for k in (32, m + 7):
+        ker = B.beam_score_pq(codes, planted, u, *lut, k, metric)
+        ref = B.beam_score_pq_ref(codes, nbrs, u, *lut, k, metric)
+        assert ker[0].shape == (b, min(k, m))
+        # the terms are non-negative (l2) or signed partial dots (ip): error
+        # scales with the sum of their magnitudes
+        scl = lut[0].abs().amax(dim=2).sum(1, keepdim=True) if metric != "cos" else 1.0
+        _hold(ker, ref, integer and metric != "cos", scl)
+    torch.cuda.synchronize()
+    assert LAUNCHES["beam_score_pq"] == before + 2
+
+
+@pytest.mark.parametrize("mode", ["int8", "pq"])
+def test_coded_medium_path_on_the_card(dev, mode):
+    from repro_torch.core import eval as E
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.quant import Quantization, encode_corpus
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, q = clustered_vectors(VectorDatasetSpec.sift_like(5000, 200), gen, dev)
+    quant = Quantization(mode=mode, m=32)
+    reset_launches()
+    g = rd.build(x, rd.RNNDescentConfig(t1=2, t2=5, quant=quant),
+                 torch.Generator(device=dev).manual_seed(1))
+    qx = encode_corpus(x, quant)
+    ids, _ = S.search_tiled(x, g, q, S.default_entry_point(x),
+                            S.SearchConfig(l=64, k=64, topk=10, quant=quant), tile_b=128, qx=qx)
+    torch.cuda.synchronize()
+    prune = "rng_prune_int8" if mode == "int8" else "rng_prune"
+    assert LAUNCHES[prune] == 10 and LAUNCHES[f"beam_score_{mode}"] > 0
+    _, gt = E.ground_truth(x, q, k=10)
+    assert E.recall_topk(ids, gt) >= 0.9
 
 
 def test_medium_path_on_the_card(dev):
