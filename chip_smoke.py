@@ -34,7 +34,21 @@ Phases (any failure raises and exits non-zero):
      after each, recall held to the f32 path's times the codes' rerank
      ceiling (brute force over the decoded corpus, exact rerank); then each
      coded kernel against its plain version on that path's own data, timed
-     as in phase 4.
+     as in phase 4;
+  7. recsys serving (weights from the port's seeded init, batches from its
+     seeded recsys_batch, through launch.steps.bind): DeepFM FULL at
+     serve_bulk (262,144 rows) and serve_p99 (512) and FM FULL at serve_bulk,
+     each with launch counts zeroed just before and read just after one
+     forward (fm_interact once, no other kernel), the kernel route against
+     the plain route on the same weights and batch, scores finite in
+     [0, 1], serve_bulk rows/s, serve_p99 latency p50/p99, peak memory and a
+     torch.profiler device-time split of one serve_bulk forward (gather,
+     dense, FM, MLP); Wide&Deep FULL and xDeepFM FULL at serve_p99
+     (fm_interact never launched, latency); retrieval_cand (1 query x
+     1,003,520 candidates, top-100) held to a float64 sort; fm_interact
+     against its plain version and an f64 explicit-pairs oracle on the
+     DeepFM serve_bulk embeddings, at F = 40, D = 32 and in f32, timed as in
+     phase 4.
 The last lines are the kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
@@ -144,11 +158,13 @@ def plain_versions():
     """Route the path through the kernels' plain PyTorch versions on the
     card (the wrappers themselves only ever launch kernels on CUDA)."""
     from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.kernels.fm_interact import ops as FM
     from repro_torch.kernels.pairwise_l2 import ops as P
     from repro_torch.kernels.rng_prune import ops as R
     swaps = ((R, "rng_prune", R.rng_prune_plain), (R, "rng_prune_int8", R.rng_prune_int8_plain),
              (B, "beam_score", B.beam_score_ref), (B, "beam_score_int8", B.beam_score_int8_ref),
-             (B, "beam_score_pq", B.beam_score_pq_ref), (P, "pairwise_l2", P.pairwise_l2_ref))
+             (B, "beam_score_pq", B.beam_score_pq_ref), (P, "pairwise_l2", P.pairwise_l2_ref),
+             (FM, "fm_interact", FM.fm_interact_ref))
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -778,10 +794,301 @@ def pq_kernel_phase(x, q, g, qx, launches):
         "library_ms": None, "shape": {"B": b, "k": k, "M": g.capacity, "m": mq, "n": n}}]
 
 
+# ------------------------------------------------------------------- recsys
+RECSYS_SEED = SEED + 20
+FM_TOL = 1e-5          # of the row's magnitude bound 0.5 sum_d (sum_f |e_fd|)^2
+P99_CALLS = 300
+
+
+def _recsys_batch(bound, seed: int) -> dict:
+    from repro_torch.data.synthetic import recsys_batch
+    cfg = bound.cfg
+    b = bound.input_specs["sparse_ids"][0][0]
+    return recsys_batch(torch.Generator(device="cuda").manual_seed(seed), b, cfg.n_fields,
+                        cfg.vocab_sizes, cfg.n_dense, cfg.multi_hot, "cuda")
+
+
+def _fm_scale(emb):
+    """Per row, the magnitude bound of both sum-square terms."""
+    return 0.5 * (emb.float().abs().sum(1) ** 2).sum(-1).double() + 1e-30
+
+
+@contextlib.contextmanager
+def labelled(spans):
+    """Wrap each ``(module, attr, label)`` function in a profiler range named
+    ``label``; a wrapped function called inside another (the MLP's
+    products) is not labelled again."""
+    from torch.profiler import record_function
+    depth, saved = [0], []
+    for mod, attr, label in spans:
+        orig = getattr(mod, attr)
+        saved.append((mod, attr, orig))
+
+        def wrapper(*a, _orig=orig, _label=label, **kw):
+            if depth[0]:
+                return _orig(*a, **kw)
+            depth[0] += 1
+            try:
+                with record_function(_label):
+                    return _orig(*a, **kw)
+            finally:
+                depth[0] -= 1
+        setattr(mod, attr, wrapper)
+    try:
+        yield
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+
+
+def serve_split(bound, params, batch) -> dict:
+    """One serve_bulk forward under torch.profiler: device time of the
+    gather (ids -> bf16 embeddings and the wide logit), the dense
+    projection and the MLP from the profiler's ranges around those calls,
+    and of the FM term from its kernel's own events (a kernel launched
+    through ctypes is not tied to a range); the rest of the busy time is
+    the logit sum and the sigmoid. A first, discarded forward warms the
+    tracer up: without it a profiler started late in a run can miss the
+    forward's first kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.models import nn
+    from repro_torch.models import recsys as rs
+    spans = ((rs, "_field_embed", "gather"), (nn, "dense", "dense"), (nn, "mlp", "mlp"))
+    events = []            # the traced (second) forward's events
+    torch.cuda.synchronize()
+    with labelled(spans), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    schedule=schedule(wait=0, warmup=1, active=1),
+                    on_trace_ready=lambda p: events.extend(p.events())) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            bound.step_fn(params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    split = {label: 0.0 for _, _, label in spans}
+    split["fm"], fm_events = 0.0, 0
+    spans_dev = []
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans_dev.append((e.time_range.start, e.time_range.end))
+            if "fm_interact_kernel" in e.name:
+                split["fm"] += (e.time_range.end - e.time_range.start) / 1e3
+                fm_events += 1
+        elif e.name in split:
+            split[e.name] += e.device_time_total / 1e3
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans_dev):
+        if b > end:
+            busy += (b - max(a, end)) / 1e3
+            end = b
+    return {"device_ms": split, "device_busy_ms": busy, "device_events": len(spans_dev),
+            "fm_kernel_events": fm_events, "other_device_ms": busy - sum(split.values()),
+            "traced_wall_ms": 1e3 * wall}
+
+
+def serve_cell(arch_id: str, shape_name: str, params=None, seed: int = RECSYS_SEED):
+    """One recsys serve cell through ``bind``: seeded init (unless
+    ``params`` is given) and batch, one forward with the launch counts zeroed
+    just before and read just after, the kernel route against the plain
+    route on the same weights and batch, scores finite in [0, 1]. Returns
+    (bound, params, batch, result)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as rs
+    bound = steps.bind(arch_id, shape_name, device="cuda")
+    cfg = bound.cfg
+    if params is None:
+        params = bound.init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    batch = _recsys_batch(bound, seed + 1)
+    b = batch["sparse_ids"].shape[0]
+    uses_fm = cfg.interaction in ("fm", "fm-2way")
+    bound.step_fn(params, batch)                        # warm (cuBLAS handles, plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    scores = bound.step_fn(params, batch)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    res = {"arch": arch_id, "shape": shape_name, "batch": b, "launches": launches,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "params_gib": sum(t.numel() * t.element_size() for t in _leaves(params)) / 2**30}
+    check(launches["fm_interact"] == int(uses_fm) and sum(launches.values()) == int(uses_fm),
+          f"{arch_id} {shape_name}: one forward launched {launches}")
+    check(scores.shape == (b,) and bool(torch.isfinite(scores).all()),
+          f"{arch_id} {shape_name}: scores not finite or of the wrong shape")
+    check(bool(((scores >= 0) & (scores <= 1)).all()), f"{arch_id} {shape_name}: scores off [0, 1]")
+    res["score_mean"] = float(scores.mean())
+    if uses_fm:
+        # only the FM term differs between the routes: its error bound plus
+        # the f32 rounding of the logit sum
+        logit = rs.forward(params, batch, cfg)
+        with plain_versions():
+            plain = rs.forward(params, batch, cfg)
+        emb, _ = rs._field_embed(params, batch, cfg)
+        lim = FM_TOL * _fm_scale(emb) + 1e-6
+        over = float(((logit.double() - plain.double()).abs() / lim).max())
+        res["kernel_vs_plain_max_abs"] = float((logit - plain).abs().max())
+        res["kernel_vs_plain_over_limit"] = over
+        check(over <= 1.0, f"{arch_id} {shape_name}: kernel and plain routes differ ({over})")
+        del emb, logit, plain
+    return bound, params, batch, res
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def p99_latency(bound, params, seed: int) -> dict:
+    """Host-clock latency of single serve_p99 calls, each ended by a sync,
+    cycling over 8 seeded batches (so the table rows are not all cached)."""
+    batches = [_recsys_batch(bound, seed + 100 + i) for i in range(8)]
+    for i in range(10):
+        bound.step_fn(params, batches[i % 8])
+    torch.cuda.synchronize()
+    lat = []
+    for i in range(P99_CALLS):
+        t0 = time.perf_counter()
+        bound.step_fn(params, batches[i % 8])
+        torch.cuda.synchronize()
+        lat.append(1e3 * (time.perf_counter() - t0))
+    lat.sort()
+    return {"calls": P99_CALLS, "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[int(0.99 * len(lat)) - 1], "max_ms": lat[-1]}
+
+
+def bulk_throughput(bound, params, batch) -> dict:
+    t = time_ms(lambda i: bound.step_fn(params, batch), inner=5, rounds=5, warmup=1)
+    b = batch["sparse_ids"].shape[0]
+    return {"rows_per_s": b / (t["ms"] / 1e3), "rows_per_s_min": b / (t["ms_max"] / 1e3),
+            "rows_per_s_max": b / (t["ms_min"] / 1e3), "ms_per_call": t["ms"],
+            "calls": t["calls"]}
+
+
+def retrieval_cell() -> dict:
+    """retrieval_cand through ``bind``: 1 query x pad_to(1M) candidates,
+    top-100, held to a float64 sort of the same scores. Where a rank's f64
+    score is farther from its neighbours' than both f32 error bounds
+    (32 ulp of sum_i |c_i q_i|), the id at that rank must be the f64 one."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    bound = steps.bind("deepfm", "retrieval_cand", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(RECSYS_SEED + 5)
+    batch = {name: torch.randn(shape, generator=gen, device="cuda")
+             for name, (shape, _) in bound.input_specs.items()}
+    reset_launches()
+    top, idx = bound.step_fn({}, batch)
+    torch.cuda.synchronize()
+    check(sum(LAUNCHES.values()) == 0, f"retrieval launched {dict(LAUNCHES)}")
+    c64, q64 = batch["cand_embs"].double(), batch["query_emb"].double()
+    s64 = c64 @ q64
+    order = torch.sort(s64, descending=True, stable=True).indices[:101]
+    eb = 32 * 2.0 ** -24 * (c64.abs() @ q64.abs())[order]
+    sv = s64[order]
+    gap_ok = (sv[:-1] - sv[1:]) > (eb[:-1] + eb[1:])            # rank i vs i + 1
+    distinct = gap_ok[:100].clone()
+    distinct[1:] &= gap_ok[:99]
+    ids_ok = (idx.long() == order[:100]) | ~distinct
+    check(bool(ids_ok.all()), "retrieval: ids differ from the f64 sort at distinct ranks")
+    eb_idx = 32 * 2.0 ** -24 * (c64.abs()[idx.long()] @ q64.abs())
+    check(bool(((top.double() - s64[idx.long()]).abs() <= eb_idx).all()),
+          "retrieval: scores off the f64 scores of the same ids")
+    t = time_ms(lambda i: bound.step_fn({}, batch), inner=10)
+    n = batch["cand_embs"].shape[0]
+    return {"phase": "recsys_retrieval", "candidates": n, "k": 100,
+            "distinct_ranks": int(distinct.sum()), "ids_equal_to_f64": int(
+                (idx.long() == order[:100]).sum()), "ms": t["ms"],
+            "ms_spread": [t["ms_min"], t["ms_max"], t["calls"]]}
+
+
+def _hold_fm(emb, gen, label: str) -> float:
+    """fm_interact on ``emb`` against its plain version (every row) and an
+    f64 explicit-pairs oracle (4096 sampled rows), each within FM_TOL of the
+    row's magnitude bound. Returns the largest absolute error against the
+    plain version."""
+    from repro_torch.kernels.fm_interact import ops as FM
+    ker, ref = FM.fm_interact(emb), FM.fm_interact_ref(emb)
+    scale = _fm_scale(emb)
+    rel = float(((ker.double() - ref.double()).abs() / scale).max())
+    rows = torch.randperm(emb.shape[0], generator=gen, device="cuda")[:4096]
+    e64 = emb[rows].double()
+    gram = torch.bmm(e64, e64.transpose(1, 2))                 # every pair <e_f, e_g>
+    pairs = 0.5 * (gram.sum((1, 2)) - gram.diagonal(dim1=1, dim2=2).sum(-1))
+    rel_pairs = float(((ker[rows].double() - pairs).abs() / scale[rows]).max())
+    err = float((ker - ref).abs().max())
+    emit({"kernel": "fm_interact", "case": label, "shape": list(emb.shape),
+          "dtype": str(emb.dtype), "max_abs_err": err, "max_rel_err": rel,
+          "pairs_rows": int(rows.numel()), "pairs_max_rel_err": rel_pairs, "limit": FM_TOL})
+    check(rel <= FM_TOL, f"fm_interact {label}: {rel} of the row bound against plain")
+    check(rel_pairs <= FM_TOL, f"fm_interact {label}: {rel_pairs} against the f64 pairs")
+    return err
+
+
+def fm_kernel_phase(emb, launches: int) -> dict:
+    """fm_interact beside its plain version on the DeepFM serve_bulk
+    embeddings (bf16), then at F = 40, D = 32 and in f32; timed on the
+    first."""
+    from repro_torch.kernels.fm_interact import ops as FM
+    gen = torch.Generator(device="cuda").manual_seed(RECSYS_SEED + 7)
+    err = _hold_fm(emb, gen, "deepfm serve_bulk")
+    b = emb.shape[0]
+    for f, d, dtype in ((40, 32, torch.bfloat16), (39, 10, torch.float32),
+                        (40, 32, torch.float32)):
+        e = torch.randn(b, f, d, generator=gen, device="cuda").to(dtype)
+        _hold_fm(e, gen, f"random F={f} D={d}")
+        del e
+    _, f, d = emb.shape
+    return {
+        "name": "fm_interact", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fm_interact.cu",
+        "replaces": "src/repro/kernels/fm_interact/kernel.py:39",
+        "launches": launches, "max_abs_err": err,
+        "tolerance": f"|err| <= {FM_TOL} * 0.5 sum_d (sum_f |e_fd|)^2 per row, against the "
+                     "plain version and an f64 explicit-pairs oracle (bf16 and f32)",
+        **_timed_keys(time_ms(lambda i: FM.fm_interact(emb), inner=20),
+                      time_ms(lambda i: FM.fm_interact_ref(emb), inner=20)),
+        **_bound(3.0 * b * f * d, float(emb.numel() * emb.element_size() + b * 4)),
+        "device_ms": device_ms(lambda i: FM.fm_interact(emb), 20, "fm_interact_kernel"),
+        "library_ms": None, "library_call": "none: no single PyTorch call computes it",
+        "shape": {"B": b, "F": f, "D": d, "dtype": str(emb.dtype)}}
+
+
+def recsys_phase() -> list:
+    """Phase 7: the recsys serving slice."""
+    from repro_torch.models import recsys as rs
+    bound, params, batch, res = serve_cell("deepfm", "serve_bulk")
+    fm_launches = res["launches"]["fm_interact"]
+    res.update(bulk_throughput(bound, params, batch))
+    res["split"] = serve_split(bound, params, batch)
+    emit({"phase": "recsys_serve", "config": "deepfm FULL", "reduced": None, **res})
+    emb, _ = rs._field_embed(params, batch, bound.cfg)
+    del batch
+    report = [fm_kernel_phase(emb, fm_launches)]
+    del emb
+    p99, params, _, res = serve_cell("deepfm", "serve_p99", params=params)
+    res.update(p99_latency(p99, params, RECSYS_SEED))
+    emit({"phase": "recsys_serve", "config": "deepfm FULL", "reduced": None, **res})
+    del params
+    bound, params, batch, res = serve_cell("fm", "serve_bulk", seed=RECSYS_SEED + 2)
+    res.update(bulk_throughput(bound, params, batch))
+    emit({"phase": "recsys_serve", "config": "fm FULL", "reduced": None, **res})
+    del params, batch
+    for i, arch_id in enumerate(("wide-deep", "xdeepfm")):
+        bound, params, _, res = serve_cell(arch_id, "serve_p99", seed=RECSYS_SEED + 3 + i)
+        res.update(p99_latency(bound, params, RECSYS_SEED + 3 + i))
+        emit({"phase": "recsys_serve", "config": f"{arch_id} FULL", "reduced": None, **res})
+        del params
+    emit(retrieval_cell())
+    return report
+
+
 def warm_up() -> None:
     """One tiny launch of each kernel: loads its module, so no phase's
     timing pays for that."""
     from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.kernels.fm_interact import ops as FM
     from repro_torch.kernels.pairwise_l2 import ops as P
     from repro_torch.kernels.rng_prune import ops as R
     x = torch.zeros(4, 8, device="cuda")
@@ -797,6 +1104,7 @@ def warm_up() -> None:
     B.beam_score_pq(pq, ids, u, torch.zeros(4, 2, 256, device="cuda"),
                     torch.zeros(2, 256, device="cuda"), torch.zeros(4, device="cuda"), 2)
     P.pairwise_l2(x, x)
+    FM.fm_interact(torch.zeros(2, 3, 4, device="cuda", dtype=torch.bfloat16))
     torch.cuda.synchronize()
 
 
@@ -826,7 +1134,8 @@ def main() -> int:
     del g, qx
     g, qx, coded = coded_full_phase(x, q, gt, "pq", res)
     report += pq_kernel_phase(x, q, g, qx, coded)
-    del g, qx
+    del g, qx, x, q, gt
+    report += recsys_phase()
     emit({"phase": "done", "seconds": time.perf_counter() - T0,
           "kernel_build_s": built["seconds"]})
     emit({"kernels": report})

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the RNN-Descent graph-ANN package (``repro``).
 
 The port mirrors ``repro``'s layout module by module. Plain tensor code is
-PyTorch; the three Pallas kernels on the main path (fused RNG prune, fused
-beam gather+score, pairwise L2) are hand-written CUDA C++ kernels for Hopper
+PyTorch; every Pallas kernel of the reference (fused RNG prune, fused beam
+gather+score, pairwise L2, their int8/PQ variants, the FM interaction of the
+recsys models) is a hand-written CUDA C++ kernel for Hopper
 (``repro_torch/kernels/csrc``), built with ``nvcc`` at first use.
 
 Device rules:
@@ -14,6 +15,8 @@ Device rules:
     and raise when no CUDA device is present.
 
 f32 paths stay in full f32: TF32 is switched off for matmuls and cuDNN.
+bf16 products accumulate in f32 throughout (no reduced-precision split-K
+reductions), as the reference's do.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: str | torch.device) -> torch.device:

@@ -3,6 +3,7 @@
 The reference's arrays come across with ``np.asarray``; nothing here imports
 the reference. Distance keys: the port's int32 key ``k`` and the reference's
 uint32 ``dist_key`` ``u`` satisfy ``u == k ^ 0x80000000`` bit for bit.
+Recsys parameters cross as the reference's nested dicts of arrays.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.graph import Graph
+from repro_torch.models import recsys as rs
 from repro_torch.quant import QuantizedCorpus
 
 
@@ -52,3 +54,35 @@ def key_from_reference(u) -> torch.Tensor:
     """The reference's uint32 key -> the port's int32 key (CPU tensor)."""
     a = np.asarray(u, np.uint32) ^ np.uint32(0x80000000)
     return torch.from_numpy(a.view(np.int32).copy())
+
+
+def recsys_params_from_numpy(params, cfg: rs.RecsysConfig,
+                             device: str | torch.device = "cuda") -> dict:
+    """The reference's recsys ``init`` tree (nested dicts of arrays: ``table``,
+    ``wide``, ``bias``, ``dense_proj.w``, ``mlp.fc{i}.w`` / ``mlp.b{i}``,
+    ``cin.w{i}``, ``cin_out.w``) -> the port's parameters, f32 on ``device``.
+    Every leaf must have the shape ``cfg`` gives it, and no leaf may be
+    missing or extra."""
+    dev = resolve_device(device)
+    # the port's own init on the meta device: shapes only, nothing allocated
+    want = rs.init(None, cfg, device="meta")
+
+    def walk(p, ref, path):
+        if isinstance(ref, dict):
+            if not isinstance(p, dict) or set(p) != set(ref):
+                got = sorted(p) if isinstance(p, dict) else type(p).__name__
+                raise ValueError(f"{path or 'params'}: keys {got}, expected {sorted(ref)}")
+            return {k: walk(p[k], ref[k], f"{path}.{k}".lstrip(".")) for k in ref}
+        a = np.asarray(p, np.float32)
+        if a.shape != tuple(ref.shape):
+            raise ValueError(f"{path}: shape {a.shape}, expected {tuple(ref.shape)}")
+        return torch.tensor(a, device=dev)
+
+    return walk(params, want, "")
+
+
+def recsys_params_to_numpy(params: dict) -> dict:
+    """The port's recsys parameters -> the same tree of f32 numpy arrays."""
+    return {k: recsys_params_to_numpy(v) if isinstance(v, dict) else v.float().cpu().numpy()
+            for k, v in params.items()}
+

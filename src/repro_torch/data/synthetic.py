@@ -1,4 +1,4 @@
-"""Synthetic vector corpora (port of ``repro.data.synthetic``'s ANN part).
+"""Synthetic data (port of ``repro.data.synthetic``'s ANN and recsys parts).
 
 SIFT/GIST/Deep are not in the repository; these Gaussian mixtures match
 their dimensionalities and clustered structure. Same mixture as the
@@ -56,3 +56,20 @@ def clustered_vectors(spec: VectorDatasetSpec, generator: torch.Generator | None
     q = centers[randint(spec.n_clusters, spec.n_queries)] \
         + spec.cluster_std * normal(spec.n_queries, spec.d)
     return x.float(), q.float()
+
+
+def recsys_batch(generator: torch.Generator, batch: int, n_fields: int,
+                 vocab_sizes: tuple[int, ...], n_dense: int = 13, multi_hot: int = 1,
+                 device: str | torch.device = "cuda") -> dict:
+    """Criteo-style batch made on ``device`` from ``generator`` (which must
+    live there): dense feats (batch, n_dense) f32, per-field categorical ids
+    (batch, n_fields, multi_hot) int32 below each field's vocabulary (field
+    f uses ``vocab_sizes[f % len]``), labels (batch,) f32 with P(1) = 0.3."""
+    dev = resolve_device(device)
+    dense = torch.randn(batch, n_dense, generator=generator, device=dev)
+    sparse = torch.stack([
+        torch.randint(0, vocab_sizes[f % len(vocab_sizes)], (batch, multi_hot),
+                      generator=generator, device=dev, dtype=torch.int32)
+        for f in range(n_fields)], dim=1)                      # (batch, n_fields, multi_hot)
+    labels = (torch.rand(batch, generator=generator, device=dev) < 0.3).float()
+    return {"dense": dense, "sparse_ids": sparse, "labels": labels}

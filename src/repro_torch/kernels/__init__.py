@@ -8,7 +8,8 @@ launches the kernel or raises. ``LAUNCHES`` counts kernel launches only.
 from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {"rng_prune": 0, "rng_prune_int8": 0, "beam_score": 0,
-                            "beam_score_int8": 0, "beam_score_pq": 0, "pairwise_l2": 0}
+                            "beam_score_int8": 0, "beam_score_pq": 0, "pairwise_l2": 0,
+                            "fm_interact": 0}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,201 @@
+"""RecSys model family: FM / DeepFM / Wide&Deep / xDeepFM over a shared
+embedding-bag substrate (port of ``repro.models.recsys``).
+
+All per-field tables are stacked into one (V_total, D) table; the wide /
+first-order weights live in a parallel (V_total, 1) table. Parameters are a
+nested dict of tensors with the reference's names (``convert`` carries them
+across).
+
+The FM second-order interaction goes through ``kernels.fm_interact``: its
+CUDA kernel for a tensor on the card, its plain version on the CPU (the
+reference's ``use_pallas`` switch is the tensor's device here). On one card
+the reference's sharding constraints have nothing to do and are left out.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels.fm_interact import ops as fm_ops
+from repro_torch.models import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    arch: str                      # fm | deepfm | wide_deep | xdeepfm
+    n_fields: int
+    embed_dim: int
+    vocab_sizes: tuple[int, ...]   # per field (len == n_fields)
+    n_dense: int = 13
+    multi_hot: int = 1             # ids per field (EmbeddingBag width)
+    mlp_dims: tuple[int, ...] = ()
+    cin_dims: tuple[int, ...] = ()
+    interaction: str = "fm"        # fm | concat | cin | fm-2way
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def total_vocab(self) -> int:
+        return int(sum(self.vocab_sizes))
+
+    @property
+    def field_offsets(self) -> tuple[int, ...]:
+        return tuple(int(o) for o in np.cumsum((0,) + self.vocab_sizes[:-1]))
+
+
+# ------------------------------------------------------------ embedding bag
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "sum",
+                  weights: torch.Tensor | None = None,
+                  compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Fixed-hot EmbeddingBag: ids (..., hot) -> (..., D) reduced over hot.
+
+    Row gather + sum/mean. ``compute_dtype`` casts the gathered rows before
+    the reduction: the cast is elementwise, so this gives the bits of
+    casting the whole table first, at the cost of the rows alone."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(mode)
+    emb = table[ids.long()]                                # (..., hot, D)
+    if compute_dtype is not None:
+        emb = emb.to(compute_dtype)
+    if weights is not None:
+        emb = emb * weights[..., None]
+    return emb.sum(dim=-2) if mode == "sum" else emb.mean(dim=-2)
+
+
+def embedding_bag_ragged(table: torch.Tensor, flat_ids: torch.Tensor,
+                         segment_ids: torch.Tensor, n_bags: int,
+                         mode: str = "sum") -> torch.Tensor:
+    """Ragged EmbeddingBag: variable-length bags summed by segment id
+    (torch ``EmbeddingBag(..., offsets)`` semantics); segment ids outside
+    [0, n_bags) are dropped, as ``jax.ops.segment_sum`` drops them."""
+    emb = table[flat_ids.long()]                           # (nnz, D)
+    seg = segment_ids.long()
+    ok = (seg >= 0) & (seg < n_bags)
+    seg, emb = seg[ok], emb[ok]
+    s = torch.zeros((n_bags, emb.shape[-1]), dtype=emb.dtype, device=emb.device)
+    s.index_add_(0, seg, emb)
+    if mode == "mean":
+        cnt = torch.zeros(n_bags, dtype=s.dtype, device=s.device)
+        cnt.index_add_(0, seg, torch.ones_like(seg, dtype=s.dtype))
+        s = s / torch.clamp(cnt[:, None], min=1.0)
+    return s
+
+
+# --------------------------------------------------------------------- init
+def init(generator: torch.Generator | None, cfg: RecsysConfig,
+         device: str | torch.device = "cuda") -> dict:
+    """Random parameters with the reference's shapes and scales, drawn from
+    ``generator`` (which must live on ``device``; None only for
+    ``device="meta"``, which gives the shapes and allocates nothing)."""
+    dev = resolve_device(device)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev)
+
+    params: dict = {
+        "table": normal(cfg.total_vocab, cfg.embed_dim) * 0.01,
+        "wide": normal(cfg.total_vocab, 1) * 0.01,
+        "bias": torch.zeros((), device=dev),
+    }
+    if cfg.n_dense:
+        params["dense_proj"] = nn.dense_init(generator, cfg.n_dense, cfg.embed_dim, device=dev)
+    if cfg.mlp_dims:
+        d_in = cfg.n_fields * cfg.embed_dim + (cfg.embed_dim if cfg.n_dense else 0)
+        params["mlp"] = nn.mlp_init(generator, (d_in, *cfg.mlp_dims, 1), device=dev)
+    if cfg.interaction == "cin":
+        cin_p = {}
+        h_prev = cfg.n_fields
+        for i, h in enumerate(cfg.cin_dims):
+            cin_p[f"w{i}"] = normal(h, h_prev, cfg.n_fields) / math.sqrt(h_prev * cfg.n_fields)
+            h_prev = h
+        params["cin"] = cin_p
+        params["cin_out"] = nn.dense_init(generator, int(sum(cfg.cin_dims)), 1, device=dev)
+    return params
+
+
+# ------------------------------------------------------------------ forward
+@functools.lru_cache(maxsize=16)
+def _offsets(offsets: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The fields' first rows in the stacked table, made once per device (a
+    copy to the card per call would stall the stream)."""
+    return torch.tensor(offsets, dtype=torch.int64, device=device)
+
+
+def _field_embed(params: dict, batch: dict, cfg: RecsysConfig):
+    """(B, F, hot) per-field ids -> (B, F, D) bagged embeddings in
+    ``compute_dtype`` + the f32 wide logit (B,).
+
+    The reference casts the whole stacked table to ``compute_dtype`` and
+    then gathers (676.5 MB read, 338 MB written per DeepFM FULL forward);
+    gathering first and casting the rows gives the same bits."""
+    ids = batch["sparse_ids"].long() + _offsets(cfg.field_offsets, params["table"].device)[
+        None, :, None]                                          # global rows
+    emb = embedding_bag(params["table"], ids, compute_dtype=cfg.compute_dtype)
+    wide = embedding_bag(params["wide"].float(), ids)[..., 0]  # (B, F)
+    return emb, wide.sum(dim=-1)
+
+
+def _cin(params: dict, x0: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
+    """Compressed Interaction Network (xDeepFM): x0 (B, F, D) -> (B, sum H)."""
+    outs = []
+    xk = x0
+    for i in range(len(cfg.cin_dims)):
+        w = params["cin"][f"w{i}"].to(x0.dtype)                 # (H, Hk, F)
+        z = xk[:, :, None, :] * x0[:, None, :, :]               # (B, Hk, F, D)
+        xk = torch.einsum("bhfd,nhf->bnd", z, w)                # (B, H, D)
+        outs.append(xk.sum(dim=-1))                             # (B, H)
+    return torch.cat(outs, dim=-1)
+
+
+def forward(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    """Returns pre-sigmoid logits (B,) in f32:
+    ``bias + wide + (fm | cin) + deep``, summed in that order."""
+    dt = cfg.compute_dtype
+    emb, wide_logit = _field_embed(params, batch, cfg)
+    b = emb.shape[0]
+    logit = params["bias"] + wide_logit
+
+    # only the deep tower reads the dense projection (FM has none: the
+    # reference computes it there and never uses it)
+    dense_emb = None
+    if cfg.n_dense and "dense" in batch and cfg.mlp_dims:
+        dense_emb = nn.dense(params["dense_proj"], batch["dense"].to(dt), dt)
+
+    if cfg.interaction in ("fm", "fm-2way"):
+        logit = logit + fm_ops.fm_interact(emb)
+    elif cfg.interaction == "cin":
+        cin_feat = _cin(params, emb, cfg).to(dt)
+        logit = logit + nn.dense(params["cin_out"], cin_feat, dt)[..., 0].float()
+
+    if cfg.mlp_dims:
+        flat = emb.reshape(b, -1)
+        if dense_emb is not None:
+            flat = torch.cat([flat, dense_emb], dim=-1)
+        deep = nn.mlp(params["mlp"], flat, n_layers=len(cfg.mlp_dims) + 1)
+        logit = logit + deep[..., 0].float()
+    return logit
+
+
+def serve(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    return torch.sigmoid(forward(params, batch, cfg))
+
+
+# -------------------------------------------------------- retrieval scoring
+def score_candidates(query_emb: torch.Tensor, cand_embs: torch.Tensor, k: int = 100,
+                     n_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """retrieval_cand shape: one query vs n_candidates, f32 mat-vec + top-k.
+
+    Returns (scores (k,) f32 descending, ids (k,) int32). Equal scores rank
+    by lower index (the reference's ``lax.top_k`` rule): a stable descending
+    sort. Candidates at or past ``n_valid`` score -inf."""
+    scores = cand_embs.float() @ query_emb.float()
+    if n_valid is not None and n_valid < scores.shape[0]:
+        keep = torch.arange(scores.shape[0], device=scores.device) < n_valid
+        scores = torch.where(keep, scores, torch.full_like(scores, -math.inf))
+    top, idx = torch.sort(scores, descending=True, stable=True)
+    return top[:k], idx[:k].to(torch.int32)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions, on the card (f32,
-bf16, int8 and PQ variants).
+bf16, int8 and PQ variants; the FM interaction and the recsys serve path).
 
 Marked ``cuda``: on a machine without a card every test skips. On the card
 (no JAX there, so without the JAX conftest):
@@ -268,3 +268,106 @@ def test_medium_path_on_the_card(dev):
                               tile_b=128)
     assert E.recall_topk(ids, gt) >= 0.95
     assert E.recall_topk(ids, gt) == E.recall_topk(dense, gt)
+
+
+# ---------------------------------------------------------------- fm_interact
+# B not a multiple of any tile (1, 257, 262147) and D above the block (300)
+FM_SWEEP = [(4, 3, 8), (512, 39, 10), (1000, 40, 32), (64, 26, 128), (1, 39, 10),
+            (257, 39, 10), (262147, 39, 10), (33, 5, 300)]
+
+
+def _fm_scale(e):
+    """Magnitude bound of both sum-square terms per row: 0.5 sum_d (sum_f |e|)^2."""
+    return 0.5 * (e.double().abs().sum(1) ** 2).sum(-1) + 1e-30
+
+
+@pytest.mark.parametrize("b,f,d", FM_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fm_interact_matches_plain_and_pairs(dev, b, f, d, dtype):
+    """Kernel against its plain version on the same tensor and against an
+    f64 explicit-pairs oracle on up to 4096 rows, each within 1e-5 of the
+    row's magnitude bound (f32 sums in another order)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.fm_interact import ops as FM
+    gen = torch.Generator(device=dev).manual_seed(b + f + d)
+    e = torch.randn(b, f, d, generator=gen, device=dev).to(dtype)
+    before = LAUNCHES["fm_interact"]
+    ker = FM.fm_interact(e)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fm_interact"] == before + 1
+    assert ker.shape == (b,) and ker.dtype == torch.float32
+    scale = _fm_scale(e)
+    assert float(((ker.double() - FM.fm_interact_ref(e).double()).abs() / scale).max()) <= 1e-5
+    rows = torch.randperm(b, generator=gen, device=dev)[:4096]
+    e64 = e[rows].double()
+    gram = torch.bmm(e64, e64.transpose(1, 2))
+    pairs = 0.5 * (gram.sum((1, 2)) - gram.diagonal(dim1=1, dim2=2).sum(-1))
+    assert float(((ker[rows].double() - pairs).abs() / scale[rows]).max()) <= 1e-5
+
+
+def test_fm_interact_empty_and_strided(dev):
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.fm_interact import ops as FM
+    before = LAUNCHES["fm_interact"]
+    out = FM.fm_interact(torch.zeros((0, 39, 10), device=dev, dtype=torch.bfloat16))
+    assert out.shape == (0,) and out.device.type == "cuda"
+    assert LAUNCHES["fm_interact"] == before
+    gen = torch.Generator(device=dev).manual_seed(3)
+    view = torch.randn(300, 10, 39, generator=gen, device=dev).transpose(1, 2)
+    torch.testing.assert_close(FM.fm_interact(view), FM.fm_interact(view.contiguous()),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch_id", ["fm", "deepfm", "wide-deep", "xdeepfm"])
+def test_recsys_serve_on_the_card(dev, arch_id):
+    """One forward launches fm_interact once for FM and DeepFM and never for
+    Wide&Deep and xDeepFM; the kernel and plain routes differ only in the FM
+    term (1e-5 of its row bound, plus 1e-6 for the logit sum); the card and
+    the CPU run the same weights and batch within 1e-2 (bf16 products
+    accumulate in another order there: one-ulp flips, 2^-8 relative, in the
+    tower)."""
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.fm_interact import ops as FM
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as rs
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bound = steps.bind(arch_id, "serve_p99", reduced=True, device=dev)
+    params = bound.init_fn(gen)
+    batch = cb.recsys_smoke_batch(gen, bound.cfg, bound.shape, dev)
+    reset_launches()
+    logit = rs.forward(params, batch, bound.cfg)
+    torch.cuda.synchronize()
+    uses_fm = bound.cfg.interaction in ("fm", "fm-2way")
+    assert LAUNCHES["fm_interact"] == int(uses_fm)
+    assert sum(LAUNCHES.values()) == LAUNCHES["fm_interact"]
+    scores = bound.step_fn(params, batch)
+    assert bool(((scores >= 0) & (scores <= 1)).all()) and bool(torch.isfinite(logit).all())
+    if uses_fm:
+        emb, _ = rs._field_embed(params, batch, bound.cfg)
+        orig = FM.fm_interact
+        FM.fm_interact = FM.fm_interact_ref
+        try:
+            plain = rs.forward(params, batch, bound.cfg)
+        finally:
+            FM.fm_interact = orig
+        lim = 1e-5 * _fm_scale(emb) + 1e-6
+        assert bool(((logit.double() - plain.double()).abs() <= lim).all())
+    cpu = rs.forward(_to_cpu(params), _to_cpu(batch), bound.cfg)
+    torch.testing.assert_close(logit.cpu(), cpu, rtol=0, atol=1e-2)
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+
+def test_score_candidates_ties_on_the_card(dev):
+    """Integer-valued embeddings: exact scores, many ties, lower index first,
+    the same top-100 as on the CPU."""
+    from repro_torch.models import recsys as rs
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cand = torch.randint(-2, 3, (100_000, 10), generator=gen, device=dev).float()
+    q = torch.randint(-2, 3, (10,), generator=gen, device=dev).float()
+    top, idx = rs.score_candidates(q, cand, k=100)
+    ctop, cidx = rs.score_candidates(q.cpu(), cand.cpu(), k=100)
+    assert torch.equal(idx.cpu(), cidx) and torch.equal(top.cpu(), ctop)
