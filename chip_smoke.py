@@ -14,14 +14,18 @@ Phases (any failure raises and exits non-zero):
      f32 route and near the JAX package's number;
   3. main path at full size (n = 1M, d = 128, FULL; 10k queries; hashed
      search_tiled): launch counts are zeroed just before and read just after,
-     and every kernel must have launched; then the dense-visited oracle at
-     L = 64 (recall within 0.005 of the hashed run), recall/QPS at
-     L = 128, 256, and a torch.profiler trace of the search (device busy
-     time);
+     and every kernel must have launched; each sweep's prune time stands
+     beside its input's extent statistics (e = 1 + the last valid slot of a
+     row: mean, p50, p99, share of rows with e <= 32); then the
+     dense-visited oracle at L = 64 (recall within 0.005 of the hashed run),
+     recall/QPS at L = 128, 256, and a torch.profiler trace of the search
+     (device busy time);
   4. each kernel against its plain version on the main path's shapes and
      data, timed with CUDA events (rounds of back-to-back calls, median
      round and spread) beside its bound and, where one exists, a single
-     PyTorch call computing the same function;
+     PyTorch call computing the same function; the prune at three of the
+     build's inputs (the first 8192 rows at sweep 1, at sweep 16 just after
+     the first add_reverse_edges, and of the final graph);
   5. build-side witness: the same full-size build through the sort-oracle
      merge, whose recall and graph quality (share of sampled rows holding
      their exact nearest neighbours) must be no worse than the bucketed
@@ -33,8 +37,8 @@ Phases (any failure raises and exits non-zero):
      beam_score_pq -> rerank -> recall), launch counts zeroed before and read
      after each, recall held to the f32 path's times the codes' rerank
      ceiling (brute force over the decoded corpus, exact rerank); then each
-     coded kernel against its plain version on that path's own data, timed
-     as in phase 4;
+     coded kernel against its plain version on that path's own data (the
+     int8 prune at the int8 build's three inputs), timed as in phase 4;
   7. recsys serving (weights from the port's seeded init, batches from its
      seeded recsys_batch, through launch.steps.bind): DeepFM FULL at
      serve_bulk (262,144 rows) and serve_p99 (512) and FM FULL at serve_bulk,
@@ -236,6 +240,64 @@ def captured(module, name):
         setattr(module, name, orig)
 
 
+PRUNE_ROWS = 8192      # rows of each prune input the kernel phases time
+SNAP_SWEEPS = (1, 16)  # the random graph; just after the first add_reverse_edges
+
+
+def row_extent(valid: torch.Tensor) -> torch.Tensor:
+    """Per row, e = 1 + the last True slot of ``valid`` (0 for none): the
+    slots the prune kernel works on. uint8, so m <= 255."""
+    slot = torch.arange(1, valid.shape[1] + 1, device=valid.device, dtype=torch.uint8)
+    return torch.where(valid, slot, 0).amax(1)
+
+
+def extent_hist(ids: torch.Tensor) -> torch.Tensor:
+    """Histogram (M + 1 bins) of the per-row extent e of a graph's (n, M)
+    ids, valid in [0, n). Device work only: a scatter into the bins, which
+    waits for nothing (torch.bincount would read the min and max back)."""
+    n, m = ids.shape
+    e = row_extent((ids >= 0) & (ids < n)).long()
+    return torch.zeros(m + 1, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, e, torch.ones_like(e))
+
+
+def extent_stats(hist: torch.Tensor) -> list:
+    """[mean, p50, p99, share of rows with e <= 32] of an extent histogram."""
+    h = hist.double().cpu()
+    cdf = h.cumsum(0) / h.sum()
+    e = torch.arange(h.numel(), dtype=torch.float64)
+    return [float((h * e).sum() / h.sum()), int((cdf >= 0.5).nonzero()[0]),
+            int((cdf >= 0.99).nonzero()[0]), float(cdf[min(32, h.numel() - 1)])]
+
+
+@contextlib.contextmanager
+def prune_inputs(rd, snap: dict | None):
+    """Wrap ``rd.update_neighbors``: before each sweep, the extent histogram
+    of its prune input, and for the sweeps in SNAP_SWEEPS (1-based) a copy of
+    its first PRUNE_ROWS rows into ``snap`` when one is given. This work runs
+    outside the sweep's own timing but inside the build's: CUDA events around
+    it give its device ms per sweep. Yields (histograms, ms per sweep), the
+    times filled in on exit."""
+    orig, hists, events, ms = rd.update_neighbors, [], [], []
+
+    def wrapper(x, g, *a, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        hists.append(extent_hist(g.neighbors))
+        if snap is not None and len(hists) in SNAP_SWEEPS:
+            snap[len(hists)] = tuple(t[:PRUNE_ROWS].clone() for t in g)
+        e.record()
+        events.append((s, e))
+        return orig(x, g, *a, **kw)
+    rd.update_neighbors = wrapper
+    try:
+        yield hists, ms
+    finally:
+        rd.update_neighbors = orig
+        torch.cuda.synchronize()
+        ms.extend(s.elapsed_time(e) for s, e in events)
+
+
 def check_launches(launches: dict, mode: str, route: str = "kernel") -> None:
     """The path of corpus ``mode`` launched exactly its kernels (none on the
     plain route)."""
@@ -245,25 +307,27 @@ def check_launches(launches: dict, mode: str, route: str = "kernel") -> None:
 
 
 def run_path(x, q, n_queries_tile: int, gen_seed: int, medium: bool,
-             merge: str = "bucketed", mode: str = "f32", gt=None):
+             merge: str = "bucketed", mode: str = "f32", gt=None, snap: dict | None = None):
     """Build (FULL), ground truth (unless ``gt`` is given), hashed tiled
     search (SEARCH, top-10). A coded ``mode`` ("int8", "pq") builds under
     that quantization (the build encodes the corpus itself), encodes the
     corpus again for the search, as a server would, and searches the codes
-    with the rerank tail."""
+    with the rerank tail. Each sweep's prune time stands beside its input's
+    extent statistics; ``snap`` receives the SNAP_SWEEPS prune inputs."""
     from repro_torch.core import eval as E
     from repro_torch.core import rnn_descent as rd
     from repro_torch.core import search as S
     from repro_torch.quant import Quantization, corpus_bytes, encode_corpus
     from repro_torch.quant import quantization as Qm
     quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
+    # chunk: rows per gather of the plain prune (a medium sweep in one)
     cfg = rd.RNNDescentConfig(s=20, r=96, t1=4, t2=15, capacity=128,
-                              chunk=4096 if medium else 512, merge=merge, quant=quant)
+                              chunk=MEDIUM_N if medium else 512, merge=merge, quant=quant)
     scfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10, quant=quant)
     res = {"mode": mode}
     with event_timed(rd, ("prune_rows", "update_neighbors", "add_reverse_edges")) as ev, \
             event_timed(Qm, ("quantize_int8", "train_pq", "encode_pq_rows")) as qev, \
-            captured(Qm, "encode_corpus") as built_qx:
+            captured(Qm, "encode_corpus") as built_qx, prune_inputs(rd, snap) as (hists, hist_ms):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         g = rd.build(x, cfg, torch.Generator(device=x.device).manual_seed(gen_seed))
@@ -273,6 +337,10 @@ def run_path(x, q, n_queries_tile: int, gen_seed: int, medium: bool,
     res["merge_s"] = (sum(ev["update_neighbors"]) - sum(ev["prune_rows"])) / 1e3
     res["reverse_s"] = sum(ev["add_reverse_edges"]) / 1e3
     res["sweeps"] = len(ev["update_neighbors"])
+    res["extent_stats_s"] = sum(hist_ms) / 1e3   # inside build_s, outside the split above
+    res["prune_sweeps"] = {
+        "keys": ["prune_ms", "e_mean", "e_p50", "e_p99", "share_e_le_32"],
+        "rows": [[ms, *extent_stats(h)] for ms, h in zip(ev["prune_rows"], hists)]}
     qx = None
     if quant.is_coded:
         res["train_s"] = sum(qev["train_pq"] + qev["quantize_int8"]) / 1e3
@@ -360,7 +428,8 @@ def full_phase():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    g, gt, ids, _, res = run_path(x, q, 1024, SEED + 1, medium=False)
+    snap = {}
+    g, gt, ids, _, res = run_path(x, q, 1024, SEED + 1, medium=False, snap=snap)
     launches = dict(LAUNCHES)
     check_launches(launches, "f32")
     res["launches"] = launches
@@ -373,7 +442,7 @@ def full_phase():
     check(res["recall_at_10"] >= 0.78, f"full-size recall@10 {res['recall_at_10']}")
     search_checks(x, q, g, gt, ids, res["recall_at_10"])
     search_trace(x, q, g, res["search_s"])
-    return x, q, g, gt, launches, res
+    return x, q, g, gt, launches, res, snap
 
 
 def sort_oracle_build(x, q, gt, res):
@@ -492,60 +561,90 @@ def _hold_beam(name, ker, ref, lim, extra) -> float:
     return abs_err
 
 
-def kernel_phase(x, q, g, launches):
-    """Each kernel beside its plain version on the main path's data."""
+def prune_bound(ids, d: int, itemsize: int, aux_bytes: int = 0) -> dict:
+    """Bound of one prune call: each row reads its M ids (4 bytes a slot) to
+    find its extent e, the dists and flags of its e slots (5 bytes a slot)
+    and its v valid candidates' rows (v d itemsize bytes), and writes keep,
+    red_w and red_d for all M slots (9 bytes a slot); the scan needs
+    v (v - 1) / 2 pair distances of 2d flops and v norms of 2d."""
+    valid = ids >= 0
+    v = valid.sum(1).double()
+    e = row_extent(valid).double()
+    return _bound(float((v * (v + 1) * d).sum()),
+                  float(v.sum()) * d * itemsize + ids.numel() * 13 + float(e.sum()) * 5
+                  + aux_bytes)
+
+
+def prune_inputs_of(g, snap: dict) -> dict:
+    """The prune inputs the kernel phases hold and time: the first
+    PRUNE_ROWS rows of the built graph (the next sweep's input: kept
+    entries OLD, replacement edges NEW) and of the SNAP_SWEEPS inputs."""
+    out = {"final graph": tuple(t[:PRUNE_ROWS].contiguous() for t in g)}
+    out.update({f"sweep {s}": snap[s] for s in SNAP_SWEEPS})
+    return out
+
+
+def rng_prune_report(x, inputs: dict, launches: int) -> list:
+    """rng_prune beside its plain version at each prune input: exact on an
+    integer-valued corpus, held to the agreement limits on the real one in
+    f32 and bf16 under every metric, and timed (f32, l2)."""
     from repro_torch.core import graph as G
-    from repro_torch.kernels.beam_score import ops as B
-    from repro_torch.kernels.pairwise_l2 import ops as P
     from repro_torch.kernels.rng_prune import ops as R
     n, d = x.shape
-    rows = 8192
-    # the first 8192 rows of the built graph: the next sweep's prune input
-    # (kept entries OLD, replacement edges NEW)
-    ids, dists, flags = (t[:rows].contiguous() for t in g)
-    report = []
-
-    # -- rng_prune: integer-valued corpus first (exact), then the real one
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     xi = torch.randint(-8, 9, (n, d), generator=gen, device="cuda").float()
-    src = torch.arange(rows, device="cuda", dtype=torch.int32)[:, None].expand(rows, ids.shape[1])
-    di = G.D.gather_dists(xi, src.reshape(-1), ids.reshape(-1), "l2").reshape(rows, -1)
-    for metric in ("l2", "ip"):
-        ker = R.rng_prune(xi, ids, di, flags, metric)
-        ref = R.rng_prune_plain(xi, ids, di, flags, metric, chunk=1024)
-        check(all(torch.equal(a, b) for a, b in zip(ker, ref)),
-              f"rng_prune integer-valued {metric}: kernel != plain")
     # l2 pair distances cancel (|a|^2 + |b|^2 - 2ab): tolerance scaled by the
     # norms. Kernel and plain version read the same (bf16 or f32) inputs and
     # both accumulate in f32, so bf16 is held to the f32 limit; ip scales with
     # |a||b| <= max|x|^2, cos is bounded by 2.
+    scale = 2 * float((x * x).sum(1).max())
+    report = []
+    for label, (ids, dists, flags) in inputs.items():
+        rows, m = ids.shape
+        src = torch.arange(rows, device="cuda", dtype=torch.int32)[:, None].expand(rows, m)
+        di = G.D.gather_dists(xi, src.reshape(-1), ids.reshape(-1), "l2").reshape(rows, -1)
+        for metric in ("l2", "ip"):
+            ker = R.rng_prune(xi, ids, di, flags, metric)
+            ref = R.rng_prune_plain(xi, ids, di, flags, metric, chunk=rows)
+            check(all(torch.equal(a, b) for a, b in zip(ker, ref)),
+                  f"rng_prune integer-valued {metric} at {label}: kernel != plain")
+        worst = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            xx = x.to(dtype)
+            for metric in ("l2", "ip", "cos"):
+                ker = R.rng_prune(xx, ids, dists, flags, metric)
+                ref = R.rng_prune_plain(xx, ids, dists, flags, metric, chunk=rows)
+                worst[(dtype, metric)] = _prune_agreement(
+                    "rng_prune", ker, ref, 1e-5 * (2.0 if metric == "cos" else scale),
+                    {"input": label, "dtype": str(dtype), "metric": metric, "rows": rows,
+                     "M": m, "d": d})
+        report.append({
+            "name": "rng_prune", "input": label, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rng_prune.cu",
+            "replaces": "src/repro/kernels/rng_prune/kernel.py:162",
+            "launches": launches, "max_abs_err": worst[(torch.float32, "l2")],
+            "tolerance": f"exact on an integer-valued corpus; keep, red_w agreement >= 0.999; "
+                         f"red_d <= 1e-5 * 2 max|x|^2 = {1e-5 * scale:.3g} (f32 and bf16)",
+            **_timed_keys(time_ms(lambda i: R.rng_prune(x, ids, dists, flags, "l2"), inner=20),
+                          time_ms(lambda i: R.rng_prune_plain(x, ids, dists, flags, "l2", rows),
+                                  inner=1, rounds=3, warmup=1)),
+            **prune_bound(ids, d, 4),
+            "device_ms": device_ms(lambda i: R.rng_prune(x, ids, dists, flags, "l2"), 20,
+                                   "rng_prune_kernel"),
+            "library_ms": None, "shape": {"rows": rows, "M": m, "d": d}})
+    return report
+
+
+def kernel_phase(x, q, g, launches, snap):
+    """Each kernel beside its plain version on the main path's data."""
+    from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.kernels.pairwise_l2 import ops as P
+    n, d = x.shape
+    report = rng_prune_report(x, prune_inputs_of(g, snap), launches["rng_prune"])
     sq = (x * x).sum(1)
-    scale = 2 * float(sq.max())
-    worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        xx = x.to(dtype)
-        for metric in ("l2", "ip", "cos"):
-            ker = R.rng_prune(xx, ids, dists, flags, metric)
-            ref = R.rng_prune_plain(xx, ids, dists, flags, metric, chunk=1024)
-            worst[(dtype, metric)] = _prune_agreement(
-                "rng_prune", ker, ref, 1e-5 * (2.0 if metric == "cos" else scale),
-                {"dtype": str(dtype), "metric": metric, "rows": rows, "M": ids.shape[1],
-                 "d": d})
-    valid = (ids >= 0).sum(1).double()
-    report.append({
-        "name": "rng_prune", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rng_prune.cu",
-        "replaces": "src/repro/kernels/rng_prune/kernel.py:162",
-        "launches": launches["rng_prune"], "max_abs_err": worst[(torch.float32, "l2")],
-        "tolerance": f"keep, red_w agreement >= 0.999; red_d <= 1e-5 * 2 max|x|^2 = "
-                     f"{1e-5 * scale:.3g} (f32 and bf16)",
-        **_timed_keys(time_ms(lambda i: R.rng_prune(x, ids, dists, flags, "l2"), inner=20),
-                      time_ms(lambda i: R.rng_prune_plain(x, ids, dists, flags, "l2", 1024),
-                              inner=1, rounds=3, warmup=1)),
-        **_bound(float((2 * valid * valid * d).sum()),
-                 float(valid.sum()) * d * 4 + rows * ids.shape[1] * 18),
-        "device_ms": device_ms(lambda i: R.rng_prune(x, ids, dists, flags, "l2"), 20,
-                               "rng_prune_kernel"),
-        "library_ms": None, "shape": {"rows": rows, "M": ids.shape[1], "d": d}})
+    # the same draws as the prune's integer corpus, so the beam inputs follow
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    xi = torch.randint(-8, 9, (n, d), generator=gen, device="cuda").float()
 
     # -- beam_score: B = 1024 frontier ids over the real graph, k = 64; every
     # timed call gets fresh frontier ids so the gathers are not L2-resident
@@ -554,7 +653,7 @@ def kernel_phase(x, q, g, launches):
           for _ in range(n_us)]
     qb = q[:b].contiguous()
     qs = float((qb * qb).sum(1).max()) + float(sq.max())
-    # l2 cancels as above; ip scales with |q||x| <= (|q|^2 + |x|^2) / 2;
+    # l2 cancels (|q|^2 + |x|^2 - 2qx); ip scales with |q||x| <= (|q|^2 + |x|^2) / 2;
     # cos is bounded by 2
     lims = {"l2": 1e-5 * qs, "ip": 1e-5 * qs, "cos": 2e-5}
     errs = {}
@@ -640,7 +739,9 @@ def coded_full_phase(x, q, gt, mode: str, f32_res: dict):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    g, _, ids, qx, res = run_path(x, q, 1024, SEED + 1, medium=False, mode=mode, gt=gt)
+    snap = {}
+    g, _, ids, qx, res = run_path(x, q, 1024, SEED + 1, medium=False, mode=mode, gt=gt,
+                                  snap=snap)
     launches = res["launches"] = dict(LAUNCHES)
     res["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     res["rerank_ceiling_recall_at_10"] = rerank_ceiling(x, q, gt, qx)
@@ -656,66 +757,68 @@ def coded_full_phase(x, q, gt, mode: str, f32_res: dict):
           f"{mode}: {prune} launched {launches[prune]} times over {res['sweeps']} sweeps")
     floor = f32_res["recall_at_10"] * res["rerank_ceiling_recall_at_10"] - FULL_CODED_SLACK
     check(res["recall_at_10"] >= floor, f"{mode} recall@10 {res['recall_at_10']} < {floor}")
-    return g, qx, launches
+    return g, qx, launches, snap
 
 
-def int8_kernel_phase(x, q, g, qx, launches):
-    """rng_prune_int8 and beam_score_int8 beside their plain versions on the
-    int8 path's graph and codes."""
+def int8_kernel_phase(x, q, g, qx, launches, snap):
+    """rng_prune_int8 at each of the int8 build's prune inputs and
+    beam_score_int8, beside their plain versions on the int8 path's graph and
+    codes."""
     from repro_torch.core import distances as D
     from repro_torch.kernels.beam_score import ops as B
     from repro_torch.kernels.rng_prune import ops as R
     from repro_torch.quant import int8_decode
     n, d = x.shape
-    rows = 8192
-    ids, dists, flags = (t[:rows].contiguous() for t in g)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     # integer-valued code space over the same codes (dyadic scale, integer
     # zero): every Gram entry is exact, so kernel and plain agree bit for bit
     sc_i = 2.0 ** -torch.randint(1, 4, (d,), generator=gen, device="cuda").float()
     ze_i = torch.randint(-3, 4, (d,), generator=gen, device="cuda").float()
-    src = torch.arange(rows, device="cuda", dtype=torch.int32)[:, None].expand(rows, ids.shape[1])
-    di = D.gather_dists(int8_decode(qx.codes, sc_i, ze_i), src.reshape(-1), ids.reshape(-1),
-                        "l2").reshape(rows, -1)
-    for metric in ("l2", "ip"):
-        ker = R.rng_prune_int8(qx.codes, sc_i, ze_i, ids, di, flags, metric)
-        ref = R.rng_prune_int8_plain(qx.codes, sc_i, ze_i, ids, di, flags, metric, chunk=1024)
-        check(all(torch.equal(a, b) for a, b in zip(ker, ref)),
-              f"rng_prune_int8 integer-valued {metric}: kernel != plain")
     xh = int8_decode(qx.codes, qx.scale, qx.zero)
     sq = (xh * xh).sum(1)
     del xh
     scale = 2 * float(sq.max())
-    errs = {}
-    for metric in ("l2", "ip", "cos"):
-        lim = 1e-5 * (2.0 if metric == "cos" else scale)
-        ker = R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists, flags, metric)
-        ref = R.rng_prune_int8_plain(qx.codes, qx.scale, qx.zero, ids, dists, flags, metric,
-                                     chunk=1024)
-        errs[metric] = _prune_agreement("rng_prune_int8", ker, ref, lim,
-                                        {"metric": metric, "rows": rows, "M": ids.shape[1],
-                                         "d": d})
-    valid = (ids >= 0).sum(1).double()
-    report = [{
-        "name": "rng_prune_int8", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rng_prune.cu",
-        "replaces": "src/repro/kernels/rng_prune/kernel.py:129",
-        "launches": launches["rng_prune_int8"], "max_abs_err": errs["l2"],
-        "tolerance": f"keep, red_w agreement >= 0.999; red_d <= 1e-5 * 2 max|x_hat|^2 = "
-                     f"{1e-5 * scale:.3g} (l2, ip), 2e-5 (cos); exact on an integer-valued "
-                     "code space",
-        **_timed_keys(
-            time_ms(lambda i: R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists, flags),
-                    inner=20),
-            time_ms(lambda i: R.rng_prune_int8_plain(qx.codes, qx.scale, qx.zero, ids, dists,
-                                                     flags, "l2", 1024),
-                    inner=1, rounds=3, warmup=1)),
-        **_bound(float((2 * valid * valid * d).sum()),
-                 float(valid.sum()) * d + rows * ids.shape[1] * 18 + 2 * d * 4),
-        "device_ms": device_ms(
-            lambda i: R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists, flags), 20,
-            "rng_prune_kernel"),
-        "library_ms": None, "shape": {"rows": rows, "M": ids.shape[1], "d": d}}]
+    xi = int8_decode(qx.codes, sc_i, ze_i)
+    report = []
+    for label, (ids, dists, flags) in prune_inputs_of(g, snap).items():
+        rows, m = ids.shape
+        src = torch.arange(rows, device="cuda", dtype=torch.int32)[:, None].expand(rows, m)
+        di = D.gather_dists(xi, src.reshape(-1), ids.reshape(-1), "l2").reshape(rows, -1)
+        for metric in ("l2", "ip"):
+            ker = R.rng_prune_int8(qx.codes, sc_i, ze_i, ids, di, flags, metric)
+            ref = R.rng_prune_int8_plain(qx.codes, sc_i, ze_i, ids, di, flags, metric,
+                                         chunk=rows)
+            check(all(torch.equal(a, b) for a, b in zip(ker, ref)),
+                  f"rng_prune_int8 integer-valued {metric} at {label}: kernel != plain")
+        errs = {}
+        for metric in ("l2", "ip", "cos"):
+            lim = 1e-5 * (2.0 if metric == "cos" else scale)
+            ker = R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists, flags, metric)
+            ref = R.rng_prune_int8_plain(qx.codes, qx.scale, qx.zero, ids, dists, flags,
+                                         metric, chunk=rows)
+            errs[metric] = _prune_agreement("rng_prune_int8", ker, ref, lim,
+                                            {"input": label, "metric": metric, "rows": rows,
+                                             "M": m, "d": d})
+        report.append({
+            "name": "rng_prune_int8", "input": label, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rng_prune.cu",
+            "replaces": "src/repro/kernels/rng_prune/kernel.py:129",
+            "launches": launches["rng_prune_int8"], "max_abs_err": errs["l2"],
+            "tolerance": f"keep, red_w agreement >= 0.999; red_d <= 1e-5 * 2 max|x_hat|^2 = "
+                         f"{1e-5 * scale:.3g} (l2, ip), 2e-5 (cos); exact on an "
+                         "integer-valued code space",
+            **_timed_keys(
+                time_ms(lambda i: R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists,
+                                                   flags), inner=20),
+                time_ms(lambda i: R.rng_prune_int8_plain(qx.codes, qx.scale, qx.zero, ids,
+                                                         dists, flags, "l2", rows),
+                        inner=1, rounds=3, warmup=1)),
+            **prune_bound(ids, d, 1, 2 * d * 4),
+            "device_ms": device_ms(
+                lambda i: R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists, flags), 20,
+                "rng_prune_kernel"),
+            "library_ms": None, "shape": {"rows": rows, "M": m, "d": d}})
+    del xi
 
     b, k, n_us = 1024, 64, 200
     us = [torch.randint(0, n, (b,), generator=gen, device="cuda", dtype=torch.int32)
@@ -1125,14 +1228,14 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
     warm_up()
     medium_phase()
-    x, q, g, gt, launches, res = full_phase()
-    report = kernel_phase(x, q, g, launches)
-    del g
+    x, q, g, gt, launches, res, snap = full_phase()
+    report = kernel_phase(x, q, g, launches, snap)
+    del g, snap
     sort_oracle_build(x, q, gt, res)
-    g, qx, coded = coded_full_phase(x, q, gt, "int8", res)
-    report += int8_kernel_phase(x, q, g, qx, coded)
-    del g, qx
-    g, qx, coded = coded_full_phase(x, q, gt, "pq", res)
+    g, qx, coded, snap = coded_full_phase(x, q, gt, "int8", res)
+    report += int8_kernel_phase(x, q, g, qx, coded, snap)
+    del g, qx, snap
+    g, qx, coded, _ = coded_full_phase(x, q, gt, "pq", res)
     report += pq_kernel_phase(x, q, g, qx, coded)
     del g, qx, x, q, gt
     report += recsys_phase()

@@ -4,6 +4,9 @@ registers) and their plain versions.
 
 The kernel reads the corpus by id itself, so one launch covers all rows: the
 (rows, M, d) gathered block never exists (64 GiB at n = 1M, M = d = 128).
+Its warps take rows from two counters (one per pass: rows of more than 32
+candidates, then the rest): the wrapper allocates them, the launch zeroes
+them on its stream.
 The plain versions gather ``chunk`` rows at a time.
 """
 from __future__ import annotations
@@ -69,10 +72,11 @@ def _launch(x, ids, dists, flags, metric):
     keep, red_w, red_d = _outputs(r, m, x.device)
     if r == 0 or m == 0:
         return keep, red_w, red_d
-    rc = _build.load("rng_prune", "ppppiiiiiipppp")(
+    counter = torch.empty(2, dtype=torch.int32, device=x.device)
+    rc = _build.load("rng_prune", "ppppiiiiiippppp")(
         x.data_ptr(), ids.data_ptr(), dists.data_ptr(), flags.data_ptr(),
         n, d, r, m, metric_code(metric), int(x.dtype == torch.bfloat16),
-        keep.data_ptr(), red_w.data_ptr(), red_d.data_ptr(),
+        counter.data_ptr(), keep.data_ptr(), red_w.data_ptr(), red_d.data_ptr(),
         _build.stream_handle(x.device))
     _build.check(rc, "rng_prune")
     LAUNCHES["rng_prune"] += 1
@@ -142,10 +146,11 @@ def _launch_int8(codes, scale, zero, ids, dists, flags, metric):
     keep, red_w, red_d = _outputs(r, m, codes.device)
     if r == 0 or m == 0:
         return keep, red_w, red_d
-    rc = _build.load("rng_prune_int8", "ppppppiiiiipppp", source="rng_prune")(
+    counter = torch.empty(2, dtype=torch.int32, device=codes.device)
+    rc = _build.load("rng_prune_int8", "ppppppiiiiippppp", source="rng_prune")(
         codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), ids.data_ptr(),
         dists.data_ptr(), flags.data_ptr(), n, d, r, m, metric_code(metric),
-        keep.data_ptr(), red_w.data_ptr(), red_d.data_ptr(),
+        counter.data_ptr(), keep.data_ptr(), red_w.data_ptr(), red_d.data_ptr(),
         _build.stream_handle(codes.device))
     _build.check(rc, "rng_prune_int8")
     LAUNCHES["rng_prune_int8"] += 1

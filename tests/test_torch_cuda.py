@@ -149,6 +149,57 @@ def test_rng_prune_int8_matches_plain(dev, metric, m, integer):
     assert float((ker[2] - ref[2])[same].abs().max()) <= lim
 
 
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("d", [37, 128])
+@pytest.mark.parametrize("m", [50, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_rng_prune_ragged_rows(dev, dtype, metric, m, d, integer):
+    """One launch over rows of every extent a tile edge can get wrong (0, 1,
+    31, 32, 33, 64, 65, 127, 128, capped at m), dense and with holes (-1 and
+    ids >= n) below the last valid slot; d = 37 takes the unaligned gather.
+    Integer-valued l2/ip: bit for bit the plain version; otherwise the
+    agreement limits of the real-data tests."""
+    import numpy as np
+    from _ragged import ragged_rows
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.rng_prune import ops as R
+    from repro_torch.quant import int8_decode
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = 3000
+    if dtype == "int8":
+        codes, scale, zero = _int8_space(gen, n, d, dev, integer)
+        xv = int8_decode(codes, scale, zero)
+    else:
+        xv = (torch.randint(-8, 9, (n, d), generator=gen, device=dev).float() if integer
+              else torch.randn(n, d, generator=gen, device=dev))
+    planted, ids, dists, flags = (torch.from_numpy(a).to(dev) for a in
+                                  ragged_rows(xv.cpu().numpy(), m, 6, metric, repeats=8))
+    name = "rng_prune_int8" if dtype == "int8" else "rng_prune"
+    before = LAUNCHES[name]
+    if dtype == "int8":
+        ker = R.rng_prune_int8(codes, scale, zero, planted, dists, flags, metric)
+        ref = R.rng_prune_int8_plain(codes, scale, zero, ids, dists, flags, metric)
+    else:
+        xx = xv.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+        ker = R.rng_prune(xx, planted, dists, flags, metric)
+        ref = R.rng_prune_plain(xx, ids, dists, flags, metric)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    assert int(ker[0].sum()) > 0
+    if integer and metric != "cos":
+        for a, b in zip(ker, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        return
+    assert float((ker[0] == ref[0]).float().mean()) >= 0.999
+    assert float((ker[1] == ref[1]).float().mean()) >= 0.999
+    same = (ker[1] == ref[1]) & (ker[1] >= 0)
+    xf = xv.float()
+    lim = 1e-5 * (2.0 if metric == "cos" else 2 * float((xf * xf).sum(1).max()))
+    assert float((ker[2] - ref[2])[same].abs().max()) <= lim
+
+
 def _frontier(gen, n, m, b, dev):
     nbrs = torch.randint(-1, n, (n, m), generator=gen, device=dev, dtype=torch.int32)
     u = torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)

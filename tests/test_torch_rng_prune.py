@@ -10,11 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _ragged import ragged_rows
 
 from repro.core import distances as RD
 from repro.core import graph as RG
 from repro.core import rnn_descent as RRD
 from repro.core.rng import rng_scan as ref_rng_scan
+from repro.kernels.rng_prune.ref import rng_prune_int8_ref as jax_rng_prune_int8_ref
 from repro.kernels.rng_prune.ref import rng_prune_ref as jax_rng_prune_ref
 from repro_torch import convert
 from repro_torch.core import rnn_descent as rd
@@ -84,6 +86,40 @@ def test_plain_rng_prune_is_the_oracle_on_integer_data(metric):
                                 jnp.asarray(x)[jnp.maximum(jnp.asarray(ids), 0)])
         for a, b in zip(out, ref):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("m", [50, 128])
+@pytest.mark.parametrize("corpus,metric", [("f32", "l2"), ("f32", "ip"), ("int8", "l2")])
+def test_plain_rng_prune_matches_reference_on_ragged_rows(corpus, metric, m):
+    """The contract the CUDA prune is held to on the card: rows of extent 0,
+    1, 31, 32, 33, 64, 65, 127, 128 (capped at m) and rows with -1 holes
+    below their last valid slot, through the plain prune and the reference's
+    jnp prune (gathered Gram + rng_scan, old-old pairs exempt), exactly. The
+    ids >= n that the kernel reads as padding reach both as -1."""
+    rng = np.random.default_rng(8)
+    if corpus == "int8":   # dyadic scale, integer zero: every decoded value exact
+        codes = rng.integers(-127, 128, (400, 24)).astype(np.int8)
+        scale = (2.0 ** -rng.integers(1, 4, 24)).astype(np.float32)
+        zero = rng.integers(-3, 4, 24).astype(np.float32)
+        x = codes.astype(np.float32) * scale + zero
+    else:
+        x = _int_corpus(9, 400, 24)
+    _, ids, dists, flags = ragged_rows(x, m, 10, metric, repeats=2)
+    if corpus == "int8":
+        out = rng_ops.rng_prune_int8(*_t(codes, scale, zero, ids, dists, flags), metric=metric,
+                                     chunk=7)
+        ref = jax_rng_prune_int8_ref(*(jnp.asarray(a) for a in
+                                       (codes, scale, zero, ids, dists, flags)))
+    else:
+        out = rng_ops.rng_prune(*_t(x, ids, dists, flags), metric=metric, chunk=7)
+        vecs = jnp.asarray(x)[jnp.maximum(jnp.asarray(ids), 0)]
+        old = flags == 0
+        res = ref_rng_scan(jnp.asarray(ids), jnp.asarray(dists), RD.batched_gram(vecs, metric),
+                           jnp.asarray(old[:, :, None] & old[:, None, :]))
+        ref = (res.keep.astype(jnp.uint8), res.redirect_w, res.redirect_d)
+    assert int(out[0].sum()) > 0 and int((out[1] >= 0).sum()) > 0
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_rng_prune_rows_keep_matches_reference():
