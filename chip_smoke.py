@@ -23,7 +23,8 @@ Phases (any failure raises and exits non-zero):
   4. each kernel against its plain version on the main path's shapes and
      data, timed with CUDA events (rounds of back-to-back calls, median
      round and spread) beside its bound and, where one exists, a single
-     PyTorch call computing the same function; the prune at three of the
+     PyTorch call computing the same function; the beam kernels also with
+     their wrapper's host time per call (host_ms); the prune at three of the
      build's inputs (the first 8192 rows at sweep 1, at sweep 16 just after
      the first add_reverse_edges, and of the final graph);
   5. build-side witness: the same full-size build through the sort-oracle
@@ -38,7 +39,10 @@ Phases (any failure raises and exits non-zero):
      after each, recall held to the f32 path's times the codes' rerank
      ceiling (brute force over the decoded corpus, exact rerank); then each
      coded kernel against its plain version on that path's own data (the
-     int8 prune at the int8 build's three inputs), timed as in phase 4;
+     int8 prune at the int8 build's three inputs; each beam kernel on random
+     frontier ids and on the frontier its search hands it at iteration 20 of
+     the first tile, exact on integer-valued codes or tables), timed as in
+     phase 4;
   7. recsys serving (weights from the port's seeded init, batches from its
      seeded recsys_batch, through launch.steps.bind): DeepFM FULL at
      serve_bulk (262,144 rows) and serve_p99 (512) and FM FULL at serve_bulk,
@@ -117,22 +121,26 @@ def nvidia_smi() -> str:
 def time_ms(fn, inner: int, rounds: int = 5, warmup: int = 2) -> dict:
     """Per-call CUDA-event time of ``fn(i)``: ``rounds`` rounds of ``inner``
     back-to-back calls between one pair of events, after ``warmup`` calls.
-    Returns the median round's per-call ms and the spread over rounds; ``i``
-    lets a caller feed fresh inputs per call."""
+    Returns the median round's per-call ms and the spread over rounds, and
+    ``host_ms``: the median round's host seconds per call (perf_counter
+    around the calls, no sync: what the caller's thread spends issuing one);
+    ``i`` lets a caller feed fresh inputs per call."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
-    per = []
+    per, host = [], []
     for r in range(rounds):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
+        t0 = time.perf_counter()
         for i in range(inner):
             fn(warmup + r * inner + i)
+        host.append(1e3 * (time.perf_counter() - t0) / inner)
         e.record()
         e.synchronize()
         per.append(s.elapsed_time(e) / inner)
     return {"ms": statistics.median(per), "ms_min": min(per), "ms_max": max(per),
-            "calls": inner * rounds}
+            "calls": inner * rounds, "host_ms": statistics.median(host)}
 
 
 def device_ms(fn, calls: int, kernel_name: str) -> float | None:
@@ -150,11 +158,13 @@ def device_ms(fn, calls: int, kernel_name: str) -> float | None:
     return statistics.median(ts) / 1e3 if ts else None
 
 
-def _timed_keys(kernel: dict, plain: dict) -> dict:
-    """The ``kernels`` line's time keys from two :func:`time_ms` results."""
+def _timed_keys(kernel: dict, plain: dict, host: bool = False) -> dict:
+    """The ``kernels`` line's time keys from two :func:`time_ms` results
+    (``host``: with the kernel wrapper's ``host_ms``)."""
     return {"ms": kernel["ms"], "plain_ms": plain["ms"],
             "ms_spread": [kernel["ms_min"], kernel["ms_max"], kernel["calls"]],
-            "plain_ms_spread": [plain["ms_min"], plain["ms_max"], plain["calls"]]}
+            "plain_ms_spread": [plain["ms_min"], plain["ms_max"], plain["calls"]],
+            **({"host_ms": kernel["host_ms"]} if host else {})}
 
 
 @contextlib.contextmanager
@@ -226,12 +236,13 @@ def graph_quality(x, g, rows: int, gen_seed: int) -> dict:
 
 @contextlib.contextmanager
 def captured(module, name):
-    """Record every result of ``module.<name>`` while the block runs."""
+    """Record every call of ``module.<name>`` while the block runs, as
+    (positional arguments, result)."""
     orig, out = getattr(module, name), []
 
     def wrapper(*a, **kw):
         res = orig(*a, **kw)
-        out.append(res)
+        out.append((a, res))
         return res
     setattr(module, name, wrapper)
     try:
@@ -350,7 +361,7 @@ def run_path(x, q, n_queries_tile: int, gen_seed: int, medium: bool,
         qx = encode_corpus(x, quant)
         torch.cuda.synchronize()
         res["search_side_encode_s"] = time.perf_counter() - t0
-        res["codes_equal_to_build"] = bool(torch.equal(qx.codes, built_qx[0].codes))
+        res["codes_equal_to_build"] = bool(torch.equal(qx.codes, built_qx[0][1].codes))
         res.update(corpus_bytes(qx, *x.shape))
     if gt is None:
         t0 = time.perf_counter()
@@ -561,6 +572,68 @@ def _hold_beam(name, ker, ref, lim, extra) -> float:
     return abs_err
 
 
+SNAP_ITER = 20    # the search iteration (tile 0) whose frontier the beam kernels are timed on
+BEAM_KERNELS = {"beam_score": ("beam_score_kernel", 2),      # device name, index of u
+                "beam_score_int8": ("beam_score_int8_kernel", 4),
+                "beam_score_pq": ("beam_score_pq_kernel", 2)}
+
+
+def frontier_snapshot(x, q, g, mode: str, qx=None) -> torch.Tensor:
+    """The frontier ids ``u`` that the beam kernel of coded ``mode`` ("int8",
+    "pq") gets at iteration SNAP_ITER of the first tile's search (the first
+    1024 queries, L = 64, hashed), retired lanes -1."""
+    from repro_torch.core import search as S
+    from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.quant import Quantization
+    name = f"beam_score_{mode}"
+    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10,
+                         quant=Quantization(**QUANT_KW[mode]))
+    with captured(B, name) as calls:
+        S.search(x, g, q[:1024], S.default_entry_point(x), cfg, qx=qx)
+    check(len(calls) > SNAP_ITER, f"{mode} search ran {len(calls)} beam iterations")
+    return calls[SNAP_ITER][0][BEAM_KERNELS[name][1]].clone()
+
+
+def beam_bound(nbrs, u, k: int, row_bytes: int, row_flops: float, lane_bytes: int,
+               aux_bytes: int = 0) -> dict:
+    """Bound of one beam call: each lane whose frontier id is in [0, n)
+    reads its k prefix ids and ``lane_bytes`` (its query), each valid
+    candidate among them ``row_bytes`` for ``row_flops``; every lane reads
+    its frontier id and writes k slots of ids, dists and keys. With the
+    live lanes and valid candidates counted."""
+    n = nbrs.shape[0]
+    live = (u >= 0) & (u < n)
+    pre = nbrs[torch.where(live, u, 0).long()][:, :k]
+    a = float(live.sum())
+    v = float(((pre >= 0) & (pre < n) & live[:, None]).sum())
+    b = u.shape[0]
+    return {**_bound(v * row_flops, v * row_bytes + a * (4 * k + lane_bytes) + b * 4
+                     + b * k * 12 + aux_bytes), "live_lanes": int(a), "valid_candidates": int(v)}
+
+
+def beam_entries(name: str, fn, plain, us: list, snap_u, bound, base: dict) -> list:
+    """The ``kernels`` entries of a beam kernel: timed on fresh random
+    frontier ids each call, and (``snap_u`` not None) on the search's
+    frontier snapshot, the same ids each call. ``fn(u)`` / ``plain(u)`` run
+    the kernel / plain version on frontier ``u`` (the plain version over a
+    tenth of the calls: it is the arithmetic's reference, not a yardstick
+    of speed), ``bound(u)`` gives the bound keys of one call."""
+    inputs = [("random frontier", lambda i: us[i % len(us)], us[0])]
+    if snap_u is not None:
+        inputs.append((f"search frontier, tile 0 iteration {SNAP_ITER}", lambda i: snap_u,
+                       snap_u))
+    out = []
+    for label, pick, u0 in inputs:
+        out.append({
+            "name": name, "input": label, "route": "cuda", **base,
+            **_timed_keys(time_ms(lambda i: fn(pick(i)), inner=len(us)),
+                          time_ms(lambda i: plain(pick(i)), inner=len(us) // 10), host=True),
+            **bound(u0),
+            "device_ms": device_ms(lambda i: fn(pick(i)), len(us), BEAM_KERNELS[name][0]),
+            "library_ms": None})
+    return out
+
+
 def prune_bound(ids, d: int, itemsize: int, aux_bytes: int = 0) -> dict:
     """Bound of one prune call: each row reads its M ids (4 bytes a slot) to
     find its extent e, the dists and flags of its e slots (5 bytes a slot)
@@ -664,23 +737,16 @@ def kernel_phase(x, q, g, launches, snap):
             errs[(dtype, metric)] = _hold_beam(
                 "beam_score", B.beam_score(*args), B.beam_score_ref(*args), lims[metric],
                 {"dtype": str(dtype), "metric": metric, "B": b, "k": k, "d": d})
-    nvalid = float((g.neighbors[us[0].long()][:, :k] >= 0).sum())
-    report.append({
-        "name": "beam_score", "route": "cuda", "source": "src/repro_torch/kernels/csrc/beam_score.cu",
-        "replaces": "src/repro/kernels/beam_score/kernel.py:197",
-        "launches": launches["beam_score"], "max_abs_err": errs[(torch.float32, "l2")],
-        "tolerance": f"ids exact; dists <= 1e-5 * (|q|^2 + |x|^2) = {1e-5 * qs:.3g} "
-                     "(l2, ip; f32 and bf16), 2e-5 (cos)",
-        **_timed_keys(
-            time_ms(lambda i: B.beam_score(x, g.neighbors, us[i % n_us], qb, k, "l2"),
-                    inner=n_us),
-            time_ms(lambda i: B.beam_score_ref(x, g.neighbors, us[i % n_us], qb, k, "l2"),
-                    inner=n_us)),
-        **_bound(4.0 * nvalid * d, nvalid * d * 4 + b * k * 4 + b * d * 4 + b * 4 + b * k * 12),
-        "device_ms": device_ms(
-            lambda i: B.beam_score(x, g.neighbors, us[i % n_us], qb, k, "l2"), n_us,
-            "beam_score_kernel"),
-        "library_ms": None, "shape": {"B": b, "k": k, "M": g.capacity, "d": d, "n": n}})
+    report += beam_entries(
+        "beam_score", lambda u: B.beam_score(x, g.neighbors, u, qb, k, "l2"),
+        lambda u: B.beam_score_ref(x, g.neighbors, u, qb, k, "l2"), us, None,
+        lambda u: beam_bound(g.neighbors, u, k, 4 * d, 4.0 * d, 4 * d),
+        {"source": "src/repro_torch/kernels/csrc/beam_score.cu",
+         "replaces": "src/repro/kernels/beam_score/kernel.py:197",
+         "launches": launches["beam_score"], "max_abs_err": errs[(torch.float32, "l2")],
+         "tolerance": f"ids exact; dists <= 1e-5 * (|q|^2 + |x|^2) = {1e-5 * qs:.3g} "
+                      "(l2, ip; f32 and bf16), 2e-5 (cos)",
+         "shape": {"B": b, "k": k, "M": g.capacity, "d": d, "n": n}})
 
     # -- pairwise_l2: 1024 queries x the 1M corpus x 128
     qa = q[:1024].contiguous()
@@ -824,38 +890,40 @@ def int8_kernel_phase(x, q, g, qx, launches, snap):
     us = [torch.randint(0, n, (b,), generator=gen, device="cuda", dtype=torch.int32)
           for _ in range(n_us)]
     qb = q[:b].contiguous()
+    qi = torch.randint(-8, 9, (b, d), generator=gen, device="cuda").float()
     qs = (qb * qb).sum(1, keepdim=True) + float(sq.max())
+    snap_u = frontier_snapshot(x, q, g, "int8", qx)
     errs = {}
-    for metric in ("l2", "ip", "cos"):
-        lim = 1e-5 * qs if metric != "cos" else torch.full_like(qs, 2e-5)
-        args = (qx.codes, qx.scale, qx.zero, g.neighbors, us[0], qb, k, metric)
-        errs[metric] = _hold_beam("beam_score_int8", B.beam_score_int8(*args),
-                                  B.beam_score_int8_ref(*args), lim,
-                                  {"metric": metric, "B": b, "k": k, "d": d})
-    nvalid = float((g.neighbors[us[0].long()][:, :k] >= 0).sum())
-    report.append({
-        "name": "beam_score_int8", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/beam_score.cu",
-        "replaces": "src/repro/kernels/beam_score/kernel.py:231",
-        "launches": launches["beam_score_int8"], "max_abs_err": errs["l2"],
-        "tolerance": "ids exact; dists <= 1e-5 * (|q|^2 + max|x_hat|^2) (l2, ip), 2e-5 (cos)",
-        **_timed_keys(
-            time_ms(lambda i: B.beam_score_int8(qx.codes, qx.scale, qx.zero, g.neighbors,
-                                                us[i % n_us], qb, k, "l2"), inner=n_us),
-            time_ms(lambda i: B.beam_score_int8_ref(qx.codes, qx.scale, qx.zero, g.neighbors,
-                                                    us[i % n_us], qb, k, "l2"), inner=n_us)),
-        **_bound(6.0 * nvalid * d,
-                 nvalid * d + b * k * 4 + b * d * 4 + b * 4 + b * k * 12 + 2 * d * 4),
-        "device_ms": device_ms(
-            lambda i: B.beam_score_int8(qx.codes, qx.scale, qx.zero, g.neighbors, us[i % n_us],
-                                        qb, k, "l2"), n_us, "beam_score_kernel"),
-        "library_ms": None, "shape": {"B": b, "k": k, "M": g.capacity, "d": d, "n": n}})
-    return report
+    for label, u in (("random", us[0]), ("search", snap_u)):
+        for metric in ("l2", "ip"):
+            args = (qx.codes, sc_i, ze_i, g.neighbors, u, qi, k, metric)
+            check(all(torch.equal(a, r) for a, r in zip(B.beam_score_int8(*args),
+                                                        B.beam_score_int8_ref(*args))),
+                  f"beam_score_int8 integer-valued {metric}, {label} frontier: kernel != plain")
+        for metric in ("l2", "ip", "cos"):
+            lim = 1e-5 * qs if metric != "cos" else torch.full_like(qs, 2e-5)
+            args = (qx.codes, qx.scale, qx.zero, g.neighbors, u, qb, k, metric)
+            errs[label, metric] = _hold_beam("beam_score_int8", B.beam_score_int8(*args),
+                                             B.beam_score_int8_ref(*args), lim,
+                                             {"frontier": label, "metric": metric, "B": b,
+                                              "k": k, "d": d})
+    call = (qx.codes, qx.scale, qx.zero, g.neighbors)
+    return report + beam_entries(
+        "beam_score_int8", lambda u: B.beam_score_int8(*call, u, qb, k, "l2"),
+        lambda u: B.beam_score_int8_ref(*call, u, qb, k, "l2"), us, snap_u,
+        lambda u: beam_bound(g.neighbors, u, k, d, 6.0 * d, 4 * d, 2 * d * 4),
+        {"source": "src/repro_torch/kernels/csrc/beam_score.cu",
+         "replaces": "src/repro/kernels/beam_score/kernel.py:231",
+         "launches": launches["beam_score_int8"], "max_abs_err": errs["random", "l2"],
+         "tolerance": "ids exact; dists <= 1e-5 * (|q|^2 + max|x_hat|^2) (l2, ip), 2e-5 "
+                      "(cos); exact on an integer-valued code space (l2, ip)",
+         "shape": {"B": b, "k": k, "M": g.capacity, "d": d, "n": n}})
 
 
 def pq_kernel_phase(x, q, g, qx, launches):
     """beam_score_pq beside its plain version on the PQ path's graph, codes
-    and the tables of its first 1024 queries."""
+    and the tables of its first 1024 queries, on random frontier ids and on
+    the search's own frontier; exact on integer-valued tables."""
     from repro_torch.kernels.beam_score import ops as B
     from repro_torch.quant import pq_lut
     n, mq = qx.codes.shape
@@ -864,37 +932,42 @@ def pq_kernel_phase(x, q, g, qx, launches):
     us = [torch.randint(0, n, (b,), generator=gen, device="cuda", dtype=torch.int32)
           for _ in range(n_us)]
     qb = q[:b].contiguous()
+    # integer codebooks and queries: every table entry and sum is exact
+    cb_i = torch.randint(-4, 5, qx.codebooks.shape, generator=gen, device="cuda").float()
+    qi = torch.randint(-4, 5, qb.shape, generator=gen, device="cuda").float()
+    snap_u = frontier_snapshot(x, q, g, "pq", qx)
     errs, luts = {}, {}
     for metric in ("l2", "ip", "cos"):
-        lut = luts[metric] = pq_lut(qb, qx.codebooks, metric)
-        # the m terms add in another order: error scales with their magnitudes
-        lim = (1e-5 * lut[0].abs().amax(dim=2).sum(1, keepdim=True) if metric != "cos"
-               else torch.full((b, 1), 2e-5, device="cuda"))
-        args = (qx.codes, g.neighbors, us[0], *lut, k, metric)
-        errs[metric] = _hold_beam("beam_score_pq", B.beam_score_pq(*args),
-                                  B.beam_score_pq_ref(*args), lim,
-                                  {"metric": metric, "B": b, "k": k, "m": mq})
+        luts[metric] = pq_lut(qb, qx.codebooks, metric)
+    for label, u in (("random", us[0]), ("search", snap_u)):
+        for metric in ("l2", "ip"):
+            args = (qx.codes, g.neighbors, u, *pq_lut(qi, cb_i, metric), k, metric)
+            check(all(torch.equal(a, r) for a, r in zip(B.beam_score_pq(*args),
+                                                        B.beam_score_pq_ref(*args))),
+                  f"beam_score_pq integer-valued {metric}, {label} frontier: kernel != plain")
+        for metric in ("l2", "ip", "cos"):
+            lut = luts[metric]
+            # the m terms add in another order: error scales with their magnitudes
+            lim = (1e-5 * lut[0].abs().amax(dim=2).sum(1, keepdim=True) if metric != "cos"
+                   else torch.full((b, 1), 2e-5, device="cuda"))
+            args = (qx.codes, g.neighbors, u, *lut, k, metric)
+            errs[label, metric] = _hold_beam("beam_score_pq", B.beam_score_pq(*args),
+                                             B.beam_score_pq_ref(*args), lim,
+                                             {"frontier": label, "metric": metric, "B": b,
+                                              "k": k, "m": mq})
     lut = luts["l2"]
-    nvalid = float((g.neighbors[us[0].long()][:, :k] >= 0).sum())
-    return [{
-        "name": "beam_score_pq", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/beam_score_pq.cu",
-        "replaces": "src/repro/kernels/beam_score/kernel.py:267",
-        "launches": launches["beam_score_pq"], "max_abs_err": errs["l2"],
-        "tolerance": "ids exact; dists <= 1e-5 * sum_s max_c |lut_a[b, s, c]| (l2, ip), "
-                     "2e-5 (cos)",
-        **_timed_keys(
-            time_ms(lambda i: B.beam_score_pq(qx.codes, g.neighbors, us[i % n_us], *lut, k,
-                                              "l2"), inner=n_us),
-            time_ms(lambda i: B.beam_score_pq_ref(qx.codes, g.neighbors, us[i % n_us], *lut,
-                                                  k, "l2"), inner=n_us)),
-        # bytes: the valid candidates' code rows and the table entries they
-        # index, the adjacency prefixes, frontier ids and outputs
-        **_bound(nvalid * mq, nvalid * mq * 5 + b * k * 4 + b * 4 + b * k * 12),
-        "device_ms": device_ms(
-            lambda i: B.beam_score_pq(qx.codes, g.neighbors, us[i % n_us], *lut, k, "l2"),
-            n_us, "beam_score_pq_kernel"),
-        "library_ms": None, "shape": {"B": b, "k": k, "M": g.capacity, "m": mq, "n": n}}]
+    # bytes: the valid candidates' code rows and the table entries they
+    # index, the adjacency prefixes, frontier ids and outputs
+    return beam_entries(
+        "beam_score_pq", lambda u: B.beam_score_pq(qx.codes, g.neighbors, u, *lut, k, "l2"),
+        lambda u: B.beam_score_pq_ref(qx.codes, g.neighbors, u, *lut, k, "l2"), us, snap_u,
+        lambda u: beam_bound(g.neighbors, u, k, 5 * mq, float(mq), 0),
+        {"source": "src/repro_torch/kernels/csrc/beam_score_pq.cu",
+         "replaces": "src/repro/kernels/beam_score/kernel.py:267",
+         "launches": launches["beam_score_pq"], "max_abs_err": errs["random", "l2"],
+         "tolerance": "ids exact; dists <= 1e-5 * sum_s max_c |lut_a[b, s, c]| (l2, ip), "
+                      "2e-5 (cos); exact on integer-valued tables (l2, ip)",
+         "shape": {"B": b, "k": k, "M": g.capacity, "m": mq, "n": n}})
 
 
 # ------------------------------------------------------------------- recsys

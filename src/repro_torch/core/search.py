@@ -274,7 +274,9 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
         done = done | (best_unexp > beam_d[:, -1]) | ~torch.isfinite(best_unexp)
         active = ~done
         work += active.to(torch.int32)
-        u = torch.where(active, torch.gather(beam_ids, 1, slot)[:, 0], 0)
+        # a retired lane expands -1: the beam kernels write it a lane of
+        # padding without reading any prefix or row (cand_ok masks it anyway)
+        u = torch.where(active, torch.gather(beam_ids, 1, slot)[:, 0], -1)
         expanded.scatter_(1, slot, torch.gather(expanded, 1, slot) | active[:, None])
 
         if qmode == "int8":

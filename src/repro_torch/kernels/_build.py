@@ -5,7 +5,8 @@ Each ``csrc/<source>.cu`` compiles on its own (one ``nvcc`` per source, all
 started together by :func:`build_all`) into
 ``build/kernels/<source>-<hash>.so`` at the repository root; a source may
 hold several entry points (``beam_score`` and ``beam_score_int8``). The hash
-covers the source and the flags, so a stale library is never loaded. A
+covers the source, the ``csrc/*.cuh`` headers and the flags, so a stale
+library is never loaded. A
 build error raises with nvcc's output.
 """
 from __future__ import annotations
@@ -42,7 +43,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers any source may include count as part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 
@@ -100,5 +102,9 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
 
 
-def stream_handle(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of the current stream of CUDA ``device``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without building
+    a Stream object (0.3 against 5.2 us of host time per call on an H100
+    80GB HBM3 host, scripts/beam_ab.py)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -53,11 +53,14 @@ def beam_score(x: torch.Tensor, neighbors: torch.Tensor, u: torch.Tensor,
 
 
 def _outputs(x, neighbors, u, k):
+    """(ids i32, dists f32, keys i32), each (B, min(k, M)): views of one
+    allocation (a torch.empty costs about 4.5 us of host time on an H100
+    80GB HBM3 host, scripts/beam_ab.py)."""
     if x.shape[0] >= 2**31:
         raise ValueError("n must fit int32")
     b, k = u.shape[0], max(0, min(k, neighbors.shape[1]))
-    return tuple(torch.empty((b, k), dtype=dt, device=x.device)
-                 for dt in (torch.int32, torch.float32, torch.int32))
+    ids, dists, keys = torch.empty((3, b, k), dtype=torch.int32, device=x.device).unbind(0)
+    return ids, dists.view(torch.float32), keys
 
 
 def _launch(x, neighbors, u, queries, k, metric):

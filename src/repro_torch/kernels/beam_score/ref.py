@@ -37,10 +37,22 @@ def beam_score_ref(x: torch.Tensor, neighbors: torch.Tensor, u: torch.Tensor,
                    queries: torch.Tensor, k: int, metric: str = "l2"):
     """``u`` (B,) frontier ids -> each lane's first ``k`` neighbours (Eq. 4
     prefix), scored against ``queries`` (B, d). Returns (ids i32 (-1 pad),
-    dists f32 (+inf pad), keys i32), each (B, k)."""
-    k = min(k, neighbors.shape[1])
-    nbrs = neighbors[u.long()][:, :k]
+    dists f32 (+inf pad), keys i32), each (B, k). As in the kernels, a
+    frontier id outside [0, n) gives a lane of padding (the search passes -1
+    for a retired lane), and so does an adjacency id outside [0, n) its
+    slot."""
+    nbrs = _prefix(neighbors, u, k)
     return _finish(nbrs, score_block(x[nbrs.clamp(min=0).long()], queries, metric))
+
+
+def _prefix(neighbors: torch.Tensor, u: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, min(k, M)) adjacency prefixes of ``u``, -1 for every id outside
+    [0, n): a whole row for such a frontier id, a slot for such a
+    neighbour."""
+    n = neighbors.shape[0]
+    ok = (u >= 0) & (u < n)
+    nbrs = neighbors[torch.where(ok, u, 0).long()][:, :min(k, neighbors.shape[1])]
+    return torch.where(ok[:, None] & (nbrs < n), nbrs, -1)
 
 
 def _finish(nbrs: torch.Tensor, d: torch.Tensor):
@@ -55,8 +67,7 @@ def beam_score_int8_ref(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Te
     """int8 corpus: gather (B, k, d) code rows, decode and score through
     ``int8_score_block``. Same return as :func:`beam_score_ref`."""
     from repro_torch.quant.quantization import int8_score_block
-    k = min(k, neighbors.shape[1])
-    nbrs = neighbors[u.long()][:, :k]
+    nbrs = _prefix(neighbors, u, k)
     d = int8_score_block(codes[nbrs.clamp(min=0).long()], scale, zero, queries, metric)
     return _finish(nbrs, d)
 
@@ -68,7 +79,6 @@ def beam_score_pq_ref(codes: torch.Tensor, neighbors: torch.Tensor, u: torch.Ten
     per-query tables of ``pq_lut`` through ``pq_score_codes``. Same return
     as :func:`beam_score_ref`."""
     from repro_torch.quant.quantization import pq_score_codes
-    k = min(k, neighbors.shape[1])
-    nbrs = neighbors[u.long()][:, :k]
+    nbrs = _prefix(neighbors, u, k)
     d = pq_score_codes(codes[nbrs.clamp(min=0).long()], lut_a, lut_b, qsq, metric)
     return _finish(nbrs, d)

@@ -44,3 +44,28 @@ def ragged_rows(x, m, seed, metric="l2", repeats=1):
             ids[r, slots], dists[r, slots], flags[r, slots] = -1, np.inf, 0
             planted[r, slots] = np.where(np.arange(slots.size) % 2 == 0, -1, n + 3 + slots)
     return planted, ids, dists, flags
+
+
+VALID = (0, 1, 7, 17, 31, 32, 33, 64)
+
+
+def beam_rows(n, m, seed):
+    """(n, m) adjacency rows shaped like a built graph's, for the beam
+    tests: valid-first, row r holding the r-th (cyclically) of the VALID
+    counts up to ``m`` and ``m`` itself; every third row has holes below
+    its last valid slot, half -1 and half ids >= n. Returns numpy
+    ``(planted, ids)``: ``planted`` holds the ids >= n (the kernels read them
+    as padding), ``ids`` -1 in their place (what the plain versions take)."""
+    rng = np.random.default_rng(seed)
+    counts = sorted({c for c in VALID if c <= m} | {m})
+    ids = np.full((n, m), -1, np.int32)
+    planted = ids.copy()
+    for r in range(n):
+        v = counts[r % len(counts)]
+        ids[r, :v] = rng.choice(n, size=v, replace=False)
+        planted[r] = ids[r]
+        if r % 3 == 2 and v > 2:
+            slots = rng.choice(v - 1, size=max(1, v // 8), replace=False)
+            ids[r, slots] = -1
+            planted[r, slots] = np.where(np.arange(slots.size) % 2 == 0, -1, n + 3 + slots)
+    return planted, ids

@@ -215,7 +215,7 @@ def _hold(ker, ref, exact, scale):
     if exact:
         torch.testing.assert_close(d, ref[1], rtol=0, atol=0)
         torch.testing.assert_close(keys, ref[2], rtol=0, atol=0)
-    else:
+    elif bool(fin.any()):     # a call may hold nothing but padding
         assert float(((d - ref[1]).abs() / scale)[fin].max()) <= 1e-5
     torch.testing.assert_close(key_dist(keys), d, rtol=0, atol=0)
 
@@ -277,6 +277,118 @@ def test_beam_score_pq_matches_plain(dev, metric, m, mq, integer):
         _hold(ker, ref, integer and metric != "cos", scl)
     torch.cuda.synchronize()
     assert LAUNCHES["beam_score_pq"] == before + 2
+
+
+def _graph_rows(n, m, seed, dev):
+    from _ragged import beam_rows
+    return (torch.from_numpy(a).to(dev) for a in beam_rows(n, m, seed))
+
+
+def _lanes(gen, n, b, dev):
+    """b frontier ids in [0, n), with lanes 1, 2, 5 (and every 13th, 17th,
+    19th after them) at -1, n and 2^31 - 1: retired or bad lanes."""
+    u = torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+    u[1::13] = -1
+    u[2::17] = n
+    u[5::19] = 2**31 - 1
+    return u
+
+
+def _ks(m):
+    return sorted({k for k in (1, 17, 32, 64, m) if k <= m})
+
+
+def _misaligned(t, offset):
+    """A contiguous copy of ``t`` whose data pointer is ``offset`` bytes past
+    an allocation's start (offset 0: ``t`` itself)."""
+    if not offset:
+        return t
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return flat[offset:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [37, 64, 128, 200])
+@pytest.mark.parametrize("m", [32, 50, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_beam_score_int8_on_graph_shaped_rows(dev, metric, m, d, offset):
+    """Valid-first rows of every valid count, holes, ids >= n, retired and
+    bad frontier ids, each k and lane count; exact on an integer-valued code
+    space. offset 1 (and d = 37, 200) takes the kernel's generic instance."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.quant import int8_decode
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n = 3000
+    planted, nbrs = _graph_rows(n, m, m + d, dev)
+    before, calls = LAUNCHES["beam_score_int8"], 0
+    for integer in (True, False):
+        codes, scale, zero = _int8_space(gen, n, d, dev, integer)
+        codes = _misaligned(codes, offset)
+        xh = int8_decode(codes, scale, zero)
+        for b in (1, 300, 1024):
+            u = _lanes(gen, n, b, dev)
+            q = (torch.randint(-8, 9, (b, d), generator=gen, device=dev).float() if integer
+                 else torch.randn(b, d, generator=gen, device=dev))
+            scl = ((q * q).sum(1, keepdim=True) + float((xh * xh).sum(1).max())
+                   if metric != "cos" else 1.0)
+            for k in _ks(m):
+                ker = B.beam_score_int8(codes, scale, zero, planted, u, q, k, metric)
+                ref = B.beam_score_int8_ref(codes, scale, zero, nbrs, u, q, k, metric)
+                _hold(ker, ref, integer and metric != "cos", scl)
+                calls += 1
+    torch.cuda.synchronize()
+    assert LAUNCHES["beam_score_int8"] == before + calls
+
+
+def _pq_case(gen, n, mq, dsub, b, dev, integer, metric):
+    from repro_torch.quant import pq_lut
+    shape = (mq, 256, dsub)
+    cb = (torch.randint(-4, 5, shape, generator=gen, device=dev).float() if integer
+          else torch.randn(shape, generator=gen, device=dev))
+    q = (torch.randint(-4, 5, (b, mq * dsub), generator=gen, device=dev).float() if integer
+         else torch.randn(b, mq * dsub, generator=gen, device=dev))
+    return pq_lut(q, cb, metric)
+
+
+def _hold_pq(dev, metric, m, mq, dsub, offset, seed):
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.beam_score import ops as B
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 3000
+    planted, nbrs = _graph_rows(n, m, m + mq, dev)
+    codes = _misaligned(torch.randint(0, 256, (n, mq), generator=gen, device=dev)
+                        .to(torch.uint8), offset)
+    before, calls = LAUNCHES["beam_score_pq"], 0
+    for integer in (True, False):
+        for b in (1, 300, 1024):
+            u = _lanes(gen, n, b, dev)
+            lut = _pq_case(gen, n, mq, dsub, b, dev, integer, metric)
+            scl = lut[0].abs().amax(dim=2).sum(1, keepdim=True) if metric != "cos" else 1.0
+            for k in _ks(m):
+                ker = B.beam_score_pq(codes, planted, u, *lut, k, metric)
+                ref = B.beam_score_pq_ref(codes, nbrs, u, *lut, k, metric)
+                _hold(ker, ref, integer and metric != "cos", scl)
+                calls += 1
+    torch.cuda.synchronize()
+    assert LAUNCHES["beam_score_pq"] == before + calls
+
+
+@pytest.mark.parametrize("mq", [8, 16, 32, 64])
+@pytest.mark.parametrize("m", [32, 50, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_beam_score_pq_on_graph_shaped_rows(dev, metric, m, mq):
+    """As the int8 test, over PQ codes of mq subspaces: exact on integer
+    tables."""
+    _hold_pq(dev, metric, m, mq, 2, 0, 8)
+
+
+@pytest.mark.parametrize("mq,offset", [(3, 0), (12, 0), (32, 3), (300, 0)])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_beam_score_pq_odd_code_rows(dev, metric, mq, offset):
+    """Code rows that are not whole 8-byte pieces (mq 3, 12), an unaligned
+    codes pointer, and mq > 256 (the generic instance)."""
+    _hold_pq(dev, metric, 50, mq, 1, offset, 9)
 
 
 @pytest.mark.parametrize("mode", ["int8", "pq"])

@@ -23,6 +23,7 @@ from repro.kernels.beam_score import (
     beam_score_int8_ref as ref_beam_score_int8,
     beam_score_pq as pallas_beam_score_pq,
     beam_score_pq_ref as ref_beam_score_pq,
+    beam_score_ref as ref_beam_score_f32,
 )
 from repro.kernels.rng_prune import rng_prune_int8 as pallas_rng_prune_int8
 from repro_torch import convert
@@ -105,6 +106,50 @@ def test_beam_score_pq_plain_matches_reference_and_pallas(metric, integer):
     ja = (jnp.asarray(codes), jnp.asarray(nbrs), jnp.asarray(u))
     _compare(out, ref_beam_score_pq(*ja, *lut, k=10, metric=metric), exact)
     _compare(out, pallas_beam_score_pq(*ja, *lut, k=10, metric=metric, tile_b=8), exact)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("kind", ["f32", "int8", "pq"])
+def test_plain_beam_versions_pad_a_frontier_id_outside_the_corpus(kind, metric):
+    """A frontier id outside [0, n) (-1 for a retired lane, n, 2^31 - 1)
+    gives a lane of padding, as in the kernels, and an adjacency id >= n a
+    padded slot; the other lanes equal the reference's oracles (given -1 in
+    that slot) on integer-valued inputs, exactly for l2 and ip."""
+    n, m, b, k = 120, 12, 24, 10
+    codes, scale, zero = _int8_space(7, n, 16, integer=True)
+    nbrs, u, q = _frontier(8, n, m, b, 16, integer=True)
+    bad = np.zeros(b, bool)
+    bad[[1, 6, 11, 17]] = True
+    u_bad = u.copy()
+    u_bad[[1, 6, 11, 17]] = [-1, n, 2**31 - 1, -1]
+    planted = nbrs.copy()
+    planted[u[0], [1, 4]] = [n, n + 7]
+    nbrs[u[0], [1, 4]] = -1
+    if kind == "f32":
+        x = (codes.astype(np.float32) * scale + zero).astype(np.float32)
+        out = bs_ops.beam_score(*_t(x, planted, u_bad, q), k=k, metric=metric)
+        ref = ref_beam_score_f32(*(jnp.asarray(a) for a in (x, nbrs, u, q)), k=k,
+                                 metric=metric)
+    elif kind == "int8":
+        out = bs_ops.beam_score_int8(*_t(codes, scale, zero, planted, u_bad, q), k=k,
+                                     metric=metric)
+        ref = ref_beam_score_int8(*(jnp.asarray(a) for a in (codes, scale, zero, nbrs, u, q)),
+                                  k=k, metric=metric)
+    else:
+        rng = np.random.default_rng(9)
+        cb = rng.integers(-4, 5, (4, 256, 4)).astype(np.float32)
+        pq = rng.integers(0, 256, (n, 4)).astype(np.uint8)
+        out = bs_ops.beam_score_pq(*_t(pq, planted, u_bad), *Q.pq_lut(*_t(q, cb), metric), k=k,
+                                   metric=metric)
+        ref = ref_beam_score_pq(*(jnp.asarray(a) for a in (pq, nbrs, u)),
+                                *RQ.pq_lut(jnp.asarray(q), jnp.asarray(cb), metric), k=k,
+                                metric=metric)
+    ids, d, keys = out
+    np.testing.assert_array_equal(ids[bad].numpy(), -1)
+    assert bool(torch.isinf(d[bad]).all()) and bool((d[bad] > 0).all())
+    np.testing.assert_array_equal(keys[bad].numpy(), G.dist_key(d[bad]).numpy())
+    good = tuple(t[~torch.from_numpy(bad)] for t in out)
+    _compare(good, tuple(np.asarray(r)[~bad] for r in ref), metric != "cos")
 
 
 def _int_graph_rows(seed, x, rows, m, metric):
@@ -211,3 +256,24 @@ def test_coded_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="qsq must be"):
         bs_ops.beam_score_pq(pq, nb, u, torch.zeros(3, 4, 256), torch.zeros(4, 256),
                              torch.zeros(3, 1), 2)
+    # frontier ids, adjacency and query batch of the wrong type or shape
+    with pytest.raises(ValueError, match="u must be"):
+        bs_ops.beam_score_int8(codes, scale, zero, nb, u.long(), torch.zeros(3, 8), 2)
+    with pytest.raises(ValueError, match="u must be"):
+        bs_ops.beam_score_pq(pq, nb, u[:, None], torch.zeros(3, 4, 256), torch.zeros(4, 256),
+                             torch.zeros(3), 2)
+    with pytest.raises(ValueError, match="neighbors must be"):
+        bs_ops.beam_score_int8(codes, scale, zero, nb[:9], u, torch.zeros(3, 8), 2)
+    with pytest.raises(ValueError, match="neighbors must be"):
+        bs_ops.beam_score_pq(pq, nb.long(), u, torch.zeros(3, 4, 256), torch.zeros(4, 256),
+                             torch.zeros(3), 2)
+    with pytest.raises(ValueError, match="queries must be"):
+        bs_ops.beam_score_int8(codes, scale, zero, nb, u, torch.zeros(3, 8).double(), 2)
+    with pytest.raises(ValueError, match="x must be"):
+        bs_ops.beam_score_int8(codes[0], scale, zero, nb, u, torch.zeros(3, 8), 2)
+    with pytest.raises(ValueError, match="lut_a must be"):
+        bs_ops.beam_score_pq(pq, nb, u, torch.zeros(4, 4, 256), torch.zeros(4, 256),
+                             torch.zeros(3), 2)
+    with pytest.raises(ValueError, match="metric"):
+        bs_ops.beam_score_pq(pq, nb, u, torch.zeros(3, 4, 256), torch.zeros(4, 256),
+                             torch.zeros(3), 2, metric="hamming")

@@ -133,6 +133,38 @@ def test_lane_valid_and_padding_do_not_change_live_lanes(int_index):
     assert st["tiles"] == 5 and st["tile_lanes"] == 16
 
 
+@pytest.mark.parametrize("visited", ["dense", "hashed"])
+def test_retired_lanes_expand_minus_one(int_index, monkeypatch, visited):
+    """Every beam step hands a retired lane (padded, invalid or finished) the
+    frontier id -1, and a live lane an id in [0, n): retired lanes score
+    nothing. Results of the live lanes equal an all-live search."""
+    x, q, graphs = int_index
+    g, eps = graphs["l2"]
+    pg = convert.graph_from_numpy(*(np.asarray(a) for a in g), device="cpu")
+    cfg = S.SearchConfig(l=16, k=12, max_iters=48, topk=5, visited=visited)
+    xt, qt = torch.from_numpy(x), torch.from_numpy(q)
+    full, _ = S.search_tiled(xt, pg, qt, int(eps[0]), cfg, tile_b=32)
+    seen = []
+    orig = bs_ops.beam_score
+
+    def spy(xx, nbrs, u, queries, *a, **kw):
+        seen.append((queries.data_ptr(), u.clone()))
+        return orig(xx, nbrs, u, queries, *a, **kw)
+    monkeypatch.setattr(bs_ops, "beam_score", spy)
+    lv = torch.arange(q.shape[0]) % 4 != 1
+    part, _, st = S.search_tiled(xt, pg, qt, int(eps[0]), cfg, tile_b=32, lane_valid=lv,
+                                 with_stats=True)
+    torch.testing.assert_close(part[lv], full[lv], rtol=0, atol=0)
+    # tiles in the order they ran; lanes 70..95 pad the last one
+    tile_of = {p: i for i, p in enumerate(dict.fromkeys(p for p, _ in seen))}
+    assert len(tile_of) == 3
+    retired = torch.cat([~lv, torch.ones(3 * 32 - q.shape[0], dtype=torch.bool)]).view(3, 32)
+    for p, u in seen:
+        assert bool((u[retired[tile_of[p]]] == -1).all())
+        assert bool(((u == -1) | ((u >= 0) & (u < x.shape[0]))).all())
+    assert sum(int((u >= 0).sum()) for _, u in seen) == st["work"]
+
+
 def test_search_config_validation_matches_reference():
     bad = [dict(metric="hamming"), dict(gram_dtype="f16"), dict(l=0), dict(topk=9, l=8),
            dict(visited="bloom"), dict(probes=0), dict(slots=12), dict(slots=4)]
