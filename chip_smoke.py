@@ -26,7 +26,11 @@ Phases (any failure raises and exits non-zero):
      PyTorch call computing the same function; the beam kernels also with
      their wrapper's host time per call (host_ms); the prune at three of the
      build's inputs (the first 8192 rows at sweep 1, at sweep 16 just after
-     the first add_reverse_edges, and of the final graph);
+     the first add_reverse_edges, and of the final graph); beam_score on
+     random frontier ids and on the frontier its search hands it at
+     iteration 20 of the first tile (f32 rows), on random ids over bf16
+     rows, and over a seeded 960-wide corpus (GIST1M's width) on the same
+     adjacency, each exact on integer-valued rows and queries (l2, ip);
   5. build-side witness: the same full-size build through the sort-oracle
      merge, whose recall and graph quality (share of sampled rows holding
      their exact nearest neighbours) must be no worse than the bucketed
@@ -579,19 +583,31 @@ BEAM_KERNELS = {"beam_score": ("beam_score_kernel", 2),      # device name, inde
 
 
 def frontier_snapshot(x, q, g, mode: str, qx=None) -> torch.Tensor:
-    """The frontier ids ``u`` that the beam kernel of coded ``mode`` ("int8",
-    "pq") gets at iteration SNAP_ITER of the first tile's search (the first
-    1024 queries, L = 64, hashed), retired lanes -1."""
+    """The frontier ids ``u`` that the beam kernel of corpus ``mode`` ("f32",
+    "int8", "pq") gets at iteration SNAP_ITER of the first tile's search (the
+    first 1024 queries, L = 64, hashed), retired lanes -1."""
     from repro_torch.core import search as S
     from repro_torch.kernels.beam_score import ops as B
     from repro_torch.quant import Quantization
-    name = f"beam_score_{mode}"
-    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10,
-                         quant=Quantization(**QUANT_KW[mode]))
+    name = "beam_score" if mode == "f32" else f"beam_score_{mode}"
+    quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
+    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10, quant=quant)
     with captured(B, name) as calls:
         S.search(x, g, q[:1024], S.default_entry_point(x), cfg, qx=qx)
     check(len(calls) > SNAP_ITER, f"{mode} search ran {len(calls)} beam iterations")
     return calls[SNAP_ITER][0][BEAM_KERNELS[name][1]].clone()
+
+
+WIDE_D = 960   # GIST1M's width (ANN_SHAPES["build_gist"])
+
+
+def wide_rows(n: int, b: int):
+    """A seeded (n, WIDE_D) f32 corpus and (b, WIDE_D) queries on the card,
+    N(0, 1): the beam kernel's rows at GIST1M's width over the 1M graph's
+    adjacency."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    return (torch.randn((n, WIDE_D), generator=gen, device="cuda"),
+            torch.randn((b, WIDE_D), generator=gen, device="cuda"))
 
 
 def beam_bound(nbrs, u, k: int, row_bytes: int, row_flops: float, lane_bytes: int,
@@ -615,9 +631,9 @@ def beam_entries(name: str, fn, plain, us: list, snap_u, bound, base: dict) -> l
     """The ``kernels`` entries of a beam kernel: timed on fresh random
     frontier ids each call, and (``snap_u`` not None) on the search's
     frontier snapshot, the same ids each call. ``fn(u)`` / ``plain(u)`` run
-    the kernel / plain version on frontier ``u`` (the plain version over a
-    tenth of the calls: it is the arithmetic's reference, not a yardstick
-    of speed), ``bound(u)`` gives the bound keys of one call."""
+    the kernel / plain version on frontier ``u`` (the plain version over 30
+    calls: it is the arithmetic's reference, not a yardstick of speed),
+    ``bound(u)`` gives the bound keys of one call."""
     inputs = [("random frontier", lambda i: us[i % len(us)], us[0])]
     if snap_u is not None:
         inputs.append((f"search frontier, tile 0 iteration {SNAP_ITER}", lambda i: snap_u,
@@ -627,7 +643,8 @@ def beam_entries(name: str, fn, plain, us: list, snap_u, bound, base: dict) -> l
         out.append({
             "name": name, "input": label, "route": "cuda", **base,
             **_timed_keys(time_ms(lambda i: fn(pick(i)), inner=len(us)),
-                          time_ms(lambda i: plain(pick(i)), inner=len(us) // 10), host=True),
+                          time_ms(lambda i: plain(pick(i)), inner=10, rounds=3, warmup=1),
+                          host=True),
             **bound(u0),
             "device_ms": device_ms(lambda i: fn(pick(i)), len(us), BEAM_KERNELS[name][0]),
             "library_ms": None})
@@ -708,6 +725,57 @@ def rng_prune_report(x, inputs: dict, launches: int) -> list:
     return report
 
 
+def _hold_beam_rows(x, xi, nbrs, u, qb, qi, k: int, label: str) -> dict:
+    """beam_score beside its plain version on frontier ``u``, f32 and bf16
+    rows: bit for bit on the integer-valued corpus ``xi`` and queries ``qi``
+    (l2, ip), within the limits on ``x`` and ``qb`` (every metric). Returns
+    {(dtype, label, metric): max abs error}."""
+    from repro_torch.kernels.beam_score import ops as B
+    n, d = x.shape
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xx = xi.to(dtype)
+        for metric in ("l2", "ip"):
+            args = (xx, nbrs, u, qi, k, metric)
+            check(all(torch.equal(a, r) for a, r in zip(B.beam_score(*args),
+                                                        B.beam_score_ref(*args))),
+                  f"beam_score integer-valued {dtype} {metric}, d = {d}, {label} frontier: "
+                  "kernel != plain")
+        xx = x.to(dtype)
+        xf = xx.float()
+        # l2 cancels (|q|^2 + |x|^2 - 2qx); ip scales with |q||x| <= (|q|^2 +
+        # |x|^2) / 2; cos is bounded by 2
+        qs = (qb * qb).sum(1, keepdim=True) + float((xf * xf).sum(1).max())
+        del xf
+        for metric in ("l2", "ip", "cos"):
+            lim = 1e-5 * qs if metric != "cos" else torch.full_like(qs, 2e-5)
+            args = (xx, nbrs, u, qb, k, metric)
+            errs[dtype, label, metric] = _hold_beam(
+                "beam_score", B.beam_score(*args), B.beam_score_ref(*args), lim,
+                {"frontier": label, "dtype": str(dtype), "metric": metric, "B": u.shape[0],
+                 "k": k, "d": d})
+    return errs
+
+
+def wide_beam_entries(nbrs, us: list, k: int, base: dict, tol: str) -> list:
+    """beam_score at GIST1M's width: WIDE_D-wide f32 (and bf16) rows over the
+    1M graph's adjacency, held against the plain version (exact on the same
+    rows rounded to integers, l2 and ip) and timed on the random frontiers."""
+    from repro_torch.kernels.beam_score import ops as B
+    n, b = nbrs.shape[0], us[0].shape[0]
+    xw, qw = wide_rows(n, b)
+    xi, qi = (xw * 2).round_(), (qw * 2).round_()
+    errs = _hold_beam_rows(xw, xi, nbrs, us[0], qw, qi, k, "random")
+    del xi, qi
+    return beam_entries(
+        "beam_score", lambda u: B.beam_score(xw, nbrs, u, qw, k, "l2"),
+        lambda u: B.beam_score_ref(xw, nbrs, u, qw, k, "l2"), us, None,
+        lambda u: beam_bound(nbrs, u, k, 4 * WIDE_D, 4.0 * WIDE_D, 4 * WIDE_D),
+        {**base, "rows": f"f32, d = {WIDE_D} (seeded N(0, 1) corpus)",
+         "max_abs_err": errs[torch.float32, "random", "l2"], "tolerance": tol,
+         "shape": {**base["shape"], "d": WIDE_D}})
+
+
 def kernel_phase(x, q, g, launches, snap):
     """Each kernel beside its plain version on the main path's data."""
     from repro_torch.kernels.beam_score import ops as B
@@ -725,28 +793,29 @@ def kernel_phase(x, q, g, launches, snap):
     us = [torch.randint(0, n, (b,), generator=gen, device="cuda", dtype=torch.int32)
           for _ in range(n_us)]
     qb = q[:b].contiguous()
-    qs = float((qb * qb).sum(1).max()) + float(sq.max())
-    # l2 cancels (|q|^2 + |x|^2 - 2qx); ip scales with |q||x| <= (|q|^2 + |x|^2) / 2;
-    # cos is bounded by 2
-    lims = {"l2": 1e-5 * qs, "ip": 1e-5 * qs, "cos": 2e-5}
+    qi = torch.randint(-8, 9, (b, d), generator=gen, device="cuda").float()
+    snap_u = frontier_snapshot(x, q, g, "f32")
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for label, u in (("random", us[0]), ("search", snap_u)):
+        errs.update(_hold_beam_rows(x, xi, g.neighbors, u, qb, qi, k, label))
+    base = {"source": "src/repro_torch/kernels/csrc/beam_score.cu",
+            "replaces": "src/repro/kernels/beam_score/kernel.py:197",
+            "launches": launches["beam_score"], "library_ms": None,
+            "shape": {"B": b, "k": k, "M": g.capacity, "d": d, "n": n}}
+    tol = ("ids exact; dists <= 1e-5 * (|q|^2 + max|x|^2) (l2, ip; f32 and bf16), 2e-5 "
+           "(cos); exact on an integer-valued corpus and query (l2, ip)")
+    for dtype, rows in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         xx = x.to(dtype)
-        for metric in ("l2", "ip", "cos"):
-            args = (xx, g.neighbors, us[0], qb, k, metric)
-            errs[(dtype, metric)] = _hold_beam(
-                "beam_score", B.beam_score(*args), B.beam_score_ref(*args), lims[metric],
-                {"dtype": str(dtype), "metric": metric, "B": b, "k": k, "d": d})
-    report += beam_entries(
-        "beam_score", lambda u: B.beam_score(x, g.neighbors, u, qb, k, "l2"),
-        lambda u: B.beam_score_ref(x, g.neighbors, u, qb, k, "l2"), us, None,
-        lambda u: beam_bound(g.neighbors, u, k, 4 * d, 4.0 * d, 4 * d),
-        {"source": "src/repro_torch/kernels/csrc/beam_score.cu",
-         "replaces": "src/repro/kernels/beam_score/kernel.py:197",
-         "launches": launches["beam_score"], "max_abs_err": errs[(torch.float32, "l2")],
-         "tolerance": f"ids exact; dists <= 1e-5 * (|q|^2 + |x|^2) = {1e-5 * qs:.3g} "
-                      "(l2, ip; f32 and bf16), 2e-5 (cos)",
-         "shape": {"B": b, "k": k, "M": g.capacity, "d": d, "n": n}})
+        report += beam_entries(
+            "beam_score", lambda u: B.beam_score(xx, g.neighbors, u, qb, k, "l2"),
+            lambda u: B.beam_score_ref(xx, g.neighbors, u, qb, k, "l2"), us,
+            snap_u if rows == "f32" else None,
+            lambda u: beam_bound(g.neighbors, u, k, xx.element_size() * d, 4.0 * d, 4 * d),
+            {**base, "rows": f"{rows}, d = {d}", "max_abs_err": errs[dtype, "random", "l2"],
+             "tolerance": tol})
+    del xx
+    report += wide_beam_entries(g.neighbors, us, k, base, tol)
+    del us, snap_u
 
     # -- pairwise_l2: 1024 queries x the 1M corpus x 128
     qa = q[:1024].contiguous()

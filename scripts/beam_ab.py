@@ -1,40 +1,48 @@
-"""Timing of the coded beam kernels on one card: per call and inside the
-1M searches, for one checkout's wrappers and kernels and for variants of
-their CUDA sources.
+"""Timing of the beam kernels on one card: per call and inside the 1M
+searches, for one checkout's wrappers and kernels and for variants of their
+CUDA sources.
 
     python3 scripts/beam_ab.py [--make] [--data build/beam_ab.pt] [--label L]
+                               [--modes f32,bf16,wide,int8,pq]
                                [--variant NAME=FILE.cu ...]
                                [--out build/beam_ab.jsonl]
 
 The script times the checkout it sits in (its ``src/`` and ``chip_smoke.py``).
-``--make`` builds the data file first: the 1M int8 and PQ graphs, codes and
-codebooks of chip_smoke.py's coded paths (its seed and FULL build), and per
-mode the frontier ids ``u`` of beam iteration ``chip_smoke.SNAP_ITER`` in the
-first tile's search, retired lanes -1. Every later run loads that file, so
-two checkouts time the same inputs: copy this script into the other
-checkout's ``scripts/`` (say a parent commit unpacked with ``git archive``
-under ``build/``) and run the two in turns, A, B, B, A, in one call.
+``--make`` builds the data file first: the 1M graphs of the corpus modes
+that ``--modes`` needs (f32 for f32, bf16 and wide; int8 and PQ with their
+codes and codebooks) as chip_smoke.py's paths build them (its seed and FULL
+build), and per corpus mode the frontier ids ``u`` of beam iteration
+``chip_smoke.SNAP_ITER`` in the first tile's search, retired lanes -1. Every
+later run loads that file, so two checkouts time the same inputs: copy this
+script into the other checkout's ``scripts/`` and this ``chip_smoke.py``
+(whose helpers it uses) into its root (say a parent commit unpacked with
+``git archive`` under ``build/``) and run the two in turns, A, B, B, A, in
+one call.
 
 A ``--variant`` is a copy of ``csrc/beam_score.cu`` or ``csrc/beam_score_pq.cu``
 with the same C entry points; all variants compile at once with the
 package's nvcc flags, and the wrappers are routed through each in turn:
 the checkout's own kernels, then the variants, then back in reverse order.
 
-Per mode (``beam_score_int8``, ``beam_score_pq``; l2, B = 1024, k = 64) and
-version: on 200 sets of random frontier ids (chip_smoke.py's draws) and on
-the frontier snapshot, ``ms`` (CUDA events around rounds of 200
-back-to-back calls, median of 5 rounds), ``host_ms`` (host clock per call
-over the same rounds, no sync), ``device_ms`` (the kernel's own time,
-torch.profiler) and a checksum of the first call's outputs; then the whole
-1M search (10k queries, L = 64, hashed, tiles of 1024) under
-torch.profiler: the beam kernel's summed device ms and launches, device busy
-ms, and recall@10 against brute force (not for variants named ``diag_*``,
+Modes (l2, B = 1024, k = 64): ``f32`` and ``bf16`` (``beam_score`` over the
+1M f32 graph, rows in f32 or cast to bf16), ``wide`` (``beam_score`` over
+chip_smoke.py's seeded 960-wide f32 corpus on the same adjacency: no search
+and no snapshot of its own, the f32 frontier stands in), ``int8``
+(``beam_score_int8``) and ``pq`` (``beam_score_pq``). Per mode and version:
+on 200 sets of random frontier ids (chip_smoke.py's draws) and on the
+frontier snapshot, ``ms`` (CUDA events around rounds of 200 back-to-back
+calls, median of 5 rounds), ``host_ms`` (host clock per call over the same
+rounds, no sync), ``device_ms`` (the kernel's own time, torch.profiler) and
+a checksum of the first call's outputs; then the whole 1M search (10k
+queries, L = 64, hashed, tiles of 1024) under torch.profiler: the beam
+kernel's summed device ms and launches, device busy ms, and recall@10
+against brute force (not for ``wide``, nor for variants named ``diag_*``,
 which need not compute the function). A third input times the kernel on
 the random frontier ids with the L2 cache flushed before each call (a
-256 MiB fill), device ms only: the tables and rows as a search finds them
-after its other kernels. Last, the wrapper's host steps one
-at a time (``host_steps_us``, us per call over 2000 calls). One JSON line
-per result, on stdout and in ``--out`` (appended).
+256 MiB fill), device ms only: the rows as a search finds them after its
+other kernels. Last (with ``int8``), the wrapper's host steps one at a time
+(``host_steps_us``, us per call over 2000 calls). One JSON line per result,
+on stdout and in ``--out`` (appended).
 """
 from __future__ import annotations
 
@@ -77,18 +85,21 @@ def time_calls(fn, inner: int, rounds: int = 5, warmup: int = 2) -> dict:
             "host_ms": statistics.median(host), "host_ms_spread": [min(host), max(host)]}
 
 
-def make(path: str) -> None:
+def make(path: str, modes) -> None:
     from repro_torch.core import rnn_descent as rd
     from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
     from repro_torch.quant import Quantization, encode_corpus
     gen = torch.Generator(device="cuda").manual_seed(C.SEED)
     x, q = clustered_vectors(VectorDatasetSpec.sift_like(C.FULL_N, C.FULL_Q), gen, "cuda")
     data = {"q": q[:B_LANES].contiguous()}
-    for mode in ("int8", "pq"):
-        quant = Quantization(**C.QUANT_KW[mode])
+    for mode in sorted({"f32" if m in ("f32", "bf16", "wide") else m for m in modes}):
+        quant = Quantization(**C.QUANT_KW[mode]) if mode != "f32" else Quantization()
         cfg = rd.RNNDescentConfig(s=20, r=96, t1=4, t2=15, capacity=128, chunk=512,
                                   quant=quant)
         g = rd.build(x, cfg, torch.Generator(device="cuda").manual_seed(C.SEED + 1))
+        if mode == "f32":
+            data[mode] = {"neighbors": g.neighbors, "snap": C.frontier_snapshot(x, q, g, mode)}
+            continue
         qx = encode_corpus(x, quant)
         data[mode] = {"neighbors": g.neighbors, "codes": qx.codes, "scale": qx.scale,
                       "zero": qx.zero, "codebooks": qx.codebooks,
@@ -132,7 +143,9 @@ def host_steps(ops, codes, nbrs, u, q, scale, zero) -> dict:
     return out
 
 
-ENTRIES = {"beam_score_int8": "ppppppiiiiiipppp", "beam_score_pq": "ppppppiiiiiipppp"}
+ENTRIES = {"beam_score": "ppppiiiiiiipppp", "beam_score_int8": "ppppppiiiiiipppp",
+           "beam_score_pq": "ppppppiiiiiipppp"}
+MODES = ("f32", "bf16", "wide", "int8", "pq")
 
 
 def compile_variants(variants: dict) -> dict:
@@ -153,8 +166,9 @@ def compile_variants(variants: dict) -> dict:
     libs = {}
     for label, (proc, so) in procs.items():
         log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {label}:\n{log}")
+        if proc.returncode != 0:     # a variant that does not build is left out
+            print(f"[nvcc {label}] failed:\n{log}", file=sys.stderr)
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {label}] {line.strip()}", file=sys.stderr)
@@ -177,8 +191,9 @@ def search_beam(x, q, g, qx, mode: str, gt) -> dict:
     from repro_torch.core import eval as E
     from repro_torch.core import search as S
     from repro_torch.quant import Quantization
-    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10,
-                         quant=Quantization(**C.QUANT_KW[mode]))
+    kw = ({"quant": Quantization(**C.QUANT_KW[mode])} if mode in C.QUANT_KW
+          else {"gram_dtype": mode})
+    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10, **kw)
     ep = S.default_entry_point(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -200,11 +215,60 @@ def search_beam(x, q, g, qx, mode: str, gt) -> dict:
             "search_busy_ms": busy, "recall_at_10": E.recall_topk(ids, gt)}
 
 
+def mode_inputs(mode: str, data: dict, x, qb):
+    """(entry, fn, us, snap, g, qx) of one mode: the wrapper name, ``fn(u)``
+    the l2 call on frontier ``u``, chip_smoke.py's 200 random frontier draws,
+    the search's frontier snapshot, and the graph and codes of its 1M search
+    (g None: no search)."""
+    from repro_torch.core.graph import Graph
+    from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.quant import QuantizedCorpus, pq_lut
+    dm = data["f32" if mode in ("bf16", "wide") else mode]
+    nbrs = dm["neighbors"]
+    n, d = nbrs.shape[0], qb.shape[1]
+    g = Graph(nbrs, torch.zeros(nbrs.shape, device="cuda"),
+              torch.zeros(nbrs.shape, dtype=torch.uint8, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(
+        C.SEED + {"int8": 3, "pq": 4}.get(mode, 2))
+    # chip_smoke.py's draws before its random frontiers
+    if mode == "int8":     # the integer space's scale and zero
+        torch.randint(1, 4, (d,), generator=gen, device="cuda")
+        torch.randint(-3, 4, (d,), generator=gen, device="cuda")
+    elif mode != "pq":     # the integer-valued corpus
+        torch.randint(-8, 9, (n, d), generator=gen, device="cuda")
+    us = [torch.randint(0, n, (B_LANES,), generator=gen, device="cuda", dtype=torch.int32)
+          for _ in range(N_US)]
+    qx = None
+    if mode == "int8":
+        qx = QuantizedCorpus(dm["codes"], dm["scale"], dm["zero"])
+
+        def fn(u):
+            return B.beam_score_int8(qx.codes, qx.scale, qx.zero, nbrs, u, qb, K, "l2")
+    elif mode == "pq":
+        qx = QuantizedCorpus(dm["codes"], codebooks=dm["codebooks"])
+        lut = pq_lut(qb, dm["codebooks"], "l2")
+
+        def fn(u):
+            return B.beam_score_pq(qx.codes, nbrs, u, *lut, K, "l2")
+    else:
+        if mode == "wide":
+            rows, qrows = C.wide_rows(n, B_LANES)
+            g = None
+        else:
+            rows, qrows = x.to(torch.bfloat16 if mode == "bf16" else torch.float32), qb
+
+        def fn(u):
+            return B.beam_score(rows, nbrs, u, qrows, K, "l2")
+    entry = "beam_score" if mode in ("f32", "bf16", "wide") else f"beam_score_{mode}"
+    return entry, fn, us, dm["snap"], g, qx
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", default=os.path.join(ROOT, "build", "beam_ab.pt"))
     ap.add_argument("--make", action="store_true")
     ap.add_argument("--label", default=os.path.basename(ROOT))
+    ap.add_argument("--modes", default=",".join(MODES))
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=FILE.cu")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "beam_ab.jsonl"))
     args = ap.parse_args()
@@ -221,21 +285,19 @@ def main() -> int:
         sink.flush()
 
     from repro_torch.core import eval as E
-    from repro_torch.core.graph import Graph
     from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
     from repro_torch.kernels import _build
     from repro_torch.kernels.beam_score import ops as B
-    from repro_torch.quant import QuantizedCorpus, pq_lut
     t0 = time.perf_counter()
     built = _build.build_all()["seconds"]
-    libs = {"own": {name: _build.load(name, types, source="beam_score" if "int8" in name
-                                      else None) for name, types in ENTRIES.items()}}
+    libs = {"own": {name: _build.load(name, types, source="beam_score_pq" if "pq" in name
+                                      else "beam_score") for name, types in ENTRIES.items()}}
     libs.update(compile_variants(dict(v.split("=", 1) for v in args.variant)))
     emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": C.nvidia_smi(),
           "root": ROOT, "build_s": built, "variants_s": time.perf_counter() - t0})
     if args.make:
         t0 = time.perf_counter()
-        make(args.data)
+        make(args.data, args.modes.split(","))
         emit({"made": args.data, "seconds": time.perf_counter() - t0})
     data = torch.load(args.data, map_location="cuda")
     gen = torch.Generator(device="cuda").manual_seed(C.SEED)
@@ -243,34 +305,11 @@ def main() -> int:
     _, gt = E.ground_truth(x, q, k=10, tile=1024)
     qb = q[:B_LANES].contiguous()
     order = list(libs) + list(libs)[::-1]
-    for mode, seed in (("int8", C.SEED + 3), ("pq", C.SEED + 4)):
-        dm = data[mode]
-        nbrs = dm["neighbors"]
-        n = nbrs.shape[0]
-        g = Graph(nbrs, torch.zeros(nbrs.shape, device="cuda"),
-                  torch.zeros(nbrs.shape, dtype=torch.uint8, device="cuda"))
-        qx = (QuantizedCorpus(dm["codes"], dm["scale"], dm["zero"]) if mode == "int8"
-              else QuantizedCorpus(dm["codes"], codebooks=dm["codebooks"]))
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        if mode == "int8":   # chip_smoke.py draws the integer space's scale and zero first
-            torch.randint(1, 4, (qb.shape[1],), generator=gen, device="cuda")
-            torch.randint(-3, 4, (qb.shape[1],), generator=gen, device="cuda")
-        us = [torch.randint(0, n, (B_LANES,), generator=gen, device="cuda", dtype=torch.int32)
-              for _ in range(N_US)]
-        if mode == "int8":
-            def fn(u, dm=dm):
-                return B.beam_score_int8(dm["codes"], dm["scale"], dm["zero"], nbrs, u, qb, K,
-                                         "l2")
-        else:
-            lut = pq_lut(qb, dm["codebooks"], "l2")
-
-            def fn(u, dm=dm, lut=lut):
-                return B.beam_score_pq(dm["codes"], nbrs, u, *lut, K, "l2")
-        snap = dm["snap"]
-        entry = f"beam_score_{mode}"
+    for mode in args.modes.split(","):
+        entry, fn, us, snap, g, qx = mode_inputs(mode, data, x, qb)
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
 
-        def flushed(i, fn=fn):
+        def flushed(i, fn=fn, us=us):
             flush.zero_()
             return fn(us[i % N_US])
         for version in order:
@@ -283,18 +322,21 @@ def main() -> int:
                 fin = torch.isfinite(dists)
                 check = [int(ids.long().sum()), int(fin.sum()), float(dists[fin].double().sum())]
                 t = time_calls(lambda i: fn(pick(i)), N_US)
-                emit({"kernel": entry, "version": version, "input": label, **t,
+                emit({"kernel": entry, "mode": mode, "version": version, "input": label, **t,
                       "device_ms": C.device_ms(lambda i: fn(pick(i)), N_US, "beam_score"),
                       "checksum": check})
-            emit({"kernel": entry, "version": version, "input": "random frontier, L2 flushed",
+            emit({"kernel": entry, "mode": mode, "version": version,
+                  "input": "random frontier, L2 flushed",
                   "device_ms": C.device_ms(flushed, N_US, "beam_score")})
-            if not version.startswith("diag_"):
-                emit({"kernel": entry, "version": version, "input": "1M search",
+            if g is not None and not version.startswith("diag_"):
+                emit({"kernel": entry, "mode": mode, "version": version, "input": "1M search",
                       **search_beam(x, q, g, qx, mode, gt)})
         _build._LIBS[entry] = libs["own"][entry]
-    dm = data["int8"]
-    emit({"host_steps_us": host_steps(B, dm["codes"], dm["neighbors"], dm["snap"], qb,
-                                      dm["scale"], dm["zero"])})
+        del fn, us, snap, g, qx, flushed, flush
+    if "int8" in args.modes.split(","):
+        dm = data["int8"]
+        emit({"host_steps_us": host_steps(B, dm["codes"], dm["neighbors"], dm["snap"], qb,
+                                          dm["scale"], dm["zero"])})
     sink.close()
     return 0
 

@@ -1,5 +1,5 @@
-// The warp-per-lane prefix pass shared by the coded beam kernels
-// (beam_score_int8_kernel in beam_score.cu, beam_score_pq_kernel in
+// The per-warp prefix pass shared by the beam kernels (beam_score_kernel
+// and beam_score_int8_kernel in beam_score.cu, beam_score_pq_kernel in
 // beam_score_pq.cu): a warp reads its lane's adjacency prefix in one
 // coalesced pass, keeps the ids in [0, n) and compacts them in slot order
 // into a per-warp list in shared memory (one __ballot_sync per 32 slots,
@@ -38,12 +38,12 @@ __device__ __forceinline__ void load_window(const int* nbrs, long long row, bool
 }
 
 // Compacts the window's ids in [0, n), in slot order, into s_id / s_slot and
-// writes every other slot below k as padding. Returns the count; the list
-// is visible to the whole warp on return.
+// (pad) writes every other slot below k as padding. Returns the count; the
+// list is visible to the whole warp on return.
 __device__ __forceinline__ int compact_window(const int (&id)[WIN / 32], int n, int k,
                                               int base, int lane, int* s_id, int* s_slot,
                                               int* ids_out, float* dist_out, int* key_out,
-                                              long long obase) {
+                                              long long obase, bool pad = true) {
   const unsigned below = (1u << lane) - 1u;   // lanemask_lt
   int v = 0;
 #pragma unroll
@@ -55,7 +55,7 @@ __device__ __forceinline__ int compact_window(const int (&id)[WIN / 32], int n, 
       const int pos = v + __popc(mask & below);
       s_id[pos] = id[i];
       s_slot[pos] = j;
-    } else if (j < k) {
+    } else if (pad && j < k) {
       put(ids_out, dist_out, key_out, obase + j, -1, INFINITY);
     }
     v += __popc(mask);

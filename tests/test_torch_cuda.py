@@ -341,6 +341,45 @@ def test_beam_score_int8_on_graph_shaped_rows(dev, metric, m, d, offset):
     assert LAUNCHES["beam_score_int8"] == before + calls
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [24, 37, 64, 96, 128, 200, 384, 960])
+@pytest.mark.parametrize("m", [32, 50, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_beam_score_on_graph_shaped_rows(dev, dtype, metric, m, d, offset):
+    """f32 and bf16 rows: valid-first rows of every valid count, holes, ids
+    >= n, retired and bad frontier ids, each k and lane count; exact on an
+    integer-valued corpus and query (l2, ip). The widths reach every vector
+    instance (groups of 8, 16 and 32 threads; one, two, four or eight
+    16-byte pieces a thread: f32 d = 24 .. 960, bf16 d = 64 .. 960); d = 37,
+    bf16 d = 24 (three pieces) and offset 1 (x shifted by one element) take
+    the generic one."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.beam_score import ops as B
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n = 3000
+    planted, nbrs = _graph_rows(n, m, m + d, dev)
+    before, calls = LAUNCHES["beam_score"], 0
+    for integer in (True, False):
+        x = (torch.randint(-8, 9, (n, d), generator=gen, device=dev).float() if integer
+             else torch.randn(n, d, generator=gen, device=dev)).to(dtype)
+        x = _misaligned(x, offset)
+        xf = x.float()
+        for b in (1, 300, 1024):
+            u = _lanes(gen, n, b, dev)
+            q = (torch.randint(-8, 9, (b, d), generator=gen, device=dev).float() if integer
+                 else torch.randn(b, d, generator=gen, device=dev))
+            scl = ((q * q).sum(1, keepdim=True) + float((xf * xf).sum(1).max())
+                   if metric != "cos" else 1.0)
+            for k in _ks(m):
+                ker = B.beam_score(x, planted, u, q, k, metric)
+                ref = B.beam_score_ref(x, nbrs, u, q, k, metric)
+                _hold(ker, ref, integer and metric != "cos", scl)
+                calls += 1
+    torch.cuda.synchronize()
+    assert LAUNCHES["beam_score"] == before + calls
+
+
 def _pq_case(gen, n, mq, dsub, b, dev, integer, metric):
     from repro_torch.quant import pq_lut
     shape = (mq, 256, dsub)

@@ -179,6 +179,31 @@ def test_add_reverse_edges_step_matches_reference(ref_state, metric, merge):
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
+@pytest.mark.parametrize("merge", ["sort", "bucketed"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_whole_build_matches_reference(metric, merge):
+    """The port's sweep loop (T1 x T2 update_neighbors, a reverse pass after
+    each outer round but the last), started from the reference's own random
+    initial graph, gives the reference's built graph bit for bit: drift that
+    compounds over sweeps would show here, not in one sweep."""
+    import jax
+    x = _int_corpus(8, 1500, d=24)
+    cfg = RRD.RNNDescentConfig(s=10, r=24, t1=3, t2=4, capacity=32, chunk=512,
+                               metric=metric, merge=merge)
+    key = jax.random.PRNGKey(9)
+    ref = RRD.build(jnp.asarray(x), cfg, key)
+    g = convert.graph_from_numpy(*(np.asarray(a) for a in
+                                   RRD.random_init(key, jnp.asarray(x), cfg)), device="cpu")
+    pcfg, xt = _port_cfg(cfg), torch.from_numpy(x)
+    for t1 in range(cfg.t1):
+        for _ in range(cfg.t2):
+            g = rd.update_neighbors(xt, g, pcfg)
+        if t1 != cfg.t1 - 1:
+            g = rd.add_reverse_edges(g, pcfg)
+    for a, b in zip(convert.graph_to_numpy(g), ref):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
 def test_config_validation_matches_reference():
     for kw in ({"capacity": 8, "r": 16}, {"merge": "heap"}):
         with pytest.raises(ValueError):

@@ -40,27 +40,49 @@ def test_score_block_matches_reference(metric):
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
-def test_beam_score_matches_reference(metric):
+def test_beam_score_matches_reference(metric, dtype):
+    """f32 rows, or bf16 rows (the reference's gram_dtype="bf16": rows cast
+    to bf16, every sum f32). Float data within 1e-5; integer-valued rows
+    and queries bit for bit (ids, l2/ip distances and keys)."""
     rng = np.random.default_rng(1)
+    cast = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def both(x, nbrs, u, q, k):
+        ref = ref_beam_score_ref(jnp.asarray(x), jnp.asarray(nbrs), jnp.asarray(u),
+                                 jnp.asarray(q), k=k, metric=metric, gram_dtype=dtype)
+        out = bs_ops.beam_score(torch.from_numpy(x).to(cast),
+                                *(torch.from_numpy(a) for a in (nbrs, u, q)), k=k,
+                                metric=metric)
+        return [np.asarray(a) for a in ref], out
+
     x = rng.standard_normal((50, 16)).astype(np.float32)
     nbrs = rng.integers(-1, 50, (50, 12)).astype(np.int32)
     u = rng.integers(0, 50, 20).astype(np.int32)
     q = rng.standard_normal((20, 16)).astype(np.float32)
-    rids, rd, rkeys = ref_beam_score_ref(jnp.asarray(x), jnp.asarray(nbrs), jnp.asarray(u),
-                                         jnp.asarray(q), k=8, metric=metric)
-    ids, d, keys = bs_ops.beam_score(*(torch.from_numpy(a) for a in (x, nbrs, u, q)),
-                                     k=8, metric=metric)
-    np.testing.assert_array_equal(ids.numpy(), np.asarray(rids))
-    np.testing.assert_allclose(d.numpy(), np.asarray(rd), rtol=1e-5, atol=1e-5)
+    (rids, rd, rkeys), (ids, d, keys) = both(x, nbrs, u, q, 8)
+    np.testing.assert_array_equal(ids.numpy(), rids)
+    np.testing.assert_allclose(d.numpy(), rd, rtol=1e-5, atol=1e-5)
     # keys decode exactly to the port's distances, and to the reference's
     # keys wherever the distances agree bit for bit
     np.testing.assert_array_equal(G.key_dist(keys).numpy(), d.numpy())
-    same = d.numpy() == np.asarray(rd)
-    np.testing.assert_array_equal(convert.key_to_reference(keys)[same], np.asarray(rkeys)[same])
+    same = d.numpy() == rd
+    np.testing.assert_array_equal(convert.key_to_reference(keys)[same], rkeys[same])
     # k is clipped to the capacity
-    assert bs_ops.beam_score(*(torch.from_numpy(a) for a in (x, nbrs, u, q)), k=99,
+    assert bs_ops.beam_score(torch.from_numpy(x).to(cast),
+                             *(torch.from_numpy(a) for a in (nbrs, u, q)), k=99,
                              metric=metric)[0].shape == (20, 12)
+    # integer-valued (exact in bf16): every l2/ip sum is exact in any order
+    xi = rng.integers(-8, 9, (50, 16)).astype(np.float32)
+    qi = rng.integers(-8, 9, (20, 16)).astype(np.float32)
+    (rids, rd, rkeys), (ids, d, keys) = both(xi, nbrs, u, qi, 12)
+    np.testing.assert_array_equal(ids.numpy(), rids)
+    if metric != "cos":
+        np.testing.assert_array_equal(d.numpy(), rd)
+        np.testing.assert_array_equal(convert.key_to_reference(keys), rkeys)
+    else:
+        np.testing.assert_allclose(d.numpy(), rd, rtol=0, atol=1e-6)
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +92,7 @@ def int_index():
     x = rng.integers(-8, 9, (600, 16)).astype(np.float32)
     q = rng.integers(-8, 9, (70, 16)).astype(np.float32)
     out = {}
-    for metric in ("l2", "ip"):
+    for metric in ("l2", "ip", "cos"):
         cfg = RRD.RNNDescentConfig(s=8, r=16, t1=2, t2=3, capacity=24, chunk=128,
                                    metric=metric)
         g = RRD.build(jnp.asarray(x), cfg, jax.random.PRNGKey(1))
@@ -79,21 +101,30 @@ def int_index():
     return x, q, out
 
 
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_dense_search_matches_reference_exactly(int_index, metric):
+@pytest.mark.parametrize("gram_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_dense_search_matches_reference_exactly(int_index, metric, gram_dtype):
+    """Integer corpus (exact in bf16 too): ids, l2/ip distances and work
+    counters bit for bit; cos distances (a division and two square roots
+    a score) within 1e-6."""
     x, q, graphs = int_index
     g, eps = graphs[metric]
     eps_b = np.broadcast_to(eps[None], (q.shape[0], eps.shape[0]))
-    cfg = RS.SearchConfig(l=16, k=12, max_iters=48, topk=5, metric=metric, visited="dense")
+    kw = dict(l=16, k=12, max_iters=48, topk=5, metric=metric, visited="dense",
+              gram_dtype=gram_dtype)
     rids, rdist, rstats = RS.search_tiled(jnp.asarray(x), g, jnp.asarray(q),
-                                          jnp.asarray(eps_b), cfg, tile_b=32, with_stats=True)
-    pcfg = S.SearchConfig(l=16, k=12, max_iters=48, topk=5, metric=metric, visited="dense")
+                                          jnp.asarray(eps_b), RS.SearchConfig(**kw),
+                                          tile_b=32, with_stats=True)
+    pcfg = S.SearchConfig(**kw)
     pg = convert.graph_from_numpy(*(np.asarray(a) for a in g), device="cpu")
     ids, dist, stats = S.search_tiled(torch.from_numpy(x), pg, torch.from_numpy(q),
                                       torch.from_numpy(eps_b.copy()), pcfg, tile_b=32,
                                       with_stats=True)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(rids))
-    np.testing.assert_array_equal(dist.numpy(), np.asarray(rdist))
+    if metric == "cos":
+        np.testing.assert_allclose(dist.numpy(), np.asarray(rdist), rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(dist.numpy(), np.asarray(rdist))
     assert stats["work"] == int(rstats["work"])
     assert stats["launched"] == int(rstats["launched"])
     assert (stats["tiles"], stats["tile_lanes"]) == (rstats["tiles"], rstats["tile_lanes"])
