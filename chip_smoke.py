@@ -12,7 +12,14 @@ Phases (any failure raises and exits non-zero):
      card, from one seed: recall@10, out-degree and connectivity bars, the
      two runs within 0.01 recall of each other, the coded routes near the
      f32 route and near the JAX package's number;
-  3. main path at full size (n = 1M, d = 128, FULL; 10k queries; hashed
+  3. the paper's baselines at the medium configuration: NN-Descent
+     (NNDescentConfig(): K = 64, S = 10, 10 iterations, bucketed) and
+     NSG-style (NSGStyleConfig(): R = 32, C = 132) on that graph, once
+     through the kernels and once through the plain versions, held to each
+     other, to the JAX package's recall and out-degree on the same corpus,
+     and NSG's connectivity repair to its contract; nsg_style.build must
+     equal the refine of the NN-Descent graph bit for bit;
+  4. main path at full size (n = 1M, d = 128, FULL; 10k queries; hashed
      search_tiled): launch counts are zeroed just before and read just after,
      and every kernel must have launched; each sweep's prune time stands
      beside its input's extent statistics (e = 1 + the last valid slot of a
@@ -20,7 +27,7 @@ Phases (any failure raises and exits non-zero):
      dense-visited oracle at L = 64 (recall within 0.005 of the hashed run),
      recall/QPS at L = 128, 256, and a torch.profiler trace of the search
      (device busy time);
-  4. each kernel against its plain version on the main path's shapes and
+  5. each kernel against its plain version on the main path's shapes and
      data, timed with CUDA events (rounds of back-to-back calls, median
      round and spread) beside its bound and, where one exists, a single
      PyTorch call computing the same function; the beam kernels also with
@@ -31,23 +38,31 @@ Phases (any failure raises and exits non-zero):
      iteration 20 of the first tile (f32 rows), on random ids over bf16
      rows, and over a seeded 960-wide corpus (GIST1M's width) on the same
      adjacency, each exact on integer-valued rows and queries (l2, ip);
-  5. build-side witness: the same full-size build through the sort-oracle
-     merge, whose recall and graph quality (share of sampled rows holding
-     their exact nearest neighbours) must be no worse than the bucketed
+  6. builders at 1M on the path's corpus, queries and search: RNN-Descent
+     (the path's own lines), NN-Descent and NSG-style on that NN-Descent
+     graph (nsg_style.build is that build and the refine, so NSG's build
+     time is both), each with its stage split (CUDA events), recall@10/@1,
+     QPS, out-degree, connectivity, graph quality, peak memory and launch
+     counts (NSG's prune launches rng_prune once, on rows of C = 132, through
+     its M <= 256 instance); then rng_prune on the first 8192 of those rows,
+     held and timed as in phase 5;
+  7. coded paths: int8 at full size (encode -> build whose every sweep
+     prunes through rng_prune_int8 -> search through beam_score_int8 ->
+     rerank -> recall) and, over the first 500k rows of the corpus, PQ
+     (train + encode -> build over the decoded corpus through rng_prune ->
+     search through beam_score_pq -> rerank -> recall), launch counts zeroed
+     before and read after each, recall held to the f32 path's times the
+     codes' rerank ceiling (brute force over the decoded corpus, exact
+     rerank); then each coded kernel against its plain version on that
+     path's own data (the int8 prune at the int8 build's three inputs; each
+     beam kernel on random frontier ids and on the frontier its search hands
+     it at iteration 20 of the first tile, exact on integer-valued codes or
+     tables), timed as in phase 5. Between the two, the build-side witness:
+     the RNN-Descent build through the sort-oracle merge over the first 500k
+     rows, whose recall and graph quality (share of sampled rows holding
+     their exact nearest neighbours) must be no worse than the bucketed 1M
      build's;
-  6. coded paths at full size (n = 1M, FULL, 10k queries): int8 (encode ->
-     build whose every sweep prunes through rng_prune_int8 -> search through
-     beam_score_int8 -> rerank -> recall) and PQ (train + encode -> build
-     over the decoded corpus through rng_prune -> search through
-     beam_score_pq -> rerank -> recall), launch counts zeroed before and read
-     after each, recall held to the f32 path's times the codes' rerank
-     ceiling (brute force over the decoded corpus, exact rerank); then each
-     coded kernel against its plain version on that path's own data (the
-     int8 prune at the int8 build's three inputs; each beam kernel on random
-     frontier ids and on the frontier its search hands it at iteration 20 of
-     the first tile, exact on integer-valued codes or tables), timed as in
-     phase 4;
-  7. recsys serving (weights from the port's seeded init, batches from its
+  8. recsys serving (weights from the port's seeded init, batches from its
      seeded recsys_batch, through launch.steps.bind): DeepFM FULL at
      serve_bulk (262,144 rows) and serve_p99 (512) and FM FULL at serve_bulk,
      each with launch counts zeroed just before and read just after one
@@ -60,8 +75,11 @@ Phases (any failure raises and exits non-zero):
      1,003,520 candidates, top-100) held to a float64 sort; fm_interact
      against its plain version and an f64 explicit-pairs oracle on the
      DeepFM serve_bulk embeddings, at F = 40, D = 32 and in f32, timed as in
-     phase 4.
-The last lines are the kernels' JSON, the card's name and power limit, and
+     phase 5.
+Cut to fit the script's time (about 300 s): the sort-oracle witness and the
+PQ path run over the first 500k rows of the 1M corpus (CUT_N). "clock" lines
+give the seconds since start after each phase. The last lines are the
+kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -85,11 +103,21 @@ HBM_RATE = 3.35e12   # H100 SXM HBM3, bytes/s
 SEED = 0
 FULL_N, FULL_Q = 1_000_000, 10_000
 MEDIUM_N, MEDIUM_Q = 20_000, 500
-# The JAX package on the CPU at the medium configuration (its own draw of the
-# same mixture): scripts/reference_medium.py.
+# Paths cut to fit the script's time: the first rows of the 1M corpus, with
+# their own ground truth (the sort-oracle witness, then the PQ path)
+CUT_N = 500_000
+# The JAX package on the CPU at the medium configuration: f32, int8, pq over
+# its own draw of the same mixture (scripts/reference_medium.py); the
+# baselines (NNDescentConfig(), NSGStyleConfig() on it) over numpy_mixture's
+# corpus and queries, the ones medium_baselines uses here:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py nnd nsg
 REF_MEDIUM = {"f32": {"recall_at_10": 0.998, "avg_out_degree": 12.5},
               "int8": {"recall_at_10": 0.9986, "avg_out_degree": 12.49},
-              "pq": {"recall_at_10": 0.9744, "avg_out_degree": 13.34}}
+              "pq": {"recall_at_10": 0.9744, "avg_out_degree": 13.34},
+              "nn-descent": {"recall_at_10": 0.026, "recall_at_1": 0.026,
+                             "avg_out_degree": 63.9973, "connectivity": 0.03015},
+              "nsg-style": {"recall_at_10": 0.7396, "recall_at_1": 0.74,
+                            "avg_out_degree": 14.2975, "connectivity": 0.9996}}
 QUANT_KW = {"int8": {"mode": "int8", "rerank_k": 64},
             "pq": {"mode": "pq", "m": 32, "rerank_k": 64}}
 # the kernels each corpus mode's path must launch (and no other)
@@ -435,6 +463,246 @@ def medium_phase():
     return out
 
 
+# ------------------------------------------------------------ the baselines
+BASELINES = ("nn-descent", "nsg-style")
+
+
+def numpy_mixture(n: int, n_queries: int, seed: int, d: int = 128, clusters: int = 64):
+    """The SIFT-like mixture (``VectorDatasetSpec.sift_like``: 64 unit
+    Gaussians around N(0, 1) centres) drawn with numpy, so that
+    scripts/reference_medium.py runs the JAX package's builders on the very
+    corpus and queries the medium baselines use here. Returns float32 numpy
+    (x (n, d), queries (n_queries, d))."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((clusters, d))
+    x = centers[rng.integers(0, clusters, n)] + rng.standard_normal((n, d))
+    q = centers[rng.integers(0, clusters, n_queries)] + rng.standard_normal((n_queries, d))
+    return x.astype(np.float32), q.astype(np.float32)
+
+
+def search_graph(x, q, g, gt, tile_b: int) -> dict:
+    """A builder's graph served as the path serves RNN-Descent's (hashed
+    search_tiled, L = K = 64, top-10, from the default entry point): recall,
+    QPS, out-degree and the connectivity lower bound."""
+    from repro_torch.core import eval as E
+    from repro_torch.core import search as S
+    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10)
+    ep = S.default_entry_point(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists = S.search_tiled(x, g, q, ep, cfg, tile_b=tile_b)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    check(ids.shape == (q.shape[0], 10) and dists.shape == ids.shape, "result shape")
+    check(bool(((ids >= 0) & (ids < x.shape[0])).all()), "result ids out of range")
+    check(bool(torch.isfinite(dists).all()), "non-finite result distance")
+    check(bool((torch.diff(dists, dim=1) >= 0).all()), "results not sorted")
+    return {"search_s": sec, "qps": q.shape[0] / sec, "recall_at_10": E.recall_topk(ids, gt),
+            "recall_at_1": E.recall_at_k(ids, gt),
+            "avg_out_degree": E.degree_stats(g)["avg_out_degree"],
+            "connectivity": E.connectivity_lower_bound(g, int(ep))}
+
+
+def nn_descent_build(x, gen_seed: int):
+    """NN-Descent (NNDescentConfig(): K = 64, S = 10, 10 iterations,
+    bucketed) with its time split per iteration (CUDA events): the join
+    (local join scattered into the packed table) and the merge (rows with
+    their buckets)."""
+    from repro_torch.core import nn_descent as nnd
+    with event_timed(nnd, ("join_table", "join_and_update")) as ev:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = nnd.build(x, nnd.NNDescentConfig(),
+                      torch.Generator(device=x.device).manual_seed(gen_seed))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    join, it = ev["join_table"], ev["join_and_update"]
+    return g, {"build_s": sec, "join_s": sum(join) / 1e3, "merge_s": (sum(it) - sum(join)) / 1e3,
+               "iters": len(it), "join_ms": join, "merge_ms": [a - b for a, b in zip(it, join)]}
+
+
+@contextlib.contextmanager
+def prune_rows_of(module, out: dict):
+    """Keep the shape and a copy of the first PRUNE_ROWS rows of every
+    ``module.rng_prune`` input (ids, dists, flags) in ``out``."""
+    orig = module.rng_prune
+
+    def wrapper(x, ids, dists, flags=None, *a, **kw):
+        rows = ids[:PRUNE_ROWS]
+        f = torch.ones_like(rows, dtype=torch.uint8) if flags is None else flags[:PRUNE_ROWS]
+        out.setdefault("inputs", []).append(
+            (tuple(ids.shape), tuple(t.clone() for t in (rows, dists[:PRUNE_ROWS], f))))
+        return orig(x, ids, dists, flags, *a, **kw)
+    module.rng_prune = wrapper
+    try:
+        yield out
+    finally:
+        module.rng_prune = orig
+
+
+def repair_contract(x, pre, entry, post) -> dict:
+    """What the connectivity repair promises, held on its input ``pre`` and
+    output ``post``: every vertex unreachable from ``entry`` in ``pre``
+    holds, in ``post``, its in-edge from its nearest reachable vertex, unless
+    that vertex's row is full of entries no farther (the sort merge keeps a
+    row's nearest). A row that overflows drops edges, so the repair does not
+    promise a connected graph (the JAX package's repair is the same)."""
+    from repro_torch.core import distances as D
+    from repro_torch.core import nsg_style as nsg
+    reach = nsg.reachable_mask(pre, entry, 64)
+    unreached = (~reach).nonzero().squeeze(1).int()
+    src = nsg.repair_sources(x, reach)[unreached.long()]
+    d = D.gather_dists(x, src, unreached)
+    rows, dists = post.neighbors[src.long()], post.dists[src.long()]
+    kept = (rows == unreached[:, None]).any(1)
+    full = (rows >= 0).all(1) & (dists <= d[:, None]).all(1)
+    out = {"unreached_before_repair": int(unreached.shape[0]),
+           "repair_edges_kept": int(kept.sum()),
+           "repair_edges_dropped_by_full_rows": int((~kept & full).sum()),
+           "repair_contract_violations": int((~kept & ~full).sum())}
+    check(out["repair_contract_violations"] == 0, f"NSG repair: {out}")
+    return out
+
+
+def nsg_refine(x, knn_g, build_s: float, prune_in: dict | None = None):
+    """NSG-style (NSGStyleConfig(): R = 32, C = 132) on the NN-Descent graph
+    ``knn_g``, whose build took ``build_s``: nsg_style.build is that build
+    followed by this refine. The stages' times are CUDA events: expand,
+    prune (RNG prune of C = 132 candidates a row and the cap at R), reverse
+    edges, repair. ``prune_in`` receives the prune's inputs; the repair is
+    held to its contract (:func:`repair_contract`) after the timing."""
+    from repro_torch.core import graph as G
+    from repro_torch.core import nsg_style as nsg
+    from repro_torch.kernels.rng_prune import ops as R
+    stages = ("expand_candidates", "rng_cap_rows", "ensure_reachable")
+    with event_timed(nsg, stages) as ev, event_timed(G, ("add_reverse_edges",)) as rev, \
+            prune_rows_of(R, {} if prune_in is None else prune_in), \
+            captured(nsg, "ensure_reachable") as repair:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = nsg.refine(x, knn_g, nsg.NSGStyleConfig())
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    (_, pre, entry, _), _ = repair[0]
+    return g, {"build_s": build_s + sec, "knn_s": build_s, "refine_s": sec,
+               "expand_s": sum(ev["expand_candidates"]) / 1e3,
+               "prune_s": sum(ev["rng_cap_rows"]) / 1e3,
+               "reverse_s": sum(rev["add_reverse_edges"]) / 1e3,
+               "repair_s": sum(ev["ensure_reachable"]) / 1e3,
+               **repair_contract(x, pre, entry, g)}
+
+
+def medium_baselines():
+    """NN-Descent and NSG-style at the medium configuration, once through
+    the kernels and once through their plain versions, on the card: the
+    routes within 0.01 recall@10 of each other, each within 0.03 recall@10
+    and 10 % out-degree of the JAX package's on the same corpus and queries
+    (numpy_mixture: only the random initial graphs differ), NSG's repair
+    held to its contract. On the kernel route, NSG's refine of the
+    NN-Descent graph must equal nsg_style.build from the same seed, bit for
+    bit."""
+    from repro_torch.core import eval as E
+    from repro_torch.core import nsg_style as nsg
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    x, q = (torch.from_numpy(a).to("cuda") for a in numpy_mixture(MEDIUM_N, MEDIUM_Q, SEED))
+    _, gt = E.ground_truth(x, q, k=10, tile=1024)
+    out = {}
+    for route in ("kernel", "plain"):
+        reset_launches()
+        prune_in = {}
+        with plain_versions() if route == "plain" else contextlib.nullcontext():
+            kg, kres = nn_descent_build(x, SEED + 1)
+            kres.update(search_graph(x, q, kg, gt, MEDIUM_Q))
+            g, sres = nsg_refine(x, kg, kres["build_s"], prune_in)
+            sres.update(search_graph(x, q, g, gt, MEDIUM_Q))
+        launches = dict(LAUNCHES)
+        want = {"rng_prune", "beam_score"} if route == "kernel" else set()
+        got = {k for k, v in launches.items() if v > 0} - {"pairwise_l2"}   # the repair's scan
+        check(got == want, f"baselines {route} route launched {got}, expected {want}")
+        if route == "kernel":
+            check(launches["rng_prune"] == 1 and prune_in["inputs"][0][0] == (MEDIUM_N, 132),
+                  f"NSG prune: {launches['rng_prune']} launches, rows {prune_in['inputs']}")
+            built = nsg.build(x, nsg.NSGStyleConfig(),
+                              torch.Generator(device="cuda").manual_seed(SEED + 1))
+            check(all(torch.equal(a, b) for a, b in zip(built, g)),
+                  "nsg_style.build != refine of the NN-Descent graph")
+            del built
+        for name, res, graph in (("nn-descent", kres, kg), ("nsg-style", sres, g)):
+            ref = REF_MEDIUM[name]
+            res["launches"] = launches
+            res.update(graph_quality(x, graph, 10_000, SEED + 11))
+            emit({"phase": "medium_baselines", "builder": name, "route": route, "n": MEDIUM_N,
+                  "queries": MEDIUM_Q, "reference": ref, **res})
+            check(abs(res["recall_at_10"] - ref["recall_at_10"]) <= 0.03,
+                  f"{name} {route}: recall@10 {res['recall_at_10']} against the reference's "
+                  f"{ref['recall_at_10']}")
+            check(abs(res["avg_out_degree"] - ref["avg_out_degree"])
+                  <= 0.1 * ref["avg_out_degree"], f"{name} {route}: out-degree off by > 10 %")
+            out[name, route] = res
+        del kg, g
+    for name in BASELINES:
+        delta = abs(out[name, "kernel"]["recall_at_10"] - out[name, "plain"]["recall_at_10"])
+        check(delta <= 0.01, f"{name}: kernel vs plain recall@10 differ by {delta}")
+    return out
+
+
+def builders_phase(x, q, gt, rnnd: dict):
+    """The paper's comparison at 1M on one corpus and search: RNN-Descent
+    (the path's build and search, ``rnnd``), NN-Descent, and NSG-style on
+    that NN-Descent graph; each builder's launch counts zeroed just before
+    its build and read just after its search. Returns NSG's prune input
+    (the first PRUNE_ROWS rows) and launches."""
+    keys = ("build_s", "search_s", "qps", "recall_at_10", "recall_at_1", "avg_out_degree",
+            "connectivity", "nn1_in_graph", "nn10_in_graph", "max_memory_allocated_gib",
+            "launches")
+    lines = {"rnn-descent": {**{k: rnnd[k] for k in keys},
+                             "stages": {k: rnnd[k] for k in ("prune_s", "merge_s", "reverse_s")},
+                             "config": "FULL s=20 r=96 t1=4 t2=15 M=128"}}
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    kg, kres = nn_descent_build(x, SEED + 1)
+    kres.update(search_graph(x, q, kg, gt, 1024))
+    kres["launches"] = dict(LAUNCHES)
+    kres["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    check({k for k, v in kres["launches"].items() if v > 0} == {"beam_score"},
+          f"nn-descent launched {kres['launches']}")
+    kres.update(graph_quality(x, kg, 10_000, SEED + 11))
+    kres["config"] = "NNDescentConfig(): K=64 S=10 iters=10 bucketed"
+    lines["nn-descent"] = kres
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    prune_in = {}
+    g, sres = nsg_refine(x, kg, kres["build_s"], prune_in)
+    del kg
+    sres.update(search_graph(x, q, g, gt, 1024))
+    launches = sres["launches"] = dict(LAUNCHES)
+    sres["max_memory_allocated_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
+                                           kres["max_memory_allocated_gib"])
+    (shape, rows), = prune_in["inputs"]
+    check(launches["rng_prune"] == 1 and shape == (x.shape[0], 132),
+          f"NSG prune: {launches['rng_prune']} rng_prune launches, rows {shape}")
+    ran = {k for k, v in launches.items() if v > 0} - {"pairwise_l2"}   # the repair's scan
+    check(ran == {"rng_prune", "beam_score"}, f"nsg-style launched {launches}")
+    sres.update(graph_quality(x, g, 10_000, SEED + 11))
+    sres["config"] = "NSGStyleConfig(): R=32 C=132 on the NN-Descent graph above"
+    sres["prune_rows"] = shape
+    lines["nsg-style"] = sres
+    del g
+    for name, res in lines.items():
+        emit({"phase": "builders", "builder": name, "n": x.shape[0], "d": x.shape[1],
+              "queries": q.shape[0], "search": "L=64 K=64 topk=10 hashed", **res})
+    base = lines["rnn-descent"]["build_s"]
+    emit({"phase": "builders_summary",
+          "build_s": {k: v["build_s"] for k, v in lines.items()},
+          "build_s_over_rnn_descent": {k: v["build_s"] / base for k, v in lines.items()},
+          "recall_at_10": {k: v["recall_at_10"] for k, v in lines.items()}})
+    return rows, launches
+
+
 def full_phase():
     from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -460,19 +728,23 @@ def full_phase():
     return x, q, g, gt, launches, res, snap
 
 
-def sort_oracle_build(x, q, gt, res):
-    """Build-side witness at full size: the same build from the same seed
-    through the sort-oracle merge (global lexsorts over the edge list). The
-    bucketed merge keeps one candidate per hashed slot, so it may only lose
-    candidates: the oracle's graph must be at least as good."""
-    g, _, _, _, srt = run_path(x, q, 1024, SEED + 1, medium=False, merge="sort", gt=gt)
+def sort_oracle_build(x, q, res):
+    """Build-side witness: the same build from the same seed through the
+    sort-oracle merge (global lexsorts over the edge list), over the first
+    CUT_N rows of the corpus. The bucketed merge keeps one candidate per
+    hashed slot, so it may only lose candidates: the oracle's graph, over
+    half the corpus, must be at least as good as the bucketed 1M graph.
+    Returns the ground truth of the cut corpus."""
+    g, gt, _, _, srt = run_path(x, q, 1024, SEED + 1, medium=False, merge="sort")
     srt.update(graph_quality(x, g, 10_000, SEED + 11))
-    emit({"phase": "sort_oracle", "n": FULL_N, **srt,
+    emit({"phase": "sort_oracle", "n": x.shape[0], "reduced": f"n = {x.shape[0]:,} of 1M",
+          **srt,
           "bucketed": {k: res[k] for k in ("recall_at_10", "recall_at_1", "avg_out_degree",
                                            "nn1_in_graph", "nn10_in_graph", "build_s")}})
     check(srt["connectivity"] >= 0.99, f"sort-oracle connectivity {srt['connectivity']}")
     for key in ("recall_at_10", "nn1_in_graph", "nn10_in_graph"):
         check(srt[key] >= res[key] - 0.01, f"sort-oracle {key} {srt[key]} < bucketed {res[key]}")
+    return gt
 
 
 def search_trace(x, q, g, search_s, mode: str = "f32", qx=None):
@@ -710,7 +982,8 @@ def rng_prune_report(x, inputs: dict, launches: int) -> list:
                      "M": m, "d": d})
         report.append({
             "name": "rng_prune", "input": label, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/rng_prune.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      + ("rng_prune.cu" if m <= R.MAX_M_BUILD else "rng_prune_wide.cu"),
             "replaces": "src/repro/kernels/rng_prune/kernel.py:162",
             "launches": launches, "max_abs_err": worst[(torch.float32, "l2")],
             "tolerance": f"exact on an integer-valued corpus; keep, red_w agreement >= 0.999; "
@@ -866,8 +1139,9 @@ def rerank_ceiling(x, q, gt, qx, width: int = 64) -> float:
 
 
 def coded_full_phase(x, q, gt, mode: str, f32_res: dict):
-    """The coded path at full size, launch counts zeroed just before and
-    read just after: every sweep prunes through the mode's prune kernel
+    """The coded path over corpus ``x`` (int8: the 1M corpus; PQ: its first
+    CUT_N rows) and its ground truth ``gt``, launch counts zeroed just
+    before and read just after: every sweep prunes through the mode's prune kernel
     (rng_prune_int8 over codes; rng_prune over the decoded corpus for PQ)
     and the search scores through its beam kernel."""
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -883,9 +1157,11 @@ def coded_full_phase(x, q, gt, mode: str, f32_res: dict):
     res.update(graph_quality(x, g, 10_000, SEED + 11))
     search_trace(x, q, g, res["search_s"], mode, qx)
     prune = "rng_prune_int8" if mode == "int8" else "rng_prune"
-    emit({"phase": "coded_path", "n": FULL_N, "d": 128, "queries": FULL_Q,
+    n = x.shape[0]
+    emit({"phase": "coded_path", "n": n, "d": 128, "queries": FULL_Q,
           "build": "FULL s=20 r=96 t1=4 t2=15 M=128",
-          "search": f"L=64 K=64 topk=10 hashed, {QUANT_KW[mode]}", "reduced": None,
+          "search": f"L=64 K=64 topk=10 hashed, {QUANT_KW[mode]}",
+          "reduced": None if n == FULL_N else f"n = {n:,} of 1M",
           "f32_recall_at_10": f32_res["recall_at_10"], **res})
     check_launches(launches, mode)
     check(launches[prune] == res["sweeps"] == 60,
@@ -1301,7 +1577,7 @@ def fm_kernel_phase(emb, launches: int) -> dict:
 
 
 def recsys_phase() -> list:
-    """Phase 7: the recsys serving slice."""
+    """Phase 8: the recsys serving slice."""
     from repro_torch.models import recsys as rs
     bound, params, batch, res = serve_cell("deepfm", "serve_bulk")
     fm_launches = res["launches"]["fm_interact"]
@@ -1343,6 +1619,8 @@ def warm_up() -> None:
     ones, zeros = torch.ones(8, device="cuda"), torch.zeros(8, device="cuda")
     pq = torch.zeros(4, 2, dtype=torch.uint8, device="cuda")
     R.rng_prune(x, ids, torch.zeros(4, 2, device="cuda"))
+    wide = torch.nn.functional.pad(ids, (0, 130), value=-1)   # the M <= 256 instance
+    R.rng_prune(x, wide, torch.zeros(4, 132, device="cuda"))
     R.rng_prune_int8(codes, ones, zeros, ids, torch.zeros(4, 2, device="cuda"))
     B.beam_score(x, ids, u, x, 2)
     B.beam_score_int8(codes, ones, zeros, ids, u, x, 2)
@@ -1351,6 +1629,10 @@ def warm_up() -> None:
     P.pairwise_l2(x, x)
     FM.fm_interact(torch.zeros(2, 3, 4, device="cuda", dtype=torch.bfloat16))
     torch.cuda.synchronize()
+
+
+def clock(after: str) -> None:
+    emit({"phase": "clock", "after": after, "seconds": time.perf_counter() - T0})
 
 
 def main() -> int:
@@ -1369,18 +1651,35 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}", flush=True)
     warm_up()
+    clock("warm_up")
     medium_phase()
+    clock("medium")
+    medium_baselines()
+    clock("medium_baselines")
     x, q, g, gt, launches, res, snap = full_phase()
+    clock("path")
     report = kernel_phase(x, q, g, launches, snap)
     del g, snap
-    sort_oracle_build(x, q, gt, res)
+    clock("kernels")
+    nsg_rows, nsg_launches = builders_phase(x, q, gt, res)
+    clock("builders")
+    report += rng_prune_report(x, {"NSG prune rows (C = 132)": nsg_rows},
+                               nsg_launches["rng_prune"])
+    del nsg_rows
+    clock("kernels_nsg_prune")
     g, qx, coded, snap = coded_full_phase(x, q, gt, "int8", res)
     report += int8_kernel_phase(x, q, g, qx, coded, snap)
     del g, qx, snap
-    g, qx, coded, _ = coded_full_phase(x, q, gt, "pq", res)
-    report += pq_kernel_phase(x, q, g, qx, coded)
-    del g, qx, x, q, gt
+    clock("int8")
+    xc = x[:CUT_N]
+    gt_c = sort_oracle_build(xc, q, res)
+    clock("sort_oracle")
+    g, qx, coded, _ = coded_full_phase(xc, q, gt_c, "pq", res)
+    report += pq_kernel_phase(xc, q, g, qx, coded)
+    del g, qx, x, xc, q, gt, gt_c
+    clock("pq")
     report += recsys_phase()
+    clock("recsys")
     emit({"phase": "done", "seconds": time.perf_counter() - T0,
           "kernel_build_s": built["seconds"]})
     emit({"kernels": report})

@@ -1,25 +1,35 @@
 """The JAX package's numbers for the medium configuration of chip_smoke.py.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py [f32 int8 pq]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py [f32 int8 pq nnd nsg]
 
 Runs the reference (``repro``, jnp paths, CPU) on the SIFT-like mixture at
-n = 20k with 500 queries: build ``rnnd_ann.FULL`` under each corpus mode,
-then hashed ``search_tiled`` at L = K = 64, top-10 (int8 and PQ with m = 32
-and the exact-f32 rerank tail of width 64). Prints one JSON line per mode
-with recall@10, recall@1, the average out-degree and the seconds taken.
-``chip_smoke.py`` keeps these numbers as ``REF_MEDIUM``.
+n = 20k with 500 queries: build ``rnnd_ann.FULL`` under each corpus mode
+(f32, int8, pq; the mixture drawn by ``jax.random``), or one of the paper's
+baselines (nnd: ``NNDescentConfig()``, K = 64, S = 10, 10 iterations; nsg:
+``NSGStyleConfig()``, R = 32, C = 132 on that NN-Descent) over the mixture
+that ``chip_smoke.numpy_mixture`` draws with numpy, the corpus and queries
+chip_smoke.py's medium baselines use on the card. Then hashed
+``search_tiled`` at L = K = 64, top-10 (int8 and PQ with m = 32 and the
+exact-f32 rerank tail of width 64). Prints one JSON line per mode with
+recall@10, recall@1, the average out-degree, the connectivity lower bound
+and the seconds taken. ``chip_smoke.py`` keeps these numbers as
+``REF_MEDIUM``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
 import time
 
 import jax
+import jax.numpy as jnp
 
 from repro.configs.rnnd_ann import FULL, SEARCH
 from repro.core import eval as E
+from repro.core import nn_descent as nnd
+from repro.core import nsg_style as nsg
 from repro.core import rnn_descent as rd
 from repro.core import search as S
 from repro.data.synthetic import VectorDatasetSpec, clustered_vectors
@@ -27,16 +37,34 @@ from repro.quant import Quantization, encode_corpus
 
 QUANTS = {"f32": Quantization(), "int8": Quantization(mode="int8", rerank_k=64),
           "pq": Quantization(mode="pq", m=32, rerank_k=64)}
+BUILDERS = {"nnd": lambda x, key: nnd.build(x, nnd.NNDescentConfig(), key),
+            "nsg": lambda x, key: nsg.build(x, nsg.NSGStyleConfig(), key)}
+
+
+def corpus(baseline: bool):
+    """(x, queries, ground truth, entry point) of the medium configuration."""
+    if baseline:
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        from chip_smoke import MEDIUM_N, MEDIUM_Q, SEED, numpy_mixture
+        x, q = (jnp.asarray(a) for a in numpy_mixture(MEDIUM_N, MEDIUM_Q, SEED))
+    else:
+        x, q = clustered_vectors(jax.random.PRNGKey(0), VectorDatasetSpec.sift_like(20_000, 500))
+    _, gt = E.ground_truth(x, q, k=10)
+    return x, q, gt, S.default_entry_point(x)
 
 
 def main(modes) -> None:
-    x, q = clustered_vectors(jax.random.PRNGKey(0), VectorDatasetSpec.sift_like(20_000, 500))
-    _, gt = E.ground_truth(x, q, k=10)
-    ep = S.default_entry_point(x)
+    data = {}
     for mode in modes:
-        quant = QUANTS[mode]
+        if (mode in BUILDERS) not in data:
+            data[mode in BUILDERS] = corpus(mode in BUILDERS)
+        x, q, gt, ep = data[mode in BUILDERS]
+        quant = QUANTS.get(mode, Quantization())
         t0 = time.perf_counter()
-        g = rd.build(x, dataclasses.replace(FULL, quant=quant), jax.random.PRNGKey(1))
+        if mode in BUILDERS:
+            g = BUILDERS[mode](x, jax.random.PRNGKey(1))
+        else:
+            g = rd.build(x, dataclasses.replace(FULL, quant=quant), jax.random.PRNGKey(1))
         qx = encode_corpus(x, quant) if quant.is_coded else None
         cfg = dataclasses.replace(SEARCH, topk=10, quant=quant)
         ids, _ = S.search_tiled(x, g, q, ep, cfg, tile_b=500, qx=qx)
@@ -44,8 +72,9 @@ def main(modes) -> None:
                           "recall_at_10": float(E.recall_topk(ids, gt)),
                           "recall_at_1": float(E.recall_at_k(ids, gt)),
                           "avg_out_degree": E.degree_stats(g)["avg_out_degree"],
+                          "connectivity": float(E.connectivity_lower_bound(g, int(ep))),
                           "seconds": time.perf_counter() - t0}), flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or list(QUANTS))
+    main(sys.argv[1:] or [*QUANTS, *BUILDERS])

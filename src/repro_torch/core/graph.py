@@ -255,6 +255,51 @@ def bucket_scatter_tables(rows, ids, dist, flag, n: int, n_buckets: int,
     return view(p_tab), view(k_tab), view(i_tab), view(f_tab).to(torch.uint8)
 
 
+def combine_bucket_tables(p, k, i, f):
+    """Fold stacked partial bucket tables (leading axis: the partition) into
+    the tables of the union edge list: the lexicographically-least
+    (priority, key, id), and the max flag over the partials holding that
+    winner. The per-slot winners of a partition min-combine to the global
+    winner, so the fold equals one :func:`bucket_scatter_tables` over the
+    concatenated list. ``p`` may be None (no priority stage)."""
+    alive = torch.ones(k.shape, dtype=torch.bool, device=k.device)
+    p_min = None
+    if p is not None:
+        p_min = p.amin(0)
+        alive = p == p_min[None]
+    k_min = torch.where(alive, k, KEY_SENTINEL).amin(0)
+    alive &= k == k_min[None]
+    i_min = torch.where(alive, i, INT32_MAX).amin(0)
+    alive &= i == i_min[None]
+    f_max = torch.where(alive, f, torch.zeros_like(f)).amax(0)
+    return p_min, k_min, i_min, f_max
+
+
+def combine_bucket_tables_pair(a, b):
+    """:func:`combine_bucket_tables` of two partials without the stacked
+    copy. The fold is associative and commutative, so accumulating partials
+    pairwise equals folding them all at once, bit for bit."""
+    pa, ka, ia, fa = a
+    pb, kb, ib, fb = b
+    alive_a = torch.ones(ka.shape, dtype=torch.bool, device=ka.device)
+    alive_b = alive_a.clone()
+    p_min = None
+    if pa is not None:
+        p_min = torch.minimum(pa, pb)
+        alive_a = pa == p_min
+        alive_b = pb == p_min
+    k_min = torch.minimum(torch.where(alive_a, ka, KEY_SENTINEL),
+                          torch.where(alive_b, kb, KEY_SENTINEL))
+    alive_a &= ka == k_min
+    alive_b &= kb == k_min
+    i_min = torch.minimum(torch.where(alive_a, ia, INT32_MAX), torch.where(alive_b, ib, INT32_MAX))
+    alive_a &= ia == i_min
+    alive_b &= ib == i_min
+    f_max = torch.maximum(torch.where(alive_a, fa, torch.zeros_like(fa)),
+                          torch.where(alive_b, fb, torch.zeros_like(fb)))
+    return p_min, k_min, i_min, f_max
+
+
 def decode_bucket_tables(k_tab, i_tab, f_tab):
     """Raw tables -> (ids, dist, flag); empty slots become (-1, +inf, OLD)."""
     empty = k_tab == KEY_SENTINEL

@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("rng_prune", "beam_score", "beam_score_pq", "pairwise_l2", "fm_interact")  # sources
+KERNELS = ("rng_prune", "rng_prune_wide", "beam_score", "beam_score_pq", "pairwise_l2",
+           "fm_interact")  # sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,6 +4,8 @@ registers) and their plain versions.
 
 The kernel reads the corpus by id itself, so one launch covers all rows: the
 (rows, M, d) gathered block never exists (64 GiB at n = 1M, M = d = 128).
+Rows of up to 128 candidates go to ``csrc/rng_prune.cu``, wider ones (up to
+256) to the same kernel's wider instance in ``csrc/rng_prune_wide.cu``.
 Its warps take rows from two counters (one per pass: rows of more than 32
 candidates, then the rest): the wrapper allocates them, the launch zeroes
 them on its stream.
@@ -16,7 +18,9 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build, metric_code
 from repro_torch.kernels.rng_prune.ref import rng_prune_ref
 
-MAX_M = 128          # candidate tile of the kernel (csrc/rng_prune.cu)
+MAX_M_BUILD = 128    # rows csrc/rng_prune.cu takes (RNN-Descent's capacity)
+MAX_M = 256          # rows csrc/rng_prune_wide.cu takes (NSG-style's C = 132)
+MAX_M_INT8 = 128     # rows rng_prune_int8 takes
 
 
 def _check(x, ids, dists, flags, dtypes=(torch.float32, torch.bfloat16)):
@@ -73,12 +77,13 @@ def _launch(x, ids, dists, flags, metric):
     if r == 0 or m == 0:
         return keep, red_w, red_d
     counter = torch.empty(2, dtype=torch.int32, device=x.device)
-    rc = _build.load("rng_prune", "ppppiiiiiippppp")(
+    entry = "rng_prune" if m <= MAX_M_BUILD else "rng_prune_wide"
+    rc = _build.load(entry, "ppppiiiiiippppp")(
         x.data_ptr(), ids.data_ptr(), dists.data_ptr(), flags.data_ptr(),
         n, d, r, m, metric_code(metric), int(x.dtype == torch.bfloat16),
         counter.data_ptr(), keep.data_ptr(), red_w.data_ptr(), red_d.data_ptr(),
         _build.stream_handle(x.device))
-    _build.check(rc, "rng_prune")
+    _build.check(rc, entry)
     LAUNCHES["rng_prune"] += 1
     return keep, red_w, red_d
 
@@ -130,9 +135,9 @@ def _outputs(r, m, device):
             torch.empty((r, m), dtype=torch.float32, device=device))
 
 
-def _check_launch(n, r, m):
-    if m > MAX_M:
-        raise ValueError(f"capacity M={m} exceeds the kernel's candidate tile {MAX_M}")
+def _check_launch(n, r, m, max_m=MAX_M):
+    if m > max_m:
+        raise ValueError(f"candidate rows of M={m} exceed the kernel's limit of M <= {max_m}")
     if n >= 2**31 or r >= 2**31:
         raise ValueError("n and R must fit int32")
 
@@ -140,7 +145,7 @@ def _check_launch(n, r, m):
 def _launch_int8(codes, scale, zero, ids, dists, flags, metric):
     r, m = ids.shape
     n, d = codes.shape
-    _check_launch(n, r, m)
+    _check_launch(n, r, m, MAX_M_INT8)
     codes, scale, zero, ids, dists, flags = (
         t.contiguous() for t in (codes, scale, zero, ids, dists, flags))
     keep, red_w, red_d = _outputs(r, m, codes.device)

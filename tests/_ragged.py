@@ -2,7 +2,8 @@
 test run has no JAX): every extent a tile edge can get wrong, and holes."""
 import numpy as np
 
-EXTENTS = (0, 1, 31, 32, 33, 64, 65, 127, 128)
+# every 32-candidate tile edge of the prune's M <= 128 and M <= 256 instances
+EXTENTS = (0, 1, 31, 32, 33, 64, 65, 127, 128, 129, 159, 160, 161, 193, 225, 255, 256)
 
 
 def _dists(a, b, metric):

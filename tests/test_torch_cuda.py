@@ -200,6 +200,98 @@ def test_rng_prune_ragged_rows(dev, dtype, metric, m, d, integer):
     assert float((ker[2] - ref[2])[same].abs().max()) <= lim
 
 
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("m", [129, 132, 160, 256])
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rng_prune_wide_rows(dev, dtype, metric, m, integer):
+    """The M <= 256 instance (NSG's rows are C = 132 wide): one launch over
+    rows of every extent up to m, dense and with holes (-1 and ids >= n);
+    integer-valued l2/ip bit for bit the plain version, otherwise the
+    agreement limits of the real-data tests."""
+    from _ragged import ragged_rows
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.rng_prune import ops as R
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, d = 3000, 128
+    xv = (torch.randint(-8, 9, (n, d), generator=gen, device=dev).float() if integer
+          else torch.randn(n, d, generator=gen, device=dev))
+    planted, ids, dists, flags = (torch.from_numpy(a).to(dev) for a in
+                                  ragged_rows(xv.cpu().numpy(), m, 8, metric, repeats=4))
+    xx = xv.to(dtype)
+    before = LAUNCHES["rng_prune"]
+    ker = R.rng_prune(xx, planted, dists, flags, metric)
+    ref = R.rng_prune_plain(xx, ids, dists, flags, metric)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rng_prune"] == before + 1
+    assert int(ker[0].sum()) > 0 and int((ker[1] >= 0).sum()) > 0
+    if integer and metric != "cos":
+        for a, b in zip(ker, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        return
+    assert float((ker[0] == ref[0]).float().mean()) >= 0.999
+    assert float((ker[1] == ref[1]).float().mean()) >= 0.999
+    same = (ker[1] == ref[1]) & (ker[1] >= 0)
+    xf = xx.float()
+    lim = 1e-5 * (2.0 if metric == "cos" else 2 * float((xf * xf).sum(1).max()))
+    assert float((ker[2] - ref[2])[same].abs().max()) <= lim
+
+
+def test_rng_prune_rejects_rows_past_its_limit(dev):
+    """rng_prune takes rows of up to 256 candidates, rng_prune_int8 up to
+    128; wider rows raise a ValueError naming the limit, on the card only
+    (the plain versions, like the reference, take any width)."""
+    from repro_torch.kernels.rng_prune import ops as R
+    x = torch.zeros(300, 16, device=dev)
+    codes = torch.zeros(300, 16, dtype=torch.int8, device=dev)
+    one, zero = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    for m, limit, call, plain in (
+            (257, 256, lambda i, d: R.rng_prune(x, i, d),
+             lambda i, d: R.rng_prune_plain(x, i, d)),
+            (129, 128, lambda i, d: R.rng_prune_int8(codes, one, zero, i, d),
+             lambda i, d: R.rng_prune_int8_plain(codes, one, zero, i, d))):
+        ids = torch.arange(m, dtype=torch.int32, device=dev)[None].repeat(4, 1)
+        d = torch.zeros(4, m, device=dev)
+        with pytest.raises(ValueError, match=f"M <= {limit}"):
+            call(ids, d)
+        call(ids[:, :limit], d[:, :limit])     # the limit itself launches
+        plain(ids, d)                          # the plain version takes any width
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_baselines_on_the_card_equal_the_cpu_route(dev, metric, monkeypatch):
+    """A small NN-Descent (from one random initial graph) and the NSG-style
+    stages on its graph, on the card and on the CPU, over an integer corpus:
+    the same graphs bit for bit; NSG's prune launches rng_prune once a build
+    (C = 40 through the M <= 128 instance, C = 132 through M <= 256)."""
+    from repro_torch.core import graph as G
+    from repro_torch.core import nn_descent as nnd
+    from repro_torch.core import nsg_style as nsg
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randint(-8, 9, (3000, 32), generator=gen).float()
+    cfg = nnd.NNDescentConfig(k=24, s=8, iters=4, metric=metric)
+    g0 = nnd.random_init(x, cfg, gen)
+    monkeypatch.setattr(nnd, "JOIN_BUDGET", 50_000)   # several chunks a join
+    out = {}
+    for where in ("cpu", "cuda"):
+        xd, g = x.to(where), G.Graph(*(t.to(where) for t in g0))
+        for _ in range(cfg.iters):
+            g = nnd.join_and_update(xd, g, cfg)
+        reset_launches()
+        graphs = [g] + [nsg.refine(xd, g, nsg.NSGStyleConfig(r=16, c=c, knn=cfg, metric=metric))
+                        for c in (40, 132)]
+        out[where] = [[t.cpu() for t in gg] for gg in graphs]
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["rng_prune"] == 2
+    for a, b in zip(out["cpu"], out["cuda"]):
+        for ta, tb in zip(a, b):
+            torch.testing.assert_close(ta, tb, rtol=0, atol=0)
+
+
 def _frontier(gen, n, m, b, dev):
     nbrs = torch.randint(-1, n, (n, m), generator=gen, device=dev, dtype=torch.int32)
     u = torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)

@@ -92,3 +92,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert g.neighbors.device.type == "cpu"   # a tensor runs on its own device
     with pytest.raises(RuntimeError, match="cuda"):
         S.search_tiled(z, g, z[:5], 0, S.SearchConfig(l=4, k=4))
+    from repro_torch.core import nn_descent as nnd
+    from repro_torch.core import nsg_style as nsg
+    with pytest.raises(RuntimeError, match="cuda"):
+        nnd.build(z, nnd.NNDescentConfig(k=4, s=2, iters=1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        nsg.build(z, nsg.NSGStyleConfig(r=2, c=4, knn=nnd.NNDescentConfig(k=4, s=2, iters=1)))
