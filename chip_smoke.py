@@ -19,6 +19,17 @@ Phases (any failure raises and exits non-zero):
      other, to the JAX package's recall and out-degree on the same corpus,
      and NSG's connectivity repair to its contract; nsg_style.build must
      equal the refine of the NN-Descent graph bit for bit;
+  3b. the streaming index at the medium configuration: numpy_mixture's pool
+     (n = 20k, 500 queries), churn_schedule (benchmarks/bench_streaming.py's:
+     build on the first 15,384 rows, insert 2,308, delete 1,538, insert
+     2,308, delete 1,923) under StreamingConfig(build=FULL, **STREAM_KW),
+     searched with CHURN_SEARCH (L = 48, K = 32, top-10), for the f32 store
+     and with int8 and PQ (m = 32, rerank 64) codes attached before the
+     schedule, each through the kernels and through the plain versions:
+     recall over the survivors against a rebuild over them (the
+     reference's bar, recall_stream >= recall_rebuild - 0.02), f32 against
+     the JAX package's recall_stream on the same pool, the routes within
+     0.01, no deleted id in a result, every inserted point its own nearest;
   4. main path at full size (n = 1M, d = 128, FULL; 10k queries; hashed
      search_tiled): launch counts are zeroed just before and read just after,
      and every kernel must have launched; each sweep's prune time stands
@@ -38,6 +49,20 @@ Phases (any failure raises and exits non-zero):
      iteration 20 of the first tile (f32 rows), on random ids over bf16
      rows, and over a seeded 960-wide corpus (GIST1M's width) on the same
      adjacency, each exact on integer-valued rows and queries (l2, ip);
+  5b. the streaming index over the main path's corpus and graph (capacity
+     2^20, StreamingConfig() with the FULL build): 32 rounds of two insert
+     batches of 1,024 points (the corpus's mixture) and one delete batch of
+     1,024 original rows, so the store grows to 2^21 once, then one traced
+     insert batch (device idle share); per-batch p50/p99, inserts/s and
+     deletes/s, an insert's split (seeding search, graft, sweeps, prune);
+     recall@10 over the survivors (L = K = 64) before and after compact
+     (one repair sweep), against a rebuild over the survivors; no
+     tombstoned id in a result, >= 99 % of the inserted points their own
+     nearest; save under build/ and restore (every leaf and a dense search
+     equal; seconds and bytes on disk); launches over the path; then
+     rng_prune on the first insert's frontier block (25,600 rows, the
+     sentinel ones empty), held and timed as in phase 5, and timed on its
+     live rows alone;
   6. builders at 1M on the path's corpus, queries and search: RNN-Descent
      (the path's own lines), NN-Descent and NSG-style on that NN-Descent
      graph (nsg_style.build is that build and the refine, so NSG's build
@@ -76,7 +101,7 @@ Phases (any failure raises and exits non-zero):
      against its plain version and an f64 explicit-pairs oracle on the
      DeepFM serve_bulk embeddings, at F = 40, D = 32 and in f32, timed as in
      phase 5.
-Cut to fit the script's time (about 300 s): the sort-oracle witness and the
+Cut to fit the script's time (about 400 s): the sort-oracle witness and the
 PQ path run over the first 500k rows of the 1M corpus (CUT_N). "clock" lines
 give the seconds since start after each phase. The last lines are the
 kernels' JSON, the card's name and power limit, and
@@ -85,6 +110,7 @@ kernels' JSON, the card's name and power limit, and
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -101,6 +127,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 F32_PEAK = 67e12     # H100 SXM f32 outside the tensor cores, FLOP/s (700 W)
 HBM_RATE = 3.35e12   # H100 SXM HBM3, bytes/s
 SEED = 0
+# the paper's build (rnnd_ann.FULL: S = 20, R = 96, T1 = 4, T2 = 15, M = 128)
+FULL_BUILD = {"s": 20, "r": 96, "t1": 4, "t2": 15, "capacity": 128}
 FULL_N, FULL_Q = 1_000_000, 10_000
 MEDIUM_N, MEDIUM_Q = 20_000, 500
 # Paths cut to fit the script's time: the first rows of the 1M corpus, with
@@ -117,7 +145,9 @@ REF_MEDIUM = {"f32": {"recall_at_10": 0.998, "avg_out_degree": 12.5},
               "nn-descent": {"recall_at_10": 0.026, "recall_at_1": 0.026,
                              "avg_out_degree": 63.9973, "connectivity": 0.03015},
               "nsg-style": {"recall_at_10": 0.7396, "recall_at_1": 0.74,
-                            "avg_out_degree": 14.2975, "connectivity": 0.9996}}
+                            "avg_out_degree": 14.2975, "connectivity": 0.9996},
+              # scripts/reference_medium.py churn: medium_streaming's schedule
+              "churn": {"recall_stream": 0.9908, "recall_rebuild": 0.9944}}
 QUANT_KW = {"int8": {"mode": "int8", "rerank_k": 64},
             "pq": {"mode": "pq", "m": 32, "rerank_k": 64}}
 # the kernels each corpus mode's path must launch (and no other)
@@ -364,7 +394,7 @@ def run_path(x, q, n_queries_tile: int, gen_seed: int, medium: bool,
     from repro_torch.quant import quantization as Qm
     quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
     # chunk: rows per gather of the plain prune (a medium sweep in one)
-    cfg = rd.RNNDescentConfig(s=20, r=96, t1=4, t2=15, capacity=128,
+    cfg = rd.RNNDescentConfig(**FULL_BUILD,
                               chunk=MEDIUM_N if medium else 512, merge=merge, quant=quant)
     scfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10, quant=quant)
     res = {"mode": mode}
@@ -479,6 +509,27 @@ def numpy_mixture(n: int, n_queries: int, seed: int, d: int = 128, clusters: int
     x = centers[rng.integers(0, clusters, n)] + rng.standard_normal((n, d))
     q = centers[rng.integers(0, clusters, n_queries)] + rng.standard_normal((n_queries, d))
     return x.astype(np.float32), q.astype(np.float32)
+
+
+# the streaming knobs of benchmarks/bench_streaming.py (non-smoke) with the
+# paper's build, and the search its churn rows score
+STREAM_KW = {"seed_l": 48, "seed_k": 24, "seed_iters": 96, "batch_k": 8, "sweeps": 2,
+             "splice_k": 8}
+CHURN_SEARCH = {"l": 48, "k": 32, "max_iters": 128, "topk": 10}
+
+
+def churn_schedule(n: int):
+    """``benchmarks/bench_streaming.py:churn_rows``'s schedule over a pool of
+    ``n`` rows: build on the first n0 = int(n / 1.3), insert half of the
+    rest, delete rows [0, n0 // 10), insert the other half, then delete the
+    next n0 // 8 rows. Returns (n0, ((op, pool rows or ids), ...)) with
+    ``op`` "ins" (a slice of the pool) or "del" (a numpy id array)."""
+    import numpy as np
+    n0 = int(n / 1.3)
+    half = (n - n0) // 2
+    return n0, (("ins", slice(n0, n0 + half)), ("del", np.arange(0, n0 // 10)),
+                ("ins", slice(n0 + half, n)),
+                ("del", np.arange(n0 // 10, n0 // 10 + n0 // 8)))
 
 
 def search_graph(x, q, g, gt, tile_b: int) -> dict:
@@ -647,6 +698,330 @@ def medium_baselines():
     return out
 
 
+# ------------------------------------------------------------- the streaming index
+def churn_run(pool, q, cfg, scfg, quant, n0: int, schedule) -> dict:
+    """``churn_schedule`` on one route: from_corpus on the pool's first
+    ``n0`` rows (quantized before the schedule for a coded ``quant``), the
+    inserts and deletes (each batch timed to a synchronize), then
+    recall@10 over the survivors (``recall_stream``) and that of a
+    from-scratch build over them, searched the same way
+    (``recall_rebuild``); every inserted point searched for itself, and
+    every deleted id looked for in both searches' results."""
+    import numpy as np
+
+    from repro_torch.core import eval as E
+    from repro_torch.streaming import StreamingANN
+    from repro_torch.streaming import store as ST
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ann = StreamingANN.from_corpus(pool[:n0], cfg,
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    if quant.is_coded:
+        ann.quantize(quant)
+    torch.cuda.synchronize()
+    res = {"build_s": time.perf_counter() - t0}
+    secs, count, new_ids, new_rows, gone = {"ins": 0.0, "del": 0.0}, {"ins": 0, "del": 0}, [], [], []
+    for op, arg in schedule:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if op == "ins":
+            new_ids.append(ann.insert(pool[arg]))
+            new_rows.append(pool[arg])
+        else:
+            ann.delete(arg)
+            gone.append(arg)
+        torch.cuda.synchronize()
+        secs[op] += time.perf_counter() - t0
+        count[op] += len(new_ids[-1]) if op == "ins" else len(arg)
+    st = ann.store
+    valid = ST.active_mask(st)
+    _, gt = E.ground_truth(st.x, q, k=10, valid=valid)
+    ids, _ = ann.search(q, scfg, tile_b=q.shape[0])
+    self_ids, _ = ann.search(torch.cat(new_rows), scfg, tile_b=1024)
+    new_ids = torch.from_numpy(np.concatenate(new_ids)).to("cuda")
+    gone = torch.from_numpy(np.concatenate(gone)).to("cuda", torch.int32)
+    surv = st.x[valid]
+    reb = StreamingANN.from_corpus(surv, cfg,
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+    if quant.is_coded:
+        reb.quantize(quant)
+    ids_r, _ = reb.search(q, scfg, tile_b=q.shape[0])
+    _, gt_r = E.ground_truth(surv, q, k=10)
+    res.update({
+        "inserted": count["ins"], "deleted": count["del"], "survivors": int(surv.shape[0]),
+        "capacity": ann.capacity, "epoch": ann.epoch,
+        "inserts_per_s": count["ins"] / secs["ins"], "deletes_per_s": count["del"] / secs["del"],
+        "insert_s": secs["ins"], "delete_s": secs["del"],
+        "recall_stream": E.recall_topk(ids, gt, valid=valid),
+        "recall_rebuild": E.recall_topk(ids_r, gt_r),
+        "self_rank1": float((self_ids[:, 0] == new_ids).float().mean()),
+        "deleted_ids_in_results": int(torch.isin(ids, gone).sum() + torch.isin(self_ids, gone).sum())})
+    return res
+
+
+def medium_streaming():
+    """The streaming index at the medium configuration on numpy_mixture's
+    pool (n = 20k, 500 queries): ``churn_schedule`` under
+    ``StreamingConfig(build=FULL, **STREAM_KW)``, searched with
+    ``CHURN_SEARCH``, for the f32 store and for int8 and PQ (m = 32, rerank
+    64) codes attached before the schedule; each once through the kernels
+    and once through the plain versions. Held to the reference's bar
+    (recall_stream >= recall_rebuild - 0.02), the routes within 0.01 of
+    each other, f32 within 0.03 of the JAX package's recall_stream on the
+    same pool, no deleted id in a result, every inserted point its own
+    nearest."""
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.quant import Quantization
+    from repro_torch.streaming import StreamingConfig
+    pool, q = (torch.from_numpy(a).to("cuda") for a in numpy_mixture(MEDIUM_N, MEDIUM_Q, SEED))
+    n0, schedule = churn_schedule(MEDIUM_N)
+    # chunk: rows per gather of the plain prune (a medium sweep in one)
+    cfg = StreamingConfig(build=rd.RNNDescentConfig(**FULL_BUILD, chunk=MEDIUM_N), **STREAM_KW)
+    ref = REF_MEDIUM["churn"]
+    out = {}
+    for mode in ("f32", "int8", "pq"):
+        quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
+        scfg = S.SearchConfig(**CHURN_SEARCH, quant=quant)
+        for route in ("kernel", "plain"):
+            reset_launches()
+            with plain_versions() if route == "plain" else contextlib.nullcontext():
+                res = churn_run(pool, q, cfg, scfg, quant, n0, schedule)
+            launches = res["launches"] = dict(LAUNCHES)
+            emit({"phase": "medium_streaming", "mode": mode, "route": route, "pool": MEDIUM_N,
+                  "n0": n0, "queries": MEDIUM_Q,
+                  "config": "FULL build, bench_streaming knobs " + json.dumps(STREAM_KW),
+                  "search": CHURN_SEARCH, "reference": ref if mode == "f32" else None, **res})
+            want = set()
+            if route == "kernel":
+                want = {"rng_prune", "beam_score", "pairwise_l2"} | (
+                    {f"beam_score_{mode}"} if mode != "f32" else set())
+            got = {k for k, v in launches.items() if v > 0}
+            check(got == want, f"streaming {mode} {route} launched {got}, expected {want}")
+            check(res["deleted_ids_in_results"] == 0, f"streaming {mode} {route}: a deleted id "
+                  "surfaced")
+            check(res["self_rank1"] == 1.0, f"streaming {mode} {route}: self rank 1 "
+                  f"{res['self_rank1']}")
+            check(res["recall_stream"] >= res["recall_rebuild"] - 0.02,
+                  f"streaming {mode} {route}: recall {res['recall_stream']} against the "
+                  f"rebuild's {res['recall_rebuild']}")
+            if mode == "f32":
+                check(abs(res["recall_stream"] - ref["recall_stream"]) <= 0.03,
+                      f"streaming f32 {route}: recall {res['recall_stream']} against the JAX "
+                      f"package's {ref['recall_stream']}")
+            out[mode, route] = res
+        delta = abs(out[mode, "kernel"]["recall_stream"] - out[mode, "plain"]["recall_stream"])
+        check(delta <= 0.01, f"streaming {mode}: kernel vs plain recall differ by {delta}")
+    return out
+
+
+STREAM_BATCH = 1024     # rows a writer batch inserts or deletes at 1M
+STREAM_ROUNDS = 32      # rounds of (insert, insert, delete) batches at 1M
+
+
+def _ms_stats(ms: list) -> dict:
+    s = sorted(ms)
+    return {"p50_ms": statistics.median(s), "p99_ms": s[min(len(s) - 1, int(0.99 * len(s)))],
+            "max_ms": s[-1], "batches": len(s)}
+
+
+def streaming_1m(x, q, g):
+    """The streaming index over the 1M path's corpus and graph (from_built:
+    capacity 2^20), ``StreamingConfig()`` with the FULL build: STREAM_ROUNDS
+    rounds of two insert batches (STREAM_BATCH points of the corpus's
+    mixture: its centres, fresh assignments and noise) and one delete batch
+    (STREAM_BATCH original rows), so the store grows to 2^21 once; one more
+    insert batch under torch.profiler; recall@10 over the survivors (L = K
+    = 64, hashed) and the checks (no tombstoned id, inserted points their
+    own nearest, no unoccupied id); compact with one repair sweep, recall
+    again; save under build/, restore, every leaf and a dense search equal,
+    the directory removed; a rebuild over the survivors for the bar. Launch
+    counts are zeroed just before the schedule and read after the restore.
+    Returns the ``kernels`` entries of the insert's frontier prune."""
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.core import eval as E
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.data.synthetic import VectorDatasetSpec, mixture_centers, mixture_rows
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.rng_prune import ops as R
+    from repro_torch.streaming import StreamingANN, StreamingConfig
+    from repro_torch.streaming import store as ST
+    from repro_torch.streaming import updates as U
+    n, b = x.shape[0], STREAM_BATCH
+    build = rd.RNNDescentConfig(**FULL_BUILD)
+    cfg = StreamingConfig(build=build)
+    scfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10)
+    centers = mixture_centers(VectorDatasetSpec.sift_like(FULL_N, FULL_Q),
+                              torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    new = mixture_rows(centers, (2 * STREAM_ROUNDS + 1) * b, gen)
+    gone = torch.randperm(n, generator=gen, device="cuda")[:STREAM_ROUNDS * b].int()
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ann = StreamingANN(ST.from_built(x, g), cfg)
+    torch.cuda.synchronize()
+    res["from_built_s"] = time.perf_counter() - t0
+    res["capacity_before"] = ann.capacity
+
+    lat, split, new_ids = {"ins": [], "del": []}, {}, []
+    reset_launches()
+    with event_timed(ST, ("grow",)) as grow_ms:
+        for r in range(STREAM_ROUNDS):
+            for op in ("ins", "ins", "del"):
+                if op == "del":
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ann.delete(gone[r * b:(r + 1) * b])
+                    torch.cuda.synchronize()
+                    lat["del"].append(1e3 * (time.perf_counter() - t0))
+                    continue
+                i = len(new_ids)
+                with event_timed(S, ("search_tiled",)) as se, \
+                        event_timed(U, ("_graft", "_frontier_sweep")) as gr, \
+                        event_timed(rd, ("prune_rows",)) as pr, \
+                        captured(rd, "prune_rows") if i == 0 else contextlib.nullcontext() as cap:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    new_ids.append(ann.insert(new[i * b:(i + 1) * b]))
+                    torch.cuda.synchronize()
+                    lat["ins"].append(1e3 * (time.perf_counter() - t0))
+                for key, ev in (("search", se["search_tiled"]), ("graft", gr["_graft"]),
+                                ("sweeps", gr["_frontier_sweep"]), ("prune", pr["prune_rows"])):
+                    split[key] = split.get(key, 0.0) + sum(ev)
+                if i == 0:
+                    (xf, f_ids, f_d, f_f, _), _ = cap[0]
+    launches_schedule = dict(LAUNCHES)
+    res["max_memory_allocated_schedule_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res.update({
+        "inserted": len(new_ids) * b, "deleted": len(lat["del"]) * b,
+        "inserts_per_s": len(new_ids) * b / (sum(lat["ins"]) / 1e3),
+        "deletes_per_s": len(lat["del"]) * b / (sum(lat["del"]) / 1e3),
+        "insert_batch": _ms_stats(lat["ins"]), "delete_batch": _ms_stats(lat["del"]),
+        "insert_split_ms_mean": {k: v / len(new_ids) for k, v in split.items()},
+        "prune_share_of_insert": split["prune"] / sum(lat["ins"]),
+        "growth_ms": grow_ms["grow"], "capacity_after": ann.capacity,
+        "launches_schedule": launches_schedule})
+    check(len(grow_ms["grow"]) == 1 and ann.capacity == 2 * res["capacity_before"],
+          f"growth events {grow_ms['grow']}, capacity {ann.capacity}")
+
+    # one more insert batch, traced: the device's idle share
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new_ids.append(ann.insert(new[len(new_ids) * b:(len(new_ids) + 1) * b]))
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    spans, busy, _ = device_busy(prof)
+    res["traced_insert"] = {
+        "device_events": len(spans), "device_busy_ms": busy, "traced_wall_ms": traced_ms,
+        "idle_share_of_traced_wall": 1 - busy / traced_ms,
+        "idle_share_of_untraced_p50": 1 - busy / res["insert_batch"]["p50_ms"]}
+    check(len(spans) > 0, "the traced insert shows no device event")
+
+    st = ann.store
+    valid = ST.active_mask(st)
+    _, gt = E.ground_truth(st.x, q, k=10, valid=valid)
+    ids, _ = ann.search(q, scfg, tile_b=1024)
+    new_ids = torch.from_numpy(np.concatenate(new_ids)).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    self_ids, _ = ann.search(new[:new_ids.shape[0]], scfg, tile_b=1024)
+    torch.cuda.synchronize()
+    res["self_search_s"] = time.perf_counter() - t0
+    res["recall_before_compact"] = E.recall_topk(ids, gt, valid=valid)
+    res["self_rank1"] = float((self_ids[:, 0] == new_ids).float().mean())
+    surfaced = torch.cat([ids.reshape(-1), self_ids.reshape(-1)])
+    surfaced = surfaced[surfaced >= 0].long()
+    res["tombstoned_in_results"] = int(st.tombstone[surfaced].sum())
+    res["unoccupied_in_results"] = int((~st.occupied[surfaced]).sum())
+    check(res["tombstoned_in_results"] == 0 and res["unoccupied_in_results"] == 0,
+          f"streaming 1M: dead rows in results ({res['tombstoned_in_results']} tombstoned, "
+          f"{res['unoccupied_in_results']} unoccupied)")
+    check(res["self_rank1"] >= 0.99, f"streaming 1M: self rank 1 {res['self_rank1']}")
+    del st, valid, surfaced, self_ids
+
+    with event_timed(rd, ("update_neighbors",)) as rep:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        remap = ann.compact(repair_sweeps=1)
+        torch.cuda.synchronize()
+        res["compact_s"] = time.perf_counter() - t0
+    res["compact_repair_sweep_s"] = sum(rep["update_neighbors"]) / 1e3
+    st = ann.store
+    live = ann.live
+    check(int((remap >= 0).sum()) == live and st.capacity == ST.next_capacity(live),
+          f"compact: {live} live, capacity {st.capacity}")
+    valid = ST.active_mask(st)
+    _, gt = E.ground_truth(st.x, q, k=10, valid=valid)
+    ids, _ = ann.search(q, scfg, tile_b=1024)
+    res["recall_after_compact"] = E.recall_topk(ids, gt, valid=valid)
+    res.update({"survivors": live, "capacity_compacted": st.capacity})
+
+    path = os.path.join(ROOT, "build", "streaming_1m_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ann.save(path)
+    res["save_s"] = time.perf_counter() - t0
+    res["bytes_on_disk"] = sum(os.path.getsize(os.path.join(d, f))
+                               for d, _, fs in os.walk(path) for f in fs)
+    t0 = time.perf_counter()
+    back = StreamingANN.restore(path, cfg, device="cuda")
+    torch.cuda.synchronize()
+    res["restore_s"] = time.perf_counter() - t0
+    shutil.rmtree(path)
+    same = [(na, a.dtype == b_.dtype and torch.equal(a, b_))
+            for (na, a), (_, b_) in zip(flatten(back.store), flatten(st))]
+    check(len(same) == len(flatten(st)) and all(ok for _, ok in same),
+          f"restored store differs: {[na for na, ok in same if not ok]}")
+    dense = dataclasses.replace(scfg, visited="dense")
+    a_ids, _ = ann.search(q[:1024], dense, tile_b=1024)
+    b_ids, _ = back.search(q[:1024], dense, tile_b=1024)
+    check(torch.equal(a_ids, b_ids), "the restored store's search differs")
+    del back, a_ids, b_ids
+    launches = res["launches"] = dict(LAUNCHES)
+    for k in ("rng_prune", "beam_score", "pairwise_l2"):
+        check(launches[k] > 0, f"streaming 1M: {k} never launched")
+    res["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    surv = st.x[:live]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_r = rd.build(surv, build, torch.Generator(device="cuda").manual_seed(SEED + 31))
+    torch.cuda.synchronize()
+    res["rebuild_s"] = time.perf_counter() - t0
+    ids_r, _ = S.search_tiled(surv, g_r, q, S.default_entry_point(surv), scfg, tile_b=1024)
+    res["recall_rebuild"] = E.recall_topk(ids_r, gt)
+    del g_r, surv, ids_r
+    emit({"phase": "streaming_1m", "n": n, "d": x.shape[1], "queries": q.shape[0],
+          "batch": b, "rounds": STREAM_ROUNDS, "config": "StreamingConfig(build=FULL)",
+          "search": "L=64 K=64 topk=10 hashed", "reduced": None, **res})
+    check(res["recall_after_compact"] >= res["recall_rebuild"] - 0.02,
+          f"streaming 1M: recall after compact {res['recall_after_compact']} against the "
+          f"rebuild's {res['recall_rebuild']}")
+
+    # the frontier block of the first insert's first sweep: held and timed
+    # as the build's prune inputs; then on its live rows alone
+    live_rows = (f_ids >= 0).any(1)
+    frontier = {"insert frontier, sweep 1": (f_ids, f_d, f_f)}
+    report = rng_prune_report(xf, frontier, launches["rng_prune"])
+    li, ld, lf = (t[live_rows].contiguous() for t in (f_ids, f_d, f_f))
+    emit({"kernel": "rng_prune", "input": "insert frontier, sweep 1", "rows": f_ids.shape[0],
+          "rows_with_candidates": int(live_rows.sum()),
+          "ms_all_rows": time_ms(lambda i: R.rng_prune(xf, f_ids, f_d, f_f, "l2"), inner=20)["ms"],
+          "ms_live_rows": time_ms(lambda i: R.rng_prune(xf, li, ld, lf, "l2"), inner=20)["ms"]})
+    return report
+
+
 def builders_phase(x, q, gt, rnnd: dict):
     """The paper's comparison at 1M on one corpus and search: RNN-Descent
     (the path's build and search, ``rnnd``), NN-Descent, and NSG-style on
@@ -747,6 +1122,25 @@ def sort_oracle_build(x, q, res):
     return gt
 
 
+def device_busy(prof):
+    """A torch.profiler trace's device events: (spans, busy ms = the union of
+    their intervals, {kernel name: [ms, count]})."""
+    spans, per_name = [], {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            a, b = ev.time_range.start, ev.time_range.end
+            spans.append((a, b))
+            per_name.setdefault(ev.name, [0.0, 0])
+            per_name[ev.name][0] += (b - a) / 1e3
+            per_name[ev.name][1] += 1
+    busy_ms, end = 0.0, float("-inf")
+    for a, b in sorted(spans):         # union of device intervals, in us
+        if b > end:
+            busy_ms += (b - max(a, end)) / 1e3
+            end = b
+    return spans, busy_ms, per_name
+
+
 def search_trace(x, q, g, search_s, mode: str = "f32", qx=None):
     """A path's search (L = 64, hashed, 10k queries) under torch.profiler:
     device busy time against the untraced run's wall time, and the share of
@@ -764,19 +1158,7 @@ def search_trace(x, q, g, search_s, mode: str = "f32", qx=None):
         S.search_tiled(x, g, q, ep, cfg, tile_b=1024, qx=qx)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    spans, per_name = [], {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            a, b = ev.time_range.start, ev.time_range.end
-            spans.append((a, b))
-            per_name.setdefault(ev.name, [0.0, 0])
-            per_name[ev.name][0] += (b - a) / 1e3
-            per_name[ev.name][1] += 1
-    busy_ms, end = 0.0, float("-inf")
-    for a, b in sorted(spans):         # union of device intervals, in us
-        if b > end:
-            busy_ms += (b - max(a, end)) / 1e3
-            end = b
+    spans, busy_ms, per_name = device_busy(prof)
     beam = [v for k, v in per_name.items() if "beam_score" in k]
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
     emit({"phase": "search_trace", "mode": mode, "device_events": len(spans),
@@ -1656,11 +2038,16 @@ def main() -> int:
     clock("medium")
     medium_baselines()
     clock("medium_baselines")
+    medium_streaming()
+    clock("medium_streaming")
     x, q, g, gt, launches, res, snap = full_phase()
     clock("path")
     report = kernel_phase(x, q, g, launches, snap)
-    del g, snap
+    del snap
     clock("kernels")
+    report += streaming_1m(x, q, g)
+    del g
+    clock("streaming_1m")
     nsg_rows, nsg_launches = builders_phase(x, q, gt, res)
     clock("builders")
     report += rng_prune_report(x, {"NSG prune rows (C = 132)": nsg_rows},

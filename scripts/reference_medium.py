@@ -1,6 +1,6 @@
 """The JAX package's numbers for the medium configuration of chip_smoke.py.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py [f32 int8 pq nnd nsg]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py [f32 int8 pq nnd nsg churn]
 
 Runs the reference (``repro``, jnp paths, CPU) on the SIFT-like mixture at
 n = 20k with 500 queries: build ``rnnd_ann.FULL`` under each corpus mode
@@ -14,6 +14,14 @@ exact-f32 rerank tail of width 64). Prints one JSON line per mode with
 recall@10, recall@1, the average out-degree, the connectivity lower bound
 and the seconds taken. ``chip_smoke.py`` keeps these numbers as
 ``REF_MEDIUM``.
+
+``churn`` runs the streaming index over the numpy-drawn pool (n = 20k):
+``chip_smoke.churn_schedule`` (``benchmarks/bench_streaming.py``'s churn
+schedule) under ``StreamingConfig(build=FULL, **chip_smoke.STREAM_KW)``,
+then prints ``recall_stream`` (the index's search, ``CHURN_SEARCH``,
+against the ground truth over the survivors) and ``recall_rebuild`` (a
+from-scratch build over the survivors, searched the same way), the bar of
+chip_smoke.py's ``medium_streaming`` phase.
 """
 from __future__ import annotations
 
@@ -53,9 +61,45 @@ def corpus(baseline: bool):
     return x, q, gt, S.default_entry_point(x)
 
 
+def churn() -> None:
+    """The churn schedule of chip_smoke.py's medium_streaming phase, f32."""
+    import numpy as np
+
+    from repro.streaming import StreamingANN, StreamingConfig
+    from repro.streaming import store as ST
+    t0 = time.perf_counter()
+    x, q, _, _ = corpus(baseline=True)
+    from chip_smoke import CHURN_SEARCH, STREAM_KW, churn_schedule
+    n0, schedule = churn_schedule(x.shape[0])
+    cfg = StreamingConfig(build=FULL, **STREAM_KW)
+    scfg = S.SearchConfig(**CHURN_SEARCH)
+    ann = StreamingANN.from_corpus(x[:n0], cfg, key=jax.random.PRNGKey(1))
+    for op, arg in schedule:
+        if op == "ins":
+            ann.insert(x[arg])
+        else:
+            ann.delete(arg)
+    st = ann.store
+    valid = ST.active_mask(st)
+    _, gt = E.ground_truth(st.x, q, k=10, valid=valid)
+    ids, _ = ann.search(q, scfg)
+    surv = jnp.asarray(np.asarray(st.x)[np.asarray(valid)])
+    g = rd.build(surv, cfg.build, jax.random.PRNGKey(2))
+    ids_r, _ = S.search_tiled(surv, g, q, S.default_entry_point(surv), scfg, tile_b=256)
+    _, gt_r = E.ground_truth(surv, q, k=10)
+    print(json.dumps({"mode": "churn", "pool": int(x.shape[0]), "n0": n0,
+                      "survivors": int(surv.shape[0]), "queries": int(q.shape[0]),
+                      "recall_stream": float(E.recall_topk(ids, gt, valid=valid)),
+                      "recall_rebuild": float(E.recall_topk(ids_r, gt_r)),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def main(modes) -> None:
     data = {}
     for mode in modes:
+        if mode == "churn":
+            churn()
+            continue
         if (mode in BUILDERS) not in data:
             data[mode in BUILDERS] = corpus(mode in BUILDERS)
         x, q, gt, ep = data[mode in BUILDERS]

@@ -1,0 +1,155 @@
+"""Checkpointing with atomic commit, async flush and keep-k GC (port of
+``repro.checkpoint``): numpy ``.npz`` shards and a JSON manifest, in the
+reference's layout, so either package restores what the other saved.
+
+Layout:
+    <dir>/step_000000123.tmp/   (written)
+        shard_00000.npz         (leaf arrays ``leaf_{i}``, in flatten order)
+        manifest.json           (step, names, shapes, dtypes)
+    <dir>/step_000000123/       (the atomic rename is the commit)
+
+A crash mid-write leaves only ``*.tmp`` directories, which restore ignores
+and GC removes. Leaves are named as ``jax.tree_util.keystr`` names them
+(``".x"``, ``".graph.neighbors"``, ``".qx.codes"``, ``"['key']"``,
+``"[0]"``) by a flattener over NamedTuples (field order), dicts (sorted
+keys), lists and tuples, in which ``None`` has no leaf, as in JAX. Leaves
+cross as host numpy arrays; restore places them on ``device``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+def _is_namedtuple(t) -> bool:
+    return isinstance(t, tuple) and hasattr(t, "_fields")
+
+
+def flatten(tree, path: str = "") -> list[tuple[str, object]]:
+    """(keystr name, leaf) pairs in JAX's flatten order."""
+    if tree is None:
+        return []
+    if _is_namedtuple(tree):
+        return [kv for f in tree._fields for kv in flatten(getattr(tree, f), f"{path}.{f}")]
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in flatten(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in flatten(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def _rebuild(like, leaves):
+    """``like``'s structure with its leaves taken in order from ``leaves``."""
+    if like is None:
+        return None
+    if _is_namedtuple(like):
+        return type(like)(*(_rebuild(getattr(like, f), leaves) for f in like._fields))
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(v, leaves) for v in like)
+    return next(leaves)
+
+
+def _to_host(leaf) -> np.ndarray:
+    """A copy of the leaf as a numpy array (taken now, so a later flush
+    thread never reads memory the caller may reuse)."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            raise TypeError("a bfloat16 leaf has no numpy dtype: cast it before saving")
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
+         async_flush: bool = False) -> threading.Thread | None:
+    """Write one committed checkpoint. Returns the flush thread if async."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    pairs = flatten(tree)
+    names = [name for name, _ in pairs]
+    host_leaves = [_to_host(leaf) for _, leaf in pairs]      # device -> host copy
+
+    def _flush():
+        tmp = os.path.join(ckpt_dir, f"step_{step:09d}.tmp")
+        final = os.path.join(ckpt_dir, f"step_{step:09d}")
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "shard_00000.npz"),
+                 **{f"leaf_{i}": a for i, a in enumerate(host_leaves)})
+        manifest = {
+            "step": step,
+            "names": names,
+            "shapes": [list(a.shape) for a in host_leaves],
+            "dtypes": [str(a.dtype) for a in host_leaves],
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)                                # atomic commit
+        _gc(ckpt_dir, keep)
+
+    if async_flush:
+        t = threading.Thread(target=_flush, daemon=True)
+        t.start()
+        return t
+    _flush()
+    return None
+
+
+def _gc(ckpt_dir: str, keep: int) -> None:
+    steps = committed_steps(ckpt_dir)
+    for s in steps[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:09d}"), ignore_errors=True)
+    for name in os.listdir(ckpt_dir):
+        if name.endswith(".tmp"):
+            shutil.rmtree(os.path.join(ckpt_dir, name), ignore_errors=True)
+
+
+def committed_steps(ckpt_dir: str) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    out = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            if os.path.exists(os.path.join(ckpt_dir, name, "manifest.json")):
+                out.append(int(name[5:]))
+    return sorted(out)
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    steps = committed_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def manifest_names(ckpt_dir: str, step: int) -> list[str]:
+    """Leaf names recorded in a committed step's manifest (keystr form, e.g.
+    ``".qx.codes"``): a restorer reads them to find the saved tree's
+    optional subtrees before it builds a ``like_tree``."""
+    path = os.path.join(ckpt_dir, f"step_{step:09d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        return list(json.load(f)["names"])
+
+
+def restore(ckpt_dir: str, step: int, like_tree, device: str | torch.device = "cuda"):
+    """Load a committed step into the structure of ``like_tree`` (its leaves
+    are placeholders: only the structure is read), as tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    path = os.path.join(ckpt_dir, f"step_{step:09d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    n_like = len(flatten(like_tree))
+    if n_like != len(manifest["names"]):
+        raise ValueError(
+            f"like_tree has {n_like} leaves but step {step} holds "
+            f"{len(manifest['names'])}: {manifest['names']}")
+    with np.load(os.path.join(path, "shard_00000.npz")) as data:
+        leaves = [torch.from_numpy(data[f"leaf_{i}"]).to(dev) for i in range(n_like)]
+    return _rebuild(like_tree, iter(leaves))

@@ -44,6 +44,22 @@ def quantized_to_numpy(qx: QuantizedCorpus) -> tuple:
     return tuple(None if a is None else a.cpu().numpy() for a in qx)
 
 
+def store_from_numpy(st, device: str | torch.device = "cuda"):
+    """A streaming store of the reference (its ``Store`` fields in order:
+    x, graph, occupied, tombstone, epoch, qx, remap; arrays or None) -> the
+    port's :class:`repro_torch.streaming.store.Store` on ``device``, the
+    same arrays."""
+    from repro_torch.streaming.store import Store
+    dev = resolve_device(device)
+
+    def t(a):
+        return None if a is None else torch.tensor(np.asarray(a), device=dev)
+    return Store(t(st.x), graph_from_numpy(*st.graph, device=dev), t(st.occupied),
+                 t(st.tombstone), t(st.epoch),
+                 None if st.qx is None else quantized_from_numpy(st.qx, device=dev),
+                 t(st.remap))
+
+
 def key_to_reference(k) -> np.ndarray:
     """Port int32 key (tensor or array) -> the reference's uint32 key."""
     a = k.cpu().numpy() if isinstance(k, torch.Tensor) else np.asarray(k)

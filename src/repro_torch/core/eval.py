@@ -14,18 +14,28 @@ from repro_torch.kernels.pairwise_l2 import ops as pl2
 
 
 def ground_truth(x: torch.Tensor, queries: torch.Tensor, k: int = 1,
-                 metric: str = "l2", tile: int = 1024):
+                 metric: str = "l2", tile: int = 1024,
+                 valid: torch.Tensor | None = None):
     """Exact top-k by tiled brute force -> (dists (Q, k) f32, ids (Q, k)
     int32), ascending, ties toward the lower index. Only one (tile, n)
     distance block is alive at a time. ``l2`` goes through the
     ``pairwise_l2`` kernel (its plain version on the CPU); ``ip``/``cos``
-    through the plain matmul form, as the reference's jnp branch computes."""
+    through the plain matmul form, as the reference's jnp branch computes.
+    ``valid``: optional (n,) bool mask; masked rows (tombstones, capacity
+    padding) are left out, and a tail with fewer than k valid rows pads
+    with (+inf, -1)."""
+    if valid is not None:
+        valid = valid.to(x.device)
     ds, ids = [], []
     for s in range(0, queries.shape[0], tile):
         t = queries[s:s + tile]
         d = pl2.pairwise_l2(t, x) if metric == "l2" else D.pairwise(t, x, metric)
+        if valid is not None:
+            d = torch.where(valid[None, :], d, float("inf"))
         dd, ii = D.topk_smallest(d, k)
         del d
+        if valid is not None:
+            ii = torch.where(dd < float("inf"), ii, -1)
         ds.append(dd)
         ids.append(ii.int())
     if not ds:
@@ -40,26 +50,46 @@ def recall_at_k(pred_ids: torch.Tensor, gt_ids: torch.Tensor) -> float:
     return float(hit.float().mean())
 
 
-def recall_topk(pred_ids: torch.Tensor, gt_ids: torch.Tensor) -> float:
+def recall_topk(pred_ids: torch.Tensor, gt_ids: torch.Tensor,
+                valid: torch.Tensor | None = None) -> float:
     """Set recall: mean fraction of the true top-k present in pred (the
-    paper's recall@k)."""
-    hit = (pred_ids[:, :, None] == gt_ids[:, None, :]).any(dim=1)
-    return float(hit.float().mean(dim=1).mean())
+    paper's recall@k).
+
+    ``valid``: optional (n,) bool mask for churned corpora. Masked ids count
+    on neither side: a masked gt column leaves the denominator, a masked
+    prediction never scores a hit, and a query with no valid gt column
+    drops out of the mean."""
+    if valid is None:
+        hit = (pred_ids[:, :, None] == gt_ids[:, None, :]).any(dim=1)
+        return float(hit.float().mean(dim=1).mean())
+    valid = valid.to(gt_ids.device)
+    gt_ok = (gt_ids >= 0) & valid[gt_ids.clamp(min=0).long()]
+    pred_ok = (pred_ids >= 0) & valid[pred_ids.clamp(min=0).long()]
+    match = (pred_ids[:, :, None] == gt_ids[:, None, :]) & pred_ok[:, :, None]
+    hit = match.any(dim=1) & gt_ok
+    denom = gt_ok.sum(dim=1)
+    per_q = hit.sum(dim=1).float() / denom.clamp(min=1).float()
+    any_gt = denom > 0
+    return float(torch.where(any_gt, per_q, 0.0).sum() / any_gt.sum().clamp(min=1).float())
 
 
 def evaluate_search(x, g: G.Graph, queries, gt_ids, cfg, entry_points=None,
-                    tile_b: int = 256, repeats: int = 2) -> dict:
-    """Recall and queries/sec over ``search_tiled`` (best of ``repeats``)."""
+                    tile_b: int = 256, repeats: int = 2,
+                    valid: torch.Tensor | None = None) -> dict:
+    """Recall and queries/sec over ``search_tiled`` (best of ``repeats``).
+    ``valid``: the (n,) tombstone mask, threaded through the search, the
+    default entry point and :func:`recall_topk` (pass ``gt_ids`` computed
+    with the same mask)."""
     from repro_torch.core import search as S
 
     if entry_points is None:
-        entry_points = S.default_entry_point(x, cfg.metric)
+        entry_points = S.default_entry_point(x, cfg.metric, valid=valid)
     sec, (ids, _) = timed(S.search_tiled, x, g, queries, entry_points, cfg,
-                          tile_b=tile_b, repeats=repeats)
+                          tile_b=tile_b, repeats=repeats, valid=valid)
     lanes = min(tile_b, queries.shape[0])
     return {
         "recall_at_1": recall_at_k(ids, gt_ids),
-        "recall_topk": recall_topk(ids, gt_ids),
+        "recall_topk": recall_topk(ids, gt_ids, valid=valid),
         "qps": queries.shape[0] / sec,
         "visited_mode": cfg.visited,
         "visited_bytes_per_tile": S.visited_state_bytes(cfg, x.shape[0], lanes),

@@ -211,18 +211,25 @@ def _bucket_slots(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
 
 
 def bucket_scatter_tables(rows, ids, dist, flag, n: int, n_buckets: int,
-                          prio: torch.Tensor | None = None):
+                          prio: torch.Tensor | None = None,
+                          row_ids: torch.Tensor | None = None):
     """Staged bucket tables ``(p, k, i, f)`` of shape (n, n_buckets): each
     (row, slot) holds the lexicographically-least (priority, key, id) among
     the candidates hashing there, and the max flag over candidates achieving
     it. Empty slots are (INT32_MAX, KEY_SENTINEL, INT32_MAX, 0). ``p`` is
-    None when ``prio`` is None."""
+    None when ``prio`` is None.
+
+    ``row_ids``: (n,) vertex ids of the table rows, where row r is not
+    vertex r (the streaming frontier tables: row f is vertex frontier[f]);
+    the self-loop guard then compares a candidate with ``row_ids[row]``."""
     rows = rows.reshape(-1).long()
     ids = ids.reshape(-1).int()
     dist = dist.reshape(-1)
     flag = flag.reshape(-1)
     dev = ids.device
-    valid = (ids >= 0) & (rows >= 0) & (rows < n) & (ids != rows) & ~torch.isnan(dist)
+    self_of_row = rows if row_ids is None else row_ids[rows.clamp(0, n - 1)]
+    valid = (ids >= 0) & (rows >= 0) & (rows < n) & (ids != self_of_row) \
+        & ~torch.isnan(dist)
     slot = _bucket_slots(ids, n_buckets)
     key = dist_key(dist)
     size = (n + 1) * n_buckets            # row n collects the dropped entries
@@ -312,11 +319,13 @@ def decode_bucket_tables(k_tab, i_tab, f_tab):
 
 
 def bucket_scatter(rows, ids, dist, flag, n: int, n_buckets: int,
-                   prio: torch.Tensor | None = None):
+                   prio: torch.Tensor | None = None,
+                   row_ids: torch.Tensor | None = None):
     """Scatter a flat edge list into per-row hashed buckets -> (ids, dist,
-    flag), each (n, n_buckets); empty slots are (-1, +inf, OLD)."""
+    flag), each (n, n_buckets); empty slots are (-1, +inf, OLD).
+    ``row_ids`` as in :func:`bucket_scatter_tables`."""
     _, k_tab, i_tab, f_tab = bucket_scatter_tables(rows, ids, dist, flag, n,
-                                                   n_buckets, prio=prio)
+                                                   n_buckets, prio=prio, row_ids=row_ids)
     return decode_bucket_tables(k_tab, i_tab, f_tab)
 
 

@@ -189,6 +189,18 @@ def _validate_entry_points(entry_points, b: int, l: int,
     raise ValueError(f"entry_points must be scalar, (B,) or (B, E); got ndim={eps.dim()}")
 
 
+def _check_valid(valid, x: torch.Tensor) -> torch.Tensor | None:
+    """The (n,) tombstone mask as a bool tensor on x's device (None passes)."""
+    if valid is None:
+        return None
+    valid = torch.as_tensor(valid, device=x.device).bool()
+    if tuple(valid.shape) != (x.shape[0],):
+        raise ValueError(
+            f"valid has shape {tuple(valid.shape)} but the corpus has {x.shape[0]} "
+            "rows: pass one bool per row")
+    return valid
+
+
 # -------------------------------------------------------------------- core
 def _merge_smallest(d: torch.Tensor, l: int, *others: torch.Tensor):
     """The ``l`` smallest of each row, ascending, ties toward the lower index
@@ -212,9 +224,11 @@ def _check_codes(cfg: SearchConfig, qx: QuantizedCorpus | None) -> str | None:
 def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
                  eps: torch.Tensor, cfg: SearchConfig,
                  lane_valid: torch.Tensor | None = None,
-                 qx: QuantizedCorpus | None = None):
+                 qx: QuantizedCorpus | None = None,
+                 valid: torch.Tensor | None = None):
     """Returns (ids, dists, work, iters): results, per-lane expansion counts
-    and the executed iteration count (a 0-d device tensor)."""
+    and the executed iteration count (a 0-d device tensor). ``valid`` (n,)
+    bool: vertices marked False are traversed but never returned."""
     n = x.shape[0]
     b = queries.shape[0]
     e = eps.shape[1]
@@ -307,26 +321,39 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
             torch.cat([expanded, ~fresh], dim=1))
         go = (~done).any()
     rerank = min(cfg.quant.rerank_k, cfg.l) if qmode else 0
+    ok = beam_ids >= 0
+    if valid is not None:
+        ok &= valid[beam_ids.clamp(min=0).long()]
     if rerank:
-        # exact-f32 rerank tail: re-score the best `rerank` beam entries
-        # against x, then take the top-k of the exact distances (-1/+inf pad)
-        q_d, rids = _merge_smallest(torch.where(beam_ids >= 0, beam_d, inf), rerank,
-                                    beam_ids)
+        # exact-f32 rerank tail: re-score the best `rerank` (unmasked) beam
+        # entries against x, then take the top-k of the exact distances
+        # (-1/+inf pad)
+        q_d, rids = _merge_smallest(torch.where(ok, beam_d, inf), rerank, beam_ids)
         exact = score_block(x[rids.clamp(min=0).long()], queries, cfg.metric)
         exact = torch.where(q_d < inf, exact, inf)
         out_d, out_ids = _merge_smallest(exact, cfg.topk, rids)
         return torch.where(out_d < inf, out_ids, -1), out_d, work, iters
-    return beam_ids[:, :cfg.topk], beam_d[:, :cfg.topk], work, iters
+    # masked vertices (tombstones, capacity padding) were traversed like any
+    # other but never surface: demote them to (+inf, -1) and re-rank. Without
+    # a mask this is the beam's own head; lanes reaching fewer than topk
+    # valid vertices pad with (-1, +inf).
+    out_d, out_ids = _merge_smallest(torch.where(ok, beam_d, inf), cfg.topk, beam_ids)
+    return torch.where(out_d < inf, out_ids, -1), out_d, work, iters
 
 
 def search(x: torch.Tensor, g: G.Graph, queries: torch.Tensor, entry_points,
-           cfg: SearchConfig, qx: QuantizedCorpus | None = None):
+           cfg: SearchConfig, qx: QuantizedCorpus | None = None,
+           valid: torch.Tensor | None = None):
     """Returns (ids, dists) of shape (B, topk), ascending distance.
     ``entry_points``: scalar | (B,) | (B, E). ``qx``: the encoded corpus
     (``repro_torch.quant.encode_corpus``), required when ``cfg.quant`` is
-    int8/pq; ``x`` is then read only by the rerank tail."""
+    int8/pq; ``x`` is then read only by the rerank tail. ``valid``: optional
+    (n,) bool mask; vertices marked False (tombstones, capacity padding) are
+    traversed but never returned, and lanes reaching fewer than topk valid
+    vertices pad with (-1, +inf)."""
     eps = _validate_entry_points(entry_points, queries.shape[0], cfg.l, queries.device)
-    ids, dists, _, _ = _search_impl(x, g, queries, eps, cfg, qx=qx)
+    ids, dists, _, _ = _search_impl(x, g, queries, eps, cfg, qx=qx,
+                                    valid=_check_valid(valid, x))
     return ids, dists
 
 
@@ -334,7 +361,8 @@ def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
                  tile_b: int = 256, with_stats: bool = False,
                  lane_valid: torch.Tensor | None = None,
                  device: str | torch.device = "cuda",
-                 qx: QuantizedCorpus | None = None):
+                 qx: QuantizedCorpus | None = None,
+                 valid: torch.Tensor | None = None):
     """Stream an arbitrary query count through ``tile_b``-lane tiles; only
     one tile's search state is alive at a time. Results equal :func:`search`.
 
@@ -342,12 +370,14 @@ def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
     on ``device``. The last tile is padded to ``tile_b`` lanes that start
     retired. ``lane_valid`` (B,) bool retires the lanes marked False at
     iteration 0 (their rows are unspecified). ``qx``: the encoded corpus for
-    a coded ``cfg.quant`` (see :func:`search`). ``with_stats`` also returns
+    a coded ``cfg.quant`` and ``valid``, the (n,) tombstone mask (see
+    :func:`search`). ``with_stats`` also returns
     {"work": lane-iterations expanded, "launched": iterations executed x
     lanes launched, "tiles", "tile_lanes"}."""
     x = as_tensor(x, device, torch.float32)
     queries = as_tensor(queries, x.device, torch.float32)
     _check_codes(cfg, qx)
+    valid = _check_valid(valid, x)
     b = queries.shape[0]
     eps = _validate_entry_points(entry_points, b, cfg.l, x.device)
     if lane_valid is not None and tuple(lane_valid.shape) != (b,):
@@ -365,7 +395,7 @@ def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
     ids, dists, work, iters = [], [], [], []
     for s in range(0, b + pad, tile_b):
         out = _search_impl(x, g, queries[s:s + tile_b], eps[s:s + tile_b], cfg,
-                           lane_valid=lv[s:s + tile_b], qx=qx)
+                           lane_valid=lv[s:s + tile_b], qx=qx, valid=valid)
         for acc, val in zip((ids, dists, work, iters), out):
             acc.append(val)
     if ids:
@@ -384,26 +414,45 @@ def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
     return ids, dists, stats
 
 
-def default_entry_point(x: torch.Tensor, metric: str = "l2") -> torch.Tensor:
-    """NSG-style navigating node: the vertex nearest the dataset centroid."""
-    c = x.mean(dim=0)
-    return torch.argmin(D.point_to_points(c, x, metric)).to(torch.int32)
+def default_entry_point(x: torch.Tensor, metric: str = "l2",
+                        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """NSG-style navigating node: the vertex nearest the dataset centroid.
+    ``valid``: optional (n,) bool mask; the centroid is then taken over the
+    live rows and the seed is a live row (a capacity-padded store's zero
+    rows are often centroid-nearest)."""
+    if valid is None:
+        c = x.mean(dim=0)
+        return torch.argmin(D.point_to_points(c, x, metric)).to(torch.int32)
+    w = valid.to(x.dtype)
+    c = (w @ x) / w.sum().clamp(min=1.0)          # a mat-vec: no (n, d) temporary
+    d = torch.where(valid, D.point_to_points(c, x, metric), float("inf"))
+    return torch.argmin(d).to(torch.int32)
 
 
 def default_entry_points(x: torch.Tensor, n_entries: int = 1, metric: str = "l2",
-                         generator: torch.Generator | None = None) -> torch.Tensor:
+                         generator: torch.Generator | None = None,
+                         valid: torch.Tensor | None = None) -> torch.Tensor:
     """(E,) seed set: the centroid-nearest vertex plus ``n_entries - 1``
-    distinct random vertices (torch's random numbers, not JAX's)."""
+    distinct random vertices (torch's random numbers, not JAX's).
+    ``valid``: optional (n,) bool mask; every seed is then a live row. The
+    draw is the unmasked one with masked rows skipped, so an all-true mask
+    gives the unmasked seeds; with fewer live rows than ``n_entries`` the
+    tail repeats the centroid seed (duplicate seeds within a lane are
+    inert)."""
     n = x.shape[0]
     if n_entries > n:
         raise ValueError(
             f"n_entries={n_entries} exceeds the corpus size n={n}: "
             "entry points are distinct vertices, so at most n can be drawn")
-    center = default_entry_point(x, metric)
+    center = default_entry_point(x, metric, valid=valid)
     if n_entries <= 1:
         return center[None]
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
-    extra = torch.randperm(n - 1, generator=generator, device=x.device)[:n_entries - 1]
-    extra = (extra + (extra >= center).long()).to(torch.int32)
+    perm = torch.randperm(n - 1, generator=generator, device=x.device)
+    # every row but the centre, in the draw's order; live rows first
+    order = perm + (perm >= center).long()
+    live = torch.ones_like(order, dtype=torch.bool) if valid is None else valid[order]
+    first = torch.sort((~live).int(), stable=True).indices[:n_entries - 1]
+    extra = torch.where(live[first], order[first], center.long()).to(torch.int32)
     return torch.cat([center[None], extra])

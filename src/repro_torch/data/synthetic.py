@@ -37,6 +37,26 @@ class VectorDatasetSpec:
         return VectorDatasetSpec("deep-like", n, 96, n_queries)
 
 
+def mixture_centers(spec: VectorDatasetSpec, generator: torch.Generator | None = None,
+                    device: str | torch.device = "cuda") -> torch.Tensor:
+    """The (n_clusters, d) mixture centres: the first draw
+    :func:`clustered_vectors` makes from ``generator`` (None seeds one with
+    0), so a generator seeded as the corpus's gives the corpus's centres."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    return torch.randn((spec.n_clusters, spec.d), generator=gen, device=dev)
+
+
+def mixture_rows(centers: torch.Tensor, n: int, generator: torch.Generator,
+                 cluster_std: float = 1.0) -> torch.Tensor:
+    """``n`` more rows of the mixture around ``centers`` (assignments, then
+    noise, from ``generator``, which lives on the centres' device)."""
+    k, d = centers.shape
+    pick = torch.randint(0, k, (n,), generator=generator, device=centers.device)
+    noise = torch.randn((n, d), generator=generator, device=centers.device)
+    return (centers[pick] + cluster_std * noise).float()
+
+
 def clustered_vectors(spec: VectorDatasetSpec, generator: torch.Generator | None = None,
                       device: str | torch.device = "cuda"):
     """Gaussian-mixture corpus + held-out queries from the same mixture,
@@ -44,18 +64,9 @@ def clustered_vectors(spec: VectorDatasetSpec, generator: torch.Generator | None
     0). Returns (x (n, d), queries (n_queries, d)), float32."""
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
-
-    def normal(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
-    def randint(high, size):
-        return torch.randint(0, high, (size,), generator=gen, device=dev)
-
-    centers = normal(spec.n_clusters, spec.d)
-    x = centers[randint(spec.n_clusters, spec.n)] + spec.cluster_std * normal(spec.n, spec.d)
-    q = centers[randint(spec.n_clusters, spec.n_queries)] \
-        + spec.cluster_std * normal(spec.n_queries, spec.d)
-    return x.float(), q.float()
+    centers = mixture_centers(spec, gen, dev)
+    return (mixture_rows(centers, spec.n, gen, spec.cluster_std),
+            mixture_rows(centers, spec.n_queries, gen, spec.cluster_std))
 
 
 def recsys_batch(generator: torch.Generator, batch: int, n_fields: int,

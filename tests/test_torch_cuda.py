@@ -665,3 +665,107 @@ def test_score_candidates_ties_on_the_card(dev):
     top, idx = rs.score_candidates(q, cand, k=100)
     ctop, cidx = rs.score_candidates(q.cpu(), cand.cpu(), k=100)
     assert torch.equal(idx.cpu(), cidx) and torch.equal(top.cpu(), ctop)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("m", [50, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("layout", ["sentinel tail", "scattered", "all empty"])
+def test_rng_prune_on_frontier_blocks(dev, layout, metric, m, integer):
+    """The streaming sweeps' prune input: a block of frontier rows, most of
+    them sentinel rows (all -1: extent 0), the rest of every extent up to M
+    (tests/_ragged.py, with holes); the live rows first and the sentinel
+    tail after them, as the sorted frontier lays them out, or scattered, or
+    none live. One launch; integer-valued: bit for bit the plain version,
+    else its agreement limits; a sentinel row keeps nothing and redirects
+    nothing."""
+    import numpy as np
+    from _ragged import ragged_rows
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.rng_prune import ops as R
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n, d = 3000, 64
+    xv = (torch.randint(-8, 9, (n, d), generator=gen, device=dev).float() if integer
+          else torch.randn(n, d, generator=gen, device=dev))
+    planted, ids, dists, flags = (torch.from_numpy(a).to(dev) for a in
+                                  ragged_rows(xv.cpu().numpy(), m, 9, metric, repeats=4))
+    live = planted.shape[0] if layout != "all empty" else 0
+    f = 8 * planted.shape[0]
+    rows = {"sentinel tail": torch.arange(live, device=dev),
+            "scattered": torch.randperm(f, generator=gen, device=dev)[:live],
+            "all empty": torch.arange(0, device=dev)}[layout]
+
+    def block(src, fill, dtype):
+        out = torch.full((f, m), fill, dtype=dtype, device=dev)
+        out[rows] = src[:live]
+        return out
+    bp, bi = block(planted, -1, torch.int32), block(ids, -1, torch.int32)
+    bd, bf = block(dists, float("inf"), torch.float32), block(flags, 0, torch.uint8)
+    before = LAUNCHES["rng_prune"]
+    ker = R.rng_prune(xv, bp, bd, bf, metric)
+    ref = R.rng_prune_plain(xv, bi, bd, bf, metric)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rng_prune"] == before + 1
+    empty = (bi < 0).all(1)
+    assert not ker[0][empty].any() and (ker[1][empty] == -1).all()
+    assert torch.isinf(ker[2][empty]).all()
+    if integer:
+        for a, b in zip(ker, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        return
+    assert float((ker[0] == ref[0]).float().mean()) >= 0.999
+    assert float((ker[1] == ref[1]).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_streaming_on_the_card_equals_the_cpu_route(dev, metric, monkeypatch):
+    """StreamingANN over an integer corpus on the card and on the CPU route:
+    insert (growing the store), delete, insert, a masked search, compact
+    and its repair sweep give the same stores, slots, remap and results bit
+    for bit. The seeding search runs dense-visited on both routes (which
+    of two ids racing for one hashed slot wins differs between devices).
+    Each insert prunes twice (its sweeps), each delete and the repair sweep
+    once, all through rng_prune on the card."""
+    import dataclasses
+
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.core import graph as G
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.streaming import StreamingANN
+    from repro_torch.streaming import store as ST
+    from repro_torch.streaming import updates as U
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randint(-8, 9, (1600, 24), generator=gen).float()
+    cfg = U.StreamingConfig(
+        build=rd.RNNDescentConfig(s=8, r=16, t1=2, t2=3, capacity=24, chunk=128,
+                                  metric=metric),
+        seed_l=32, seed_k=12, seed_iters=64, batch_k=4, splice_k=6)
+    scfg = S.SearchConfig(l=32, k=16, max_iters=96, topk=10, metric=metric, visited="dense")
+    g0 = rd.build(x[:1200], cfg.build, torch.Generator().manual_seed(1))
+    orig = U.StreamingConfig.seed_search_cfg
+    monkeypatch.setattr(U.StreamingConfig, "seed_search_cfg",
+                        lambda self: dataclasses.replace(orig(self), visited="dense"))
+    out = {}
+    for where in ("cpu", "cuda"):
+        ann = StreamingANN(ST.from_built(x[:1200].to(where), G.Graph(*(t.to(where) for t in g0))),
+                           cfg)
+        reset_launches()
+        s1 = ann.insert(x[1200:1400].to(where))
+        ann.delete(torch.arange(100, 300))
+        s2 = ann.insert(x[1400:1600].to(where))
+        ids, dists = ann.search(x[1250:1450].to(where), scfg)
+        remap = ann.compact(repair_sweeps=1)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["rng_prune"] == 2 + 1 + 2 + 1 and LAUNCHES["beam_score"] > 0
+        out[where] = (s1, s2, remap, ids.cpu(), dists.cpu(),
+                      [leaf.cpu() for _, leaf in flatten(ann.store)])
+    for a, b in zip(out["cpu"][:3], out["cuda"][:3]):
+        assert (a == b).all()
+    for a, b in zip(out["cpu"][3:5], out["cuda"][3:5]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(out["cpu"][5], out["cuda"][5]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

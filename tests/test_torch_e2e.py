@@ -64,6 +64,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "want = {'repro_torch.checkpoint.checkpoint', 'repro_torch.streaming.store',\n"
+        "        'repro_torch.streaming.updates', 'repro_torch.streaming.index'}\n"
+        "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")

@@ -150,3 +150,74 @@ def test_evaluate_search_reports_recall(ref_graph):
     assert out["recall_topk"] == E.recall_topk(ids, gt)
     assert out["search_path"] == "plain" and out["qps"] > 0
     assert out["visited_bytes_per_tile"] == S.visited_state_bytes(cfg, 400, 8)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_ground_truth_valid_mask_matches_reference(metric):
+    """A random tombstone mask, an all-true mask (equal to no mask) and a
+    mask with fewer than k valid rows (the tail pads with (+inf, -1)), on an
+    integer corpus: ids and distances bit for bit."""
+    x, q = _ints(11, (300, 12)), _ints(12, (37, 12))
+    rng = np.random.default_rng(13)
+    few = np.zeros(300, bool)
+    few[[4, 90, 200]] = True
+    masks = {"random": rng.random(300) < 0.6, "all": np.ones(300, bool), "few": few}
+    for name, valid in masks.items():
+        rd_, ri = RE.ground_truth(jnp.asarray(x), jnp.asarray(q), k=10, metric=metric,
+                                  tile=16, valid=jnp.asarray(valid))
+        d, i = E.ground_truth(torch.from_numpy(x), torch.from_numpy(q), k=10, metric=metric,
+                              tile=16, valid=torch.from_numpy(valid))
+        assert i.dtype == torch.int32
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ri), err_msg=name)
+        np.testing.assert_array_equal(d.numpy(), np.asarray(rd_), err_msg=name)
+    assert (i[:, 3:] == -1).all() and torch.isinf(d[:, 3:]).all()
+    d0, i0 = E.ground_truth(torch.from_numpy(x), torch.from_numpy(q), k=10, metric=metric,
+                            tile=16)
+    d1, i1 = E.ground_truth(torch.from_numpy(x), torch.from_numpy(q), k=10, metric=metric,
+                            tile=16, valid=torch.ones(300, dtype=torch.bool))
+    assert torch.equal(i0, i1) and torch.equal(d0, d1)
+
+
+def test_recall_topk_valid_mask_matches_reference():
+    """The reference's masked semantics (a masked gt column leaves the
+    denominator, a masked prediction never hits, a query with no valid gt
+    column drops out), its unit case, and an all-true mask."""
+    valid = np.array([True, True, False, True])
+    gt = np.array([[0, 2, 3]], np.int32)
+    for pred, want in (([[0, 3, 1]], 1.0), ([[0, 2, 2]], 0.5)):
+        p = np.array(pred, np.int32)
+        assert E.recall_topk(torch.from_numpy(p), torch.from_numpy(gt),
+                             valid=torch.from_numpy(valid)) == want
+        assert RE.recall_topk(jnp.asarray(p), jnp.asarray(gt), valid=jnp.asarray(valid)) == want
+    rng = np.random.default_rng(14)
+    gt = rng.integers(-1, 200, (40, 10)).astype(np.int32)
+    pred = np.where(rng.random((40, 10)) < 0.5, gt, rng.integers(-1, 200, (40, 10))).astype(np.int32)
+    valid = rng.random(200) < 0.7
+    valid_none = np.zeros(200, bool)
+    for v in (valid, np.ones(200, bool), valid_none):
+        want = RE.recall_topk(jnp.asarray(pred), jnp.asarray(gt), valid=jnp.asarray(v))
+        got = E.recall_topk(torch.from_numpy(pred), torch.from_numpy(gt), valid=torch.from_numpy(v))
+        assert got == pytest.approx(want, abs=1e-6)
+
+
+def test_evaluate_search_valid_mask(ref_graph):
+    """evaluate_search(valid=) seeds from live rows, masks the results and
+    scores them with the masked recall, as the reference does: the same
+    recall on the reference's graph (dense visited, so exact)."""
+    x, g = ref_graph
+    from repro.core import search as RS
+    from repro_torch.core import search as S
+    q = _ints(15, (20, 16))
+    valid = np.random.default_rng(16).random(400) < 0.7
+    xt, qt, vt = torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(valid)
+    _, gt = E.ground_truth(xt, qt, k=5, valid=vt)
+    _, rgt = RE.ground_truth(jnp.asarray(x), jnp.asarray(q), k=5, valid=jnp.asarray(valid))
+    np.testing.assert_array_equal(gt.numpy(), np.asarray(rgt))
+    pg = convert.graph_from_numpy(*(np.asarray(a) for a in g), device="cpu")
+    kw = dict(l=32, k=16, max_iters=64, topk=5, visited="dense")
+    out = E.evaluate_search(xt, pg, qt, gt, S.SearchConfig(**kw), tile_b=8, repeats=1,
+                            valid=vt)
+    ref = RE.evaluate_search(jnp.asarray(x), g, jnp.asarray(q), rgt, RS.SearchConfig(**kw),
+                             tile_b=8, repeats=1, valid=jnp.asarray(valid))
+    assert out["recall_topk"] == pytest.approx(ref["recall_topk"], abs=1e-6)
+    assert out["recall_at_1"] == pytest.approx(ref["recall_at_1"], abs=1e-6)

@@ -170,3 +170,30 @@ def test_coded_build_search_recall_matches_reference(small_dataset, mode):
     assert abs(r - r_ref) <= 0.02, (r, r_ref)
     assert (ids >= 0).all() and (torch.diff(dists, dim=1) >= 0).all()
     assert all(len(set(row.tolist())) == row.numel() for row in ids)
+
+
+@pytest.mark.parametrize("rerank_k", [64, 0])
+@pytest.mark.parametrize("mode", ["int8", "pq"])
+def test_coded_search_valid_mask_matches_reference(coded_index, mode, rerank_k):
+    """The tombstone mask in the coded tails (the rerank's, and the plain
+    one without rerank): masked ids leave the rerank window and never
+    surface; bit for bit the reference; an all-true mask equals no mask."""
+    x, q, graphs, qx = coded_index
+    g, eps = graphs["l2"]
+    rcfg, pcfg = _cfgs(mode, "l2", rerank_k)
+    pg = convert.graph_from_numpy(*(np.asarray(a) for a in g), device="cpu")
+    pqx = convert.quantized_from_numpy(qx[mode], device="cpu")
+    xt, qt, et = (torch.from_numpy(a) for a in (x, q, eps))
+    valid = np.random.default_rng(21).random(x.shape[0]) < 0.6
+    rids, rdist = RS.search_tiled(jnp.asarray(x), g, jnp.asarray(q), jnp.asarray(eps), rcfg,
+                                  tile_b=32, qx=qx[mode], valid=jnp.asarray(valid))
+    ids, dist = S.search_tiled(xt, pg, qt, et, pcfg, tile_b=32, qx=pqx,
+                               valid=torch.from_numpy(valid))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(rids))
+    np.testing.assert_array_equal(dist.numpy(), np.asarray(rdist))
+    got = ids.numpy()
+    assert not np.isin(got[got >= 0], np.flatnonzero(~valid)).any()
+    base = S.search_tiled(xt, pg, qt, et, pcfg, tile_b=32, qx=pqx)
+    full = S.search_tiled(xt, pg, qt, et, pcfg, tile_b=32, qx=pqx,
+                          valid=torch.ones(x.shape[0], dtype=torch.bool))
+    assert all(torch.equal(a, b) for a, b in zip(base, full))

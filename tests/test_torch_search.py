@@ -237,3 +237,81 @@ def test_probe_slots_match_reference():
     np.testing.assert_array_equal(S._probe_slots(torch.from_numpy(ids), 1024, 8).numpy(), ref)
     assert S.resolve_slots(S.SearchConfig(l=64, k=64), 1) == \
         RS.resolve_slots(RS.SearchConfig(l=64, k=64), 1)
+
+
+def _masks(n, q_top1):
+    """Tombstone masks: random, every query's unmasked top-1 masked (so the
+    runner-up must surface), all true (equal to no mask), none true."""
+    rng = np.random.default_rng(9)
+    top1 = np.ones(n, bool)
+    top1[q_top1] = False
+    return {"random": rng.random(n) < 0.7, "top1": top1, "all": np.ones(n, bool),
+            "none": np.zeros(n, bool)}
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_valid_mask_search_matches_reference(int_index, metric):
+    """Dense search with a tombstone mask, on the integer index: ids and
+    distances bit for bit for every mask; an all-true mask equals no mask
+    bit for bit, an all-false one returns (-1, +inf) everywhere, and no
+    masked id ever surfaces."""
+    x, q, graphs = int_index
+    g, eps = graphs[metric]
+    eps_b = np.broadcast_to(eps[None], (q.shape[0], eps.shape[0])).copy()
+    kw = dict(l=16, k=12, max_iters=48, topk=5, metric=metric, visited="dense")
+    pg = convert.graph_from_numpy(*(np.asarray(a) for a in g), device="cpu")
+    xt, qt, et = torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(eps_b)
+    pcfg = S.SearchConfig(**kw)
+    ids0, d0 = S.search_tiled(xt, pg, qt, et, pcfg, tile_b=32)
+    for name, valid in _masks(x.shape[0], ids0[:, 0].numpy()).items():
+        rids, rdist = RS.search_tiled(jnp.asarray(x), g, jnp.asarray(q), jnp.asarray(eps_b),
+                                      RS.SearchConfig(**kw), tile_b=32,
+                                      valid=jnp.asarray(valid))
+        ids, dist = S.search_tiled(xt, pg, qt, et, pcfg, tile_b=32,
+                                   valid=torch.from_numpy(valid))
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(rids), err_msg=name)
+        np.testing.assert_array_equal(dist.numpy(), np.asarray(rdist), err_msg=name)
+        got = ids.numpy()
+        assert not np.isin(got[got >= 0], np.flatnonzero(~valid)).any()
+        one, _ = S.search(xt, pg, qt, et, pcfg, valid=torch.from_numpy(valid))
+        assert torch.equal(one, ids)
+        if name == "all":
+            assert torch.equal(ids, ids0) and torch.equal(dist, d0)
+        if name == "none":
+            assert (ids == -1).all() and torch.isinf(dist).all()
+    with pytest.raises(ValueError, match="valid"):
+        S.search_tiled(xt, pg, qt, et, pcfg, valid=torch.ones(5, dtype=torch.bool))
+
+
+def test_default_entry_points_valid_mask(int_index):
+    """Over a capacity-padded corpus (zero rows, which sit at the centroid)
+    the masked centroid seed matches the reference and is live; masked
+    random seeds are live and distinct (the port's generator, not JAX's);
+    an all-true mask gives the unmasked seeds bit for bit; with fewer live
+    rows than seeds the tail repeats the centroid seed."""
+    x, _, _ = int_index
+    n = x.shape[0]
+    xp = np.concatenate([x, np.zeros((100, x.shape[1]), np.float32)])
+    xt = torch.from_numpy(xp)
+    valid = np.arange(n + 100) < n
+    tomb = valid & (np.arange(n + 100) >= 10)
+    for metric in ("l2", "ip", "cos"):
+        for v in (valid, tomb):
+            want = int(RS.default_entry_point(jnp.asarray(xp), metric, valid=jnp.asarray(v)))
+            got = int(S.default_entry_point(xt, metric, valid=torch.from_numpy(v)))
+            assert got == want and v[got]
+    assert int(S.default_entry_point(xt)) >= n          # unmasked: a zero row wins
+    ones = torch.ones(n + 100, dtype=torch.bool)
+    assert int(S.default_entry_point(xt, valid=ones)) == int(S.default_entry_point(xt))
+    for v in (valid, tomb):
+        eps = S.default_entry_points(xt, 8, generator=torch.Generator().manual_seed(3),
+                                     valid=torch.from_numpy(v)).numpy()
+        assert eps.shape == (8,) and len(set(eps.tolist())) == 8 and v[eps].all()
+    for e in (1, 5):
+        a = S.default_entry_points(xt, e, generator=torch.Generator().manual_seed(4))
+        b = S.default_entry_points(xt, e, generator=torch.Generator().manual_seed(4), valid=ones)
+        assert torch.equal(a, b)
+    tiny = np.zeros(n + 100, bool)
+    tiny[[7, 12]] = True
+    eps3 = S.default_entry_points(xt, 4, valid=torch.from_numpy(tiny)).numpy()
+    assert set(eps3.tolist()) == {7, 12}
