@@ -30,6 +30,19 @@ Phases (any failure raises and exits non-zero):
      reference's bar, recall_stream >= recall_rebuild - 0.02), f32 against
      the JAX package's recall_stream on the same pool, the routes within
      0.01, no deleted id in a result, every inserted point its own nearest;
+  3c. the serving front end at the medium configuration
+     (benchmarks/bench_serving.py's non-smoke grid): numpy_mixture's pool
+     built on its first 15,384 rows, CHURN_SEARCH, tiles of 64 lanes, write
+     batches of 32; for f32, int8 and PQ codes, one open-loop session
+     through the kernels and one through the plain versions (warm-up, the
+     capacity probe, 640 Poisson requests at 0.6 x the probed capacity with
+     a 0.2 s budget, 8 churn events of one insert and one delete batch):
+     p50/p95/p99, QPS, deadline hit rate, occupancy, staleness; no kernel
+     built in the session, every request served, the rows written, no
+     result holding a row deleted before its tile's dispatch, recall after
+     >= recall before - 0.05, the routes within 0.01, f32 within 0.03 of the
+     JAX package's (scripts/reference_medium.py serve); then 512 requests
+     with dense visited at tiles of 64 and 7 lanes, equal bit for bit;
   4. main path at full size (n = 1M, d = 128, FULL; 10k queries; hashed
      search_tiled): launch counts are zeroed just before and read just after,
      and every kernel must have launched; each sweep's prune time stands
@@ -63,6 +76,14 @@ Phases (any failure raises and exits non-zero):
      rng_prune on the first insert's frontier block (25,600 rows, the
      sentinel ones empty), held and timed as in phase 5, and timed on its
      live rows alone;
+  5c. the serving front end over the main path's corpus and graph (capacity
+     2^20, StreamingConfig() with the FULL build, the knobs of 3c): 4,096
+     requests from the first 1,000 queries with 16 churn events (512
+     points of the corpus's mixture in, 512 original rows out), launch
+     counts zeroed just before and read just after, peak memory and the
+     allocator's segments added; the checks of 3c but the routes' and the
+     JAX package's; then 512 more requests (2 churn events) under
+     torch.profiler for the device's idle share;
   6. builders at 1M on the path's corpus, queries and search: RNN-Descent
      (the path's own lines), NN-Descent and NSG-style on that NN-Descent
      graph (nsg_style.build is that build and the refine, so NSG's build
@@ -147,7 +168,9 @@ REF_MEDIUM = {"f32": {"recall_at_10": 0.998, "avg_out_degree": 12.5},
               "nsg-style": {"recall_at_10": 0.7396, "recall_at_1": 0.74,
                             "avg_out_degree": 14.2975, "connectivity": 0.9996},
               # scripts/reference_medium.py churn: medium_streaming's schedule
-              "churn": {"recall_stream": 0.9908, "recall_rebuild": 0.9944}}
+              "churn": {"recall_stream": 0.9908, "recall_rebuild": 0.9944},
+              # scripts/reference_medium.py serve: medium_serving's f32 session
+              "serve": {"recall_before": 0.9898, "recall_after": 0.9900}}
 QUANT_KW = {"int8": {"mode": "int8", "rerank_k": 64},
             "pq": {"mode": "pq", "m": 32, "rerank_k": 64}}
 # the kernels each corpus mode's path must launch (and no other)
@@ -532,6 +555,36 @@ def churn_schedule(n: int):
                 ("del", np.arange(n0 // 10, n0 // 10 + n0 // 8)))
 
 
+# benchmarks/bench_serving.py's non-smoke grid: tile width, write batch,
+# requests and churn events a session, the per-request budget, and the
+# offered load as a share of the probed capacity
+SERVE_TILE, SERVE_WB, SERVE_REQ, SERVE_EVENTS = 64, 32, 640, 8
+SERVE_DEADLINE, SERVE_LOAD = 0.2, 0.6
+
+
+def serving_script(n0: int, wb: int, n_events: int, n_req: int, first: int = 0):
+    """``benchmarks/bench_serving.py``'s churn over a store of ``n0``
+    original rows and a pool of new points: two warm-up rounds (insert pool
+    rows [r wb, (r+1) wb), delete ids [n0 - (r+1) wb, n0 - r wb)), then for
+    events e = first, ..., first + n_events - 1 one insert batch (pool rows
+    [(e+2) wb, (e+3) wb)) and one delete batch (ids [n0 - (e+3) wb,
+    n0 - (e+2) wb)), submitted with request (e - first + 1) n_req //
+    (n_events + 1). Returns (warm-up ((op, pool slice or ids), ...), writes
+    [(after request, "insert" | "delete", pool slice or ids), ...]); ids are
+    int64 numpy arrays."""
+    import numpy as np
+    warm = []
+    for r in range(2):
+        warm += [("ins", slice(wb * r, wb * (r + 1))),
+                 ("del", np.arange(n0 - wb * (r + 1), n0 - wb * r))]
+    writes = []
+    for e in range(first, first + n_events):
+        after = (e - first + 1) * n_req // (n_events + 1)
+        writes += [(after, "insert", slice(wb * (e + 2), wb * (e + 3))),
+                   (after, "delete", np.arange(n0 - wb * (e + 3), n0 - wb * (e + 2)))]
+    return warm, writes
+
+
 def search_graph(x, q, g, gt, tile_b: int) -> dict:
     """A builder's graph served as the path serves RNN-Descent's (hashed
     search_tiled, L = K = 64, top-10, from the default entry point): recall,
@@ -816,6 +869,275 @@ def medium_streaming():
     return out
 
 
+# ------------------------------------------------------------- the serving front end
+class ManualClock:
+    """A clock that moves only when told (replays independent of timing)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def serving_frontend(ann, scfg, tile_lanes: int = SERVE_TILE, clock=time.perf_counter):
+    from repro_torch.serving import (AdmissionConfig, ServingConfig, ServingFrontend,
+                                     WriterConfig)
+    return ServingFrontend(ann, ServingConfig(
+        admission=AdmissionConfig(tile_lanes=tile_lanes),
+        writer=WriterConfig(insert_batch=SERVE_WB, delete_batch=SERVE_WB), search=scfg),
+        clock=clock)
+
+
+def live_recall(ann, q, scfg) -> float:
+    """recall@10 of ``ann.search`` over the store's live rows."""
+    from repro_torch.core import eval as E
+    from repro_torch.streaming import store as ST
+    st = ann.store
+    valid = ST.active_mask(st)
+    _, gt = E.ground_truth(st.x, q, k=10, valid=valid)
+    return E.recall_topk(ann.search(q, scfg)[0], gt, valid=valid)
+
+
+def serve_coalesced(ann, q_np, scfg, tile_lanes: int, n: int = 512) -> list:
+    """``n`` requests (row i % nq) served under a manual clock that moves 1 ms
+    a request, pumped after each: every request's (ids, dists)."""
+    clock = ManualClock()
+    fe = serving_frontend(ann, scfg, tile_lanes, clock)
+    rids = []
+    for i in range(n):
+        rids.append(fe.submit(q_np[i % q_np.shape[0]], deadline_s=SERVE_DEADLINE))
+        clock.t += 1e-3
+        fe.pump()
+    fe.drain()
+    return [fe.result(r) for r in rids]
+
+
+@contextlib.contextmanager
+def no_kernel_builds():
+    """Count ``_build.build_all`` calls (the only place nvcc runs) and the
+    loaded kernel libraries while the block runs: yields {"nvcc_runs",
+    "libs_added"} filled in on exit."""
+    from repro_torch.kernels import _build
+    out, orig, libs = {"nvcc_runs": 0}, _build.build_all, len(_build._LIBS)
+
+    def counted(*a, **kw):
+        out["nvcc_runs"] += 1
+        return orig(*a, **kw)
+    _build.build_all = counted
+    try:
+        yield out
+    finally:
+        _build.build_all = orig
+        out["libs_added"] = len(_build._LIBS) - libs
+
+
+def serving_session(ann, q_np, scfg, pool, n0: int, n_req: int, n_events: int,
+                    trace_requests: int = 0) -> dict:
+    """``benchmarks/bench_serving.py``'s session on ``ann`` (grown so no
+    growth lands mid-session): recall@10 over the live rows, the warm-up (a
+    full tile, an insert and a delete batch, then a timed second round and
+    the entry-point refresh), the capacity probe (best of 3 full tiles), then
+    ``n_req`` Poisson requests at SERVE_LOAD x the probed capacity with
+    ``n_events`` churn events, launch counts zeroed just before and read just
+    after, and recall@10 again. ``pool``: (>= wb (n_events + 2 + trace
+    events), d) numpy rows to insert; deletes take original rows below
+    ``n0``. With ``trace_requests``, a second session of that many requests
+    (2 more churn events) runs under torch.profiler for the device's idle
+    share. Checks: no kernel build, every request completed, the rows
+    written, no result holding a row deleted at or before its tile's
+    dispatch epoch, every result id an occupied row."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import search as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import LoadSpec, run_session
+    from repro_torch.streaming import store as ST
+    wb, lanes = SERVE_WB, SERVE_TILE
+    q = torch.from_numpy(q_np).to(ann.store.x.device)
+    res = {"recall_before": live_recall(ann, q, scfg)}
+    warm, writes = serving_script(n0, wb, n_events, n_req)
+
+    def tile(st, eps):
+        return ann.search(q[:lanes], scfg, entry_points=eps, tile_b=lanes,
+                          lane_valid=torch.ones(lanes, dtype=torch.bool, device=q.device),
+                          store=st)
+    _, st = ann.snapshot()
+    tile(st, S.default_entry_point(st.x, scfg.metric, valid=ST.active_mask(st)))
+    for i, (op, arg) in enumerate(warm):     # the second round is timed
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if op == "ins":
+            ann.insert(pool[arg])
+        else:
+            ann.delete(arg)
+    torch.cuda.synchronize()
+    res["commit_ms"] = 1e3 * (time.perf_counter() - t0) / 2
+    _, st = ann.snapshot()
+    eps = S.default_entry_point(st.x, scfg.metric, valid=ST.active_mask(st))
+    t_tile = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tile(st, eps)
+        torch.cuda.synchronize()
+        t_tile = min(t_tile, time.perf_counter() - t0)
+    busy = (n_req / lanes) * t_tile + 2 * n_events * res["commit_ms"] / 1e3
+    offered = max(50.0, SERVE_LOAD * n_req / busy)
+    res.update({"tile_ms": 1e3 * t_tile, "offered_qps": offered})
+
+    def run(n, events, spec_seed):
+        fe = serving_frontend(ann, scfg)
+        disp_epoch, record = {}, fe.telemetry.record_dispatch
+
+        def stamped(rids, t, **kw):
+            disp_epoch.update((r, kw["epoch"]) for r in rids)
+            return record(rids, t, **kw)
+        fe.telemetry.record_dispatch = stamped
+        epoch0 = ann.epoch
+        gone = np.where(ann.store.tombstone.cpu().numpy(), epoch0, np.iinfo(np.int64).max)
+        summ = run_session(fe, q_np, LoadSpec(n_requests=n, qps=offered,
+                                              deadline_s=SERVE_DEADLINE, seed=spec_seed),
+                           writes=[(a, k, pool[v] if k == "insert" else v)
+                                   for a, k, v in events])
+        # delete batch j committed the j-th delete event's ids (full batches, FIFO)
+        del_epochs = [c["epoch"] for c in fe.telemetry._commits if c["kind"] == "delete"]
+        for ids, ep in zip([v for _, k, v in events if k == "delete"], del_epochs):
+            gone[ids] = ep
+        occupied = ann.store.occupied.cpu().numpy()
+        bad = dead = 0
+        for rid in summ["rids"]:
+            ids, dists = fe.result(rid)
+            live = ids[ids >= 0]
+            dead += int((gone[live] <= disp_epoch[rid]).sum())
+            bad += int(ids.shape != (scfg.topk,) or not occupied[live].all()
+                       or not np.isfinite(dists[ids >= 0]).all())
+        summ.update(dead_ids_in_results=dead, malformed_results=bad)
+        return summ
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seg0 = torch.cuda.memory_stats().get("segment.all.current", 0)
+    reset_launches()
+    with no_kernel_builds() as builds:
+        summ = run(n_req, writes, 0)
+        torch.cuda.synchronize()
+    res["launches"] = dict(LAUNCHES)
+    res["segments_added"] = torch.cuda.memory_stats().get("segment.all.current", 0) - seg0
+    res["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res.update(builds)
+    res["recall_after"] = live_recall(ann, q, scfg)
+    res.update({k: summ[k] for k in (
+        "completed", "achieved_qps", "latency_ms", "dispatch_wait_ms", "deadline_hit_rate",
+        "tiles", "occupancy_mean", "queue_depth_p95", "staleness_mean", "staleness_max",
+        "write_commits", "rows_written", "dead_ids_in_results", "malformed_results")})
+    want = {"insert": wb * n_events, "delete": wb * n_events}
+    check(res["nvcc_runs"] == 0 and res["libs_added"] == 0,
+          f"serving session built kernels: {builds}")
+    check(res["completed"] == n_req and res["rows_written"] == want,
+          f"serving session completed {res['completed']} of {n_req}, wrote "
+          f"{res['rows_written']} (want {want})")
+    check(res["dead_ids_in_results"] == 0 and res["malformed_results"] == 0,
+          f"serving session: {res['dead_ids_in_results']} deleted ids and "
+          f"{res['malformed_results']} malformed results")
+    check(res["recall_after"] >= res["recall_before"] - 0.05,
+          f"serving recall {res['recall_after']} after the session against "
+          f"{res['recall_before']} before")
+    if trace_requests:
+        _, more = serving_script(n0, wb, 2, trace_requests, first=n_events)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tsumm = run(trace_requests, more, 1)
+            torch.cuda.synchronize()
+            traced_ms = 1e3 * (time.perf_counter() - t0)
+        spans, busy_ms, per_name = device_busy(prof)
+        check(len(spans) > 0, "the traced serving session shows no device event")
+        check(tsumm["completed"] == trace_requests and tsumm["dead_ids_in_results"] == 0,
+              f"traced serving session: {tsumm['completed']} completed, "
+              f"{tsumm['dead_ids_in_results']} deleted ids")
+        top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
+        res["traced"] = {"requests": trace_requests, "device_events": len(spans),
+                         "device_busy_ms": busy_ms, "traced_wall_ms": traced_ms,
+                         "idle_share": 1 - busy_ms / traced_ms,
+                         "achieved_qps": tsumm["achieved_qps"],
+                         "latency_ms": tsumm["latency_ms"],
+                         "top_device_ms": [[k[:60], v[0], v[1]] for k, v in top]}
+    return res
+
+
+def medium_serving():
+    """The serving front end at the medium configuration on numpy_mixture's
+    pool (n = 20k, 500 queries), built on its first n0 rows with
+    ``StreamingConfig(build=FULL, **STREAM_KW)`` and grown to hold the
+    session's inserts; ``CHURN_SEARCH``, tile 64, write batches of 32. For
+    f32, int8 and PQ (codes attached before the session): one session
+    (``serving_session``) through the kernels and one through the plain
+    versions, each on its own copy of the store; then the coalescing check:
+    512 requests with dense visited at tile 64 and at tile 7, equal bit for
+    bit. The routes' recall after the session within 0.01, f32's within
+    0.03 of the JAX package's on the same pool and script."""
+    import numpy as np
+
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.quant import Quantization
+    from repro_torch.streaming import StreamingANN, StreamingConfig
+    from repro_torch.streaming import store as ST
+    x_np, q_np = numpy_mixture(MEDIUM_N, MEDIUM_Q, SEED)
+    n0 = int(MEDIUM_N / 1.3)
+    cfg = StreamingConfig(build=rd.RNNDescentConfig(**FULL_BUILD, chunk=MEDIUM_N), **STREAM_KW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = StreamingANN.from_corpus(x_np[:n0], cfg,
+                                    generator=torch.Generator(device="cuda").manual_seed(SEED + 1),
+                                    device="cuda")
+    base = StreamingANN(ST.grow(base.store, n0 + SERVE_WB * (SERVE_EVENTS + 2) + 1), cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ref = REF_MEDIUM["serve"]
+    out = {}
+    for mode in ("f32", "int8", "pq"):
+        quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
+        scfg = S.SearchConfig(**CHURN_SEARCH, quant=quant)
+        ann0 = StreamingANN(base.store, cfg)
+        if quant.is_coded:
+            ann0.quantize(quant)
+        for route in ("kernel", "plain"):
+            with plain_versions() if route == "plain" else contextlib.nullcontext():
+                res = serving_session(StreamingANN(ann0.store, cfg), q_np, scfg, x_np[n0:], n0,
+                                      SERVE_REQ, SERVE_EVENTS)
+            emit({"phase": "medium_serving", "mode": mode, "route": route, "pool": MEDIUM_N,
+                  "n0": n0, "build_s": build_s, "tile_lanes": SERVE_TILE,
+                  "write_batch": SERVE_WB, "requests": SERVE_REQ, "events": SERVE_EVENTS,
+                  "deadline_s": SERVE_DEADLINE, "search": CHURN_SEARCH,
+                  "reference": ref if mode == "f32" else None, **res})
+            got = {k for k, v in res["launches"].items() if v > 0}
+            want = set()
+            if route == "kernel":
+                want = {"rng_prune", "beam_score"} | (
+                    {f"beam_score_{mode}"} if mode != "f32" else set())
+            check(got == want, f"serving {mode} {route} launched {got}, expected {want}")
+            if mode == "f32":
+                check(abs(res["recall_after"] - ref["recall_after"]) <= 0.03,
+                      f"serving f32 {route}: recall {res['recall_after']} against the JAX "
+                      f"package's {ref['recall_after']}")
+            out[mode, route] = res
+        delta = abs(out[mode, "kernel"]["recall_after"] - out[mode, "plain"]["recall_after"])
+        check(delta <= 0.01, f"serving {mode}: kernel vs plain recall differ by {delta}")
+        dense = dataclasses.replace(scfg, visited="dense")
+        wide, narrow = (serve_coalesced(ann0, q_np, dense, lanes) for lanes in (SERVE_TILE, 7))
+        same = sum(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(wide, narrow))
+        emit({"phase": "medium_serving_coalescing", "mode": mode, "requests": len(wide),
+              "tile_lanes": [SERVE_TILE, 7], "visited": "dense", "equal": same})
+        check(same == len(wide), f"serving {mode}: {len(wide) - same} of {len(wide)} requests "
+              "differ between tile widths 64 and 7")
+    return out
+
+
 STREAM_BATCH = 1024     # rows a writer batch inserts or deletes at 1M
 STREAM_ROUNDS = 32      # rounds of (insert, insert, delete) batches at 1M
 
@@ -1020,6 +1342,44 @@ def streaming_1m(x, q, g):
           "ms_all_rows": time_ms(lambda i: R.rng_prune(xf, f_ids, f_d, f_f, "l2"), inner=20)["ms"],
           "ms_live_rows": time_ms(lambda i: R.rng_prune(xf, li, ld, lf, "l2"), inner=20)["ms"]})
     return report
+
+
+SERVE_REQ_1M, SERVE_EVENTS_1M, SERVE_TRACED_1M = 4096, 16, 512
+SERVE_QUERIES_1M = 1000   # the path's queries the 1M sessions draw from (and score)
+
+
+def serving_1m(x, q, g):
+    """The serving front end over the 1M path's corpus and graph (from_built,
+    capacity 2^20, which holds the sessions' inserts), ``StreamingConfig()``
+    with the FULL build, ``CHURN_SEARCH`` (hashed), tile 64, write batches of
+    32: one session of SERVE_REQ_1M requests with SERVE_EVENTS_1M churn
+    events (insert points drawn from the corpus's mixture, deletes of
+    original rows), then a traced session of SERVE_TRACED_1M requests for
+    the device's idle share."""
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.data.synthetic import VectorDatasetSpec, mixture_centers, mixture_rows
+    from repro_torch.streaming import StreamingANN, StreamingConfig
+    from repro_torch.streaming import store as ST
+    n = x.shape[0]
+    centers = mixture_centers(VectorDatasetSpec.sift_like(FULL_N, FULL_Q),
+                              torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    pool = mixture_rows(centers, SERVE_WB * (SERVE_EVENTS_1M + 4),
+                        torch.Generator(device="cuda").manual_seed(SEED + 40)).cpu().numpy()
+    ann = StreamingANN(ST.from_built(x, g, capacity=2**20), StreamingConfig(
+        build=rd.RNNDescentConfig(**FULL_BUILD)))
+    q_np = q[:SERVE_QUERIES_1M].cpu().numpy()
+    res = serving_session(ann, q_np, S.SearchConfig(**CHURN_SEARCH), pool, n, SERVE_REQ_1M,
+                          SERVE_EVENTS_1M, trace_requests=SERVE_TRACED_1M)
+    check(ann.capacity == 2**20, f"serving 1M: the store grew to {ann.capacity}")
+    for k in ("rng_prune", "beam_score"):
+        check(res["launches"][k] > 0, f"serving 1M: {k} never launched")
+    emit({"phase": "serving_1m", "n": n, "d": x.shape[1], "queries": SERVE_QUERIES_1M,
+          "capacity": ann.capacity, "tile_lanes": SERVE_TILE, "write_batch": SERVE_WB,
+          "requests": SERVE_REQ_1M, "events": SERVE_EVENTS_1M, "deadline_s": SERVE_DEADLINE,
+          "config": "StreamingConfig(build=FULL)", "search": CHURN_SEARCH, "reduced": None,
+          **res})
+    return res
 
 
 def builders_phase(x, q, gt, rnnd: dict):
@@ -2040,14 +2400,18 @@ def main() -> int:
     clock("medium_baselines")
     medium_streaming()
     clock("medium_streaming")
+    medium_serving()
+    clock("medium_serving")
     x, q, g, gt, launches, res, snap = full_phase()
     clock("path")
     report = kernel_phase(x, q, g, launches, snap)
     del snap
     clock("kernels")
     report += streaming_1m(x, q, g)
-    del g
     clock("streaming_1m")
+    serving_1m(x, q, g)
+    del g
+    clock("serving_1m")
     nsg_rows, nsg_launches = builders_phase(x, q, gt, res)
     clock("builders")
     report += rng_prune_report(x, {"NSG prune rows (C = 132)": nsg_rows},

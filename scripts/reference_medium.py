@@ -1,6 +1,6 @@
 """The JAX package's numbers for the medium configuration of chip_smoke.py.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py [f32 int8 pq nnd nsg churn]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py [f32 int8 pq nnd nsg churn serve]
 
 Runs the reference (``repro``, jnp paths, CPU) on the SIFT-like mixture at
 n = 20k with 500 queries: build ``rnnd_ann.FULL`` under each corpus mode
@@ -22,6 +22,13 @@ then prints ``recall_stream`` (the index's search, ``CHURN_SEARCH``,
 against the ground truth over the survivors) and ``recall_rebuild`` (a
 from-scratch build over the survivors, searched the same way), the bar of
 chip_smoke.py's ``medium_streaming`` phase.
+
+``serve`` replays chip_smoke.py's ``medium_serving`` f32 session on the JAX
+package's serving front end (``repro.serving``) over the same pool, build
+and churn script (``chip_smoke.serving_script``), under a manual clock that
+moves 5 ms a request; it prints ``recall_before`` and ``recall_after``
+(recall@10 over the live rows before the warm-up writes and after the
+session), the bar of that phase's check on f32 (about 3.5 min on the CPU).
 """
 from __future__ import annotations
 
@@ -94,11 +101,76 @@ def churn() -> None:
                       "seconds": time.perf_counter() - t0}), flush=True)
 
 
+def serve() -> None:
+    """chip_smoke.py's medium_serving f32 session on the JAX package: the
+    numpy-drawn pool, built on its first n0 rows, grown, the serving
+    warm-up writes, then SERVE_REQ requests under a ManualClock that
+    advances 1 / 200 s a request (pumped after each), with the churn script
+    of ``chip_smoke.serving_script``; recall@10 over the live rows before
+    the warm-up and after the session."""
+    import numpy as np
+
+    from repro.serving import (AdmissionConfig, ServingConfig, ServingFrontend,
+                               WriterConfig)
+    from repro.streaming import StreamingANN, StreamingConfig
+    from repro.streaming import store as ST
+    t0 = time.perf_counter()
+    x, q, _, _ = corpus(baseline=True)
+    from chip_smoke import (CHURN_SEARCH, SERVE_DEADLINE, SERVE_EVENTS, SERVE_REQ,
+                            SERVE_TILE, SERVE_WB, STREAM_KW, ManualClock, serving_script)
+    n0 = int(x.shape[0] / 1.3)
+    x_np, q_np = np.asarray(x), np.asarray(q)
+    pool = x_np[n0:]
+    cfg = StreamingConfig(build=FULL, **STREAM_KW)
+    scfg = S.SearchConfig(**CHURN_SEARCH)
+    ann = StreamingANN.from_corpus(x[:n0], cfg, key=jax.random.PRNGKey(1))
+    ann = StreamingANN(store=ST.grow(ann.store, n0 + SERVE_WB * (SERVE_EVENTS + 2) + 1),
+                       cfg=cfg)
+
+    def recall():
+        st = ann.store
+        valid = ST.active_mask(st)
+        _, gt = E.ground_truth(st.x, q, k=10, valid=valid)
+        return float(E.recall_topk(ann.search(q, scfg)[0], gt, valid=valid))
+
+    before = recall()
+    warm, writes = serving_script(n0, SERVE_WB, SERVE_EVENTS, SERVE_REQ)
+    for op, arg in warm:
+        if op == "ins":
+            ann.insert(pool[arg])
+        else:
+            ann.delete(arg)
+    clock = ManualClock()
+    fe = ServingFrontend(ann, ServingConfig(
+        admission=AdmissionConfig(tile_lanes=SERVE_TILE),
+        writer=WriterConfig(insert_batch=SERVE_WB, delete_batch=SERVE_WB), search=scfg),
+        clock=clock)
+    w = 0
+    for i in range(SERVE_REQ):
+        fe.submit(q_np[i % q_np.shape[0]], deadline_s=SERVE_DEADLINE)
+        while w < len(writes) and writes[w][0] <= i:
+            _, kind, arg = writes[w]
+            if kind == "insert":
+                fe.submit_insert(pool[arg])
+            else:
+                fe.submit_delete(arg)
+            w += 1
+        clock.t += 1 / 200
+        fe.pump()
+    fe.drain()
+    summ = fe.telemetry.summary()
+    print(json.dumps({"mode": "serve", "pool": int(x.shape[0]), "n0": n0,
+                      "requests": SERVE_REQ, "completed": summ["completed"],
+                      "rows_written": summ["rows_written"], "tiles": summ["tiles"],
+                      "recall_before": before, "recall_after": recall(),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def main(modes) -> None:
     data = {}
     for mode in modes:
-        if mode == "churn":
-            churn()
+        if mode in ("churn", "serve"):
+            churn() if mode == "churn" else serve()
             continue
         if (mode in BUILDERS) not in data:
             data[mode in BUILDERS] = corpus(mode in BUILDERS)

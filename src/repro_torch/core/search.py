@@ -38,11 +38,11 @@ from repro_torch import as_tensor
 from repro_torch.core import distances as D
 from repro_torch.core import graph as G
 from repro_torch.kernels.beam_score import ops as bs_ops
-from repro_torch.kernels.beam_score.ref import score_block
+from repro_torch.kernels.beam_score.ref import score_lanes
 from repro_torch.quant import (
     Quantization,
     QuantizedCorpus,
-    int8_score_block,
+    int8_decode,
     pq_lut,
     pq_score_codes,
 )
@@ -242,18 +242,20 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
         lut_a, lut_b, qsq = pq_lut(queries, qx.codebooks, cfg.metric)
 
     # --- seed the beam with E entries (duplicate seeds within a lane inert);
-    # seeds score through the corpus the beam scores (f32 rows through
-    # score_block, or the codes), so every beam distance lives on one scale
+    # seeds score through the corpus the beam scores (f32 rows, or the
+    # codes), so every beam distance lives on one scale. Seeds and the rerank
+    # sum in score_lanes' fixed order: a lane's result never depends on the
+    # tile it rides in
     ar = torch.arange(e, device=dev)
     dup = ((eps[:, :, None] == eps[:, None, :])
            & (ar[None, :, None] > ar[None, None, :])).any(dim=-1)
     if qmode == "int8":
-        ep_d = int8_score_block(qx.codes[eps.long()], qx.scale, qx.zero, queries,
-                                cfg.metric)
+        ep_d = score_lanes(int8_decode(qx.codes[eps.long()], qx.scale, qx.zero), queries,
+                           cfg.metric)
     elif qmode == "pq":
         ep_d = pq_score_codes(qx.codes[eps.long()], lut_a, lut_b, qsq, cfg.metric)
     else:
-        ep_d = score_block(x[eps.long()], queries, cfg.metric)    # (B, E)
+        ep_d = score_lanes(x[eps.long()], queries, cfg.metric)    # (B, E)
     beam_ids = torch.full((b, cfg.l), -1, dtype=torch.int32, device=dev)
     beam_ids[:, :e] = torch.where(dup, -1, eps)
     beam_d = torch.full((b, cfg.l), float("inf"), device=dev)
@@ -329,7 +331,7 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
         # entries against x, then take the top-k of the exact distances
         # (-1/+inf pad)
         q_d, rids = _merge_smallest(torch.where(ok, beam_d, inf), rerank, beam_ids)
-        exact = score_block(x[rids.clamp(min=0).long()], queries, cfg.metric)
+        exact = score_lanes(x[rids.clamp(min=0).long()], queries, cfg.metric)
         exact = torch.where(q_d < inf, exact, inf)
         out_d, out_ids = _merge_smallest(exact, cfg.topk, rids)
         return torch.where(out_d < inf, out_ids, -1), out_d, work, iters

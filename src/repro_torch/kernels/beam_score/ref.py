@@ -33,6 +33,39 @@ def score_block(vecs: torch.Tensor, q: torch.Tensor, metric: str) -> torch.Tenso
     raise ValueError(f"unknown metric {metric!r}")
 
 
+def lane_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in one fixed order (a halving tree of
+    elementwise adds): each output's rounding depends on its own row only,
+    never on how many rows share the call. A matmul or a reduction kernel
+    may pick its split of the sum by the batch (cuBLAS splits K when few
+    rows would fill the card), and then a lane's bits change with the tile
+    it rides in."""
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        head = t[..., :h] + t[..., h:2 * h]
+        t = torch.cat([head, t[..., 2 * h:]], dim=-1) if t.shape[-1] % 2 else head
+    return t[..., 0]
+
+
+def score_lanes(vecs: torch.Tensor, q: torch.Tensor, metric: str) -> torch.Tensor:
+    """:func:`score_block` with every sum in :func:`lane_sum`'s fixed order:
+    the search's seeds and exact rerank, whose results must not depend on
+    the tile width. Equal to :func:`score_block` wherever the sums are exact
+    (integer-valued inputs)."""
+    v = vecs.float()
+    qq = q.float()[..., None, :]
+    if metric == "l2":
+        return torch.clamp(lane_sum(qq * qq) + lane_sum(v * v) - 2.0 * lane_sum(v * qq),
+                           min=0.0)
+    if metric == "ip":
+        return -lane_sum(v * qq)
+    if metric == "cos":
+        vn = v / torch.clamp(torch.sqrt(lane_sum(v * v))[..., None], min=1e-12)
+        qn = qq / torch.clamp(torch.sqrt(lane_sum(qq * qq))[..., None], min=1e-12)
+        return 1.0 - lane_sum(vn * qn)
+    raise ValueError(f"unknown metric {metric!r}")
+
+
 def beam_score_ref(x: torch.Tensor, neighbors: torch.Tensor, u: torch.Tensor,
                    queries: torch.Tensor, k: int, metric: str = "l2"):
     """``u`` (B,) frontier ids -> each lane's first ``k`` neighbours (Eq. 4

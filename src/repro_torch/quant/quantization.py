@@ -31,7 +31,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.kernels.beam_score.ref import score_block
+from repro_torch.kernels.beam_score.ref import lane_sum, score_block
 
 MODES = ("f32", "bf16", "int8", "pq")
 PQ_CENTROIDS = 256
@@ -279,17 +279,18 @@ def pq_lut(queries: torch.Tensor, codebooks: torch.Tensor, metric: str
     qf = queries.float()
     qs = qf.reshape(bsz, m, dsub)
     cb = codebooks.float()
-    dot = torch.einsum("bmd,mcd->bmc", qs, cb)
+    # a query's tables sum in lane_sum's fixed order, whatever the batch
+    dot = lane_sum(qs[:, :, None, :] * cb[None])
     csq = torch.einsum("mcd,mcd->mc", cb, cb)
     zq = torch.zeros((bsz,), dtype=torch.float32, device=queries.device)
     if metric == "l2":
-        qsq_s = torch.einsum("bmd,bmd->bm", qs, qs)
+        qsq_s = lane_sum(qs * qs)
         lut_a = torch.clamp(qsq_s[..., None] + csq[None] - 2.0 * dot, min=0.0)
         return lut_a, torch.zeros_like(csq), zq
     if metric == "ip":
         return -dot, torch.zeros_like(csq), zq
     if metric == "cos":
-        return dot, csq, torch.einsum("bd,bd->b", qf, qf)
+        return dot, csq, lane_sum(qf * qf)
     raise ValueError(f"unknown metric {metric!r}")
 
 

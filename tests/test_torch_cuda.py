@@ -769,3 +769,206 @@ def test_streaming_on_the_card_equals_the_cpu_route(dev, metric, monkeypatch):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     for a, b in zip(out["cpu"][5], out["cuda"][5]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------------- serving
+def test_staging_ring_under_a_busy_stream(dev):
+    """Three stage() calls on a ring of two pinned buffers while a long
+    kernel holds the stream: the copies queue behind it, so the third
+    stage() must wait for the first buffer's copy before rewriting it, and
+    every tile keeps its own rows."""
+    import numpy as np
+
+    from repro_torch.serving import DoubleBuffer
+    db = DoubleBuffer(tile_lanes=64, d=128, depth=2, device=dev)
+    tiles = [[np.full((128,), 100.0 * t + i, np.float32) for i in range(64 - 5 * t)]
+             for t in range(3)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)           # ~0.1 s of one SM's clock on the stream
+    out = [db.stage(rows) for rows in tiles]
+    torch.cuda.synchronize()
+    for t, (rows, blk) in enumerate(zip(tiles, out)):
+        assert blk.device.type == "cuda"
+        assert torch.equal(blk[:len(rows)].cpu(), torch.from_numpy(np.stack(rows))), t
+        assert (blk[len(rows):] == 0).all(), t
+    assert db.lane_mask(7).device.type == "cuda" and int(db.lane_mask(7).sum()) == 7
+
+
+def _serving_store(dev, quant=None, d=24):
+    """A StreamingANN on ``dev`` over a clustered corpus (n = 2000), with
+    int8 or PQ codes (dsub = 6 at d = 24, 4 otherwise) when ``quant`` names
+    them."""
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
+    from repro_torch.quant import Quantization
+    from repro_torch.streaming import StreamingANN, StreamingConfig
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, q = clustered_vectors(VectorDatasetSpec("serve", n=2000, d=d, n_queries=150,
+                                               n_clusters=8), gen, dev)
+    cfg = StreamingConfig(build=rd.RNNDescentConfig(s=8, r=16, t1=2, t2=3, capacity=24),
+                          seed_l=32, seed_k=12, seed_iters=64, batch_k=4, splice_k=6)
+    ann = StreamingANN.from_corpus(x[:1800], cfg, torch.Generator(device=dev).manual_seed(1),
+                                   device=dev)
+    q_mode = None
+    if quant is not None:
+        q_mode = Quantization(mode=quant, m=4 if d == 24 else d // 4, rerank_k=32) \
+            if quant == "pq" else Quantization(mode=quant, rerank_k=32)
+        ann.quantize(q_mode)
+    return ann, x.cpu().numpy(), q.cpu().numpy(), q_mode
+
+
+@pytest.mark.parametrize("d", [24, 128])
+@pytest.mark.parametrize("quant", [None, "int8", "pq"])
+def test_serving_results_independent_of_coalescing_on_the_card(dev, quant, d):
+    """Dense visited: every request's (ids, dists) equal bit for bit at tile
+    widths 64, 16 and 7 (deadline-triggered partial tiles included)."""
+    import numpy as np
+
+    from repro_torch.core import search as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.quant import Quantization
+    from repro_torch.serving import (AdmissionConfig, ServingConfig, ServingFrontend,
+                                     WriterConfig)
+    ann, _, q, q_mode = _serving_store(dev, quant, d)
+    scfg = S.SearchConfig(l=32, k=16, max_iters=96, topk=10, visited="dense",
+                          quant=q_mode or Quantization())
+    out = {}
+    reset_launches()
+    for lanes in (64, 16, 7):
+        t = [0.0]
+        fe = ServingFrontend(ann, ServingConfig(
+            admission=AdmissionConfig(tile_lanes=lanes, deadline_s=0.05),
+            writer=WriterConfig(4, 4), search=scfg), clock=lambda: t[0])
+        rids = []
+        for i, row in enumerate(q):
+            rids.append(fe.submit(row))
+            t[0] += 0.002
+            fe.pump()
+        fe.drain()
+        out[lanes] = [fe.result(r) for r in rids]
+    torch.cuda.synchronize()
+    name = f"beam_score_{quant}" if quant else "beam_score"
+    assert LAUNCHES[name] > 0
+    for lanes in (16, 7):
+        for i, ((a, ad), (b, bd)) in enumerate(zip(out[64], out[lanes])):
+            assert np.array_equal(a, b) and np.array_equal(ad, bd), (lanes, i)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_fixed_order_scores_do_not_depend_on_the_batch(dev, metric):
+    """The search's seeds and rerank (score_lanes) and the PQ tables
+    (pq_lut): every lane's values equal bit for bit whether it is scored in
+    a batch of 1024, 64, 7 or alone, at d = 128 on real-valued data."""
+    from repro_torch.kernels.beam_score.ref import score_lanes
+    from repro_torch.quant import pq_lut
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = torch.randn(1024, 48, 128, generator=gen, device=dev)
+    q = torch.randn(1024, 128, generator=gen, device=dev)
+    cb = torch.randn(32, 256, 4, generator=gen, device=dev)
+    whole = score_lanes(rows, q, metric), *pq_lut(q, cb, metric)
+    for b in (64, 7, 1):
+        part = score_lanes(rows[:b], q[:b], metric), *pq_lut(q[:b], cb, metric)
+        for i, (a, p) in enumerate(zip(whole, part)):
+            if i == 2:                       # lut_b: the codebooks' own, no lanes
+                assert torch.equal(a, p)
+            else:
+                assert torch.equal(a[:b], p), (b, i)
+
+
+def test_serving_epoch_pinning_on_the_card(dev):
+    """A commit between a tile's dispatch and its harvest: the tile's
+    results equal a direct search of the store it was dispatched against."""
+    import numpy as np
+
+    from repro_torch.core import search as S
+    from repro_torch.serving import (AdmissionConfig, ServingConfig, ServingFrontend,
+                                     WriterConfig)
+    from repro_torch.streaming import store as ST
+    ann, _, q, _ = _serving_store(dev)
+    scfg = S.SearchConfig(l=32, k=16, max_iters=96, topk=10, visited="dense")
+    lanes = 8
+    fe = ServingFrontend(ann, ServingConfig(admission=AdmissionConfig(tile_lanes=lanes),
+                                            writer=WriterConfig(8, 8), search=scfg,
+                                            pipeline_depth=2), clock=lambda: 0.0)
+    epoch0, st0 = ann.snapshot()
+    rids = [fe.submit(row) for row in q[:lanes]]
+    fe.pump()
+    assert len(fe._inflight) == 1
+    fe.submit_delete(np.arange(0, 8))
+    fe.writer.commit()
+    assert ann.epoch == epoch0 + 1
+    fe.drain(flush_writes=False)
+    eps = S.default_entry_point(st0.x, scfg.metric, valid=ST.active_mask(st0))
+    want_ids, want_d = ann.search(torch.from_numpy(q[:lanes]).to(dev), scfg, entry_points=eps,
+                                  tile_b=lanes, store=st0)
+    for lane, rid in enumerate(rids):
+        ids, dists = fe.result(rid)
+        assert np.array_equal(ids, want_ids[lane].cpu().numpy())
+        assert np.array_equal(dists, want_d[lane].cpu().numpy())
+    assert fe.telemetry.summary()["staleness_max"] >= 1
+
+
+def test_serving_session_on_the_card_equals_the_cpu_route(dev, monkeypatch):
+    """One session with inserts and deletes under a manual clock, over an
+    integer corpus, dense visited (the seeding searches too): every
+    request's result, the final store and the telemetry counts equal on the
+    card and on the CPU route; the card's session launched beam_score and
+    rng_prune."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.core import graph as G
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import (AdmissionConfig, ServingConfig, ServingFrontend,
+                                     WriterConfig)
+    from repro_torch.streaming import StreamingANN
+    from repro_torch.streaming import store as ST
+    from repro_torch.streaming import updates as U
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randint(-8, 9, (1400, 24), generator=gen).float()
+    q = torch.randint(-8, 9, (90, 24), generator=gen).float().numpy()
+    cfg = U.StreamingConfig(
+        build=rd.RNNDescentConfig(s=8, r=16, t1=2, t2=3, capacity=24, chunk=128),
+        seed_l=32, seed_k=12, seed_iters=64, batch_k=4, splice_k=6)
+    g0 = rd.build(x[:1200], cfg.build, torch.Generator().manual_seed(1))
+    orig = U.StreamingConfig.seed_search_cfg
+    monkeypatch.setattr(U.StreamingConfig, "seed_search_cfg",
+                        lambda self: dataclasses.replace(orig(self), visited="dense"))
+    scfg = S.SearchConfig(l=32, k=16, max_iters=96, topk=10, visited="dense")
+    pool = x[1200:].numpy()
+    out = {}
+    for where in ("cpu", "cuda"):
+        st = ST.grow(ST.from_built(x[:1200].to(where), G.Graph(*(t.to(where) for t in g0))),
+                     1400)
+        ann = StreamingANN(st, cfg)
+        t = [0.0]
+        fe = ServingFrontend(ann, ServingConfig(
+            admission=AdmissionConfig(tile_lanes=16, deadline_s=0.05),
+            writer=WriterConfig(8, 8), search=scfg), clock=lambda: t[0])
+        reset_launches()
+        rids = []
+        for i, row in enumerate(q):
+            rids.append(fe.submit(row))
+            if i % 20 == 10:
+                e = i // 20
+                fe.submit_insert(pool[8 * e:8 * e + 8])
+                fe.submit_delete(np.arange(100 + 12 * e, 112 + 12 * e))
+            t[0] += 0.003
+            fe.pump()
+        fe.drain()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["beam_score"] > 0 and LAUNCHES["rng_prune"] > 0
+        summ = fe.telemetry.summary()
+        out[where] = ([fe.result(r) for r in rids], [leaf.cpu() for _, leaf in flatten(ann.store)],
+                      {k: summ[k] for k in ("tiles", "occupancy_hist", "staleness_max",
+                                            "write_commits", "rows_written", "latency_ms")})
+    for (a, ad), (b, bd) in zip(out["cpu"][0], out["cuda"][0]):
+        assert np.array_equal(a, b) and np.array_equal(ad, bd)
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert out["cpu"][2] == out["cuda"][2]

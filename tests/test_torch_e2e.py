@@ -65,7 +65,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "want = {'repro_torch.checkpoint.checkpoint', 'repro_torch.streaming.store',\n"
-        "        'repro_torch.streaming.updates', 'repro_torch.streaming.index'}\n"
+        "        'repro_torch.streaming.updates', 'repro_torch.streaming.index',\n"
+        "        'repro_torch.serving.frontend', 'repro_torch.obs.trace'}\n"
         "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
