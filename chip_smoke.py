@@ -122,8 +122,24 @@ Phases (any failure raises and exits non-zero):
      against its plain version and an f64 explicit-pairs oracle on the
      DeepFM serve_bulk embeddings, at F = 40, D = 32 and in f32, timed as in
      phase 5.
-Cut to fit the script's time (about 400 s): the sort-oracle witness and the
-PQ path run over the first 500k rows of the 1M corpus (CUT_N). "clock" lines
+  9. sharded (after 5c, on the path's corpus and graph): ranks sharing the
+     one card, NCCL at D = 1 and gloo at D = 2 and 4 (the comm layer stages
+     every collective through pinned host memory); gloo's own all_reduce,
+     broadcast, all_gather and all_to_all on CUDA tensors, checked; every
+     medium build (RNN-Descent FULL f32 and int8, NN-Descent, NSG-style,
+     and RNN-Descent at n = 20,001) bit for bit against the single-device
+     graph, with build and ring seconds, wire and staged bytes, peak memory
+     and launches a rank; at D = 2,
+     ShardedANN.build over the first 500k rows (CUT_N) against the
+     single-device build (the ring's bytes held to the closed form, 60
+     rng_prune launches a rank), its corpus-sharded dense search, save, and
+     restore at D = 1 serving the same results; on the path's 1M graph, the
+     first 1,000 queries dense query-sharded and corpus-sharded, each bit for
+     bit the single-device dense search, and hashed (recall@10 within 0.005
+     of dense), with QPS and each rank's corpus bytes.
+Cut to fit the script's time (about 590 s): the sort-oracle witness, the
+PQ path and the sharded build run over the first 500k rows of the 1M corpus
+(CUT_N); scripts/sharded_build.py runs the sharded build at 1M. "clock" lines
 give the seconds since start after each phase. The last lines are the
 kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -137,6 +153,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -2347,6 +2364,306 @@ def recsys_phase() -> list:
     return report
 
 
+# ------------------------------------------------------------ the sharded phase
+SHARD_Q = 1000                       # queries of the 1M sharded searches
+SHARD_DENSE = {"l": 64, "k": 64, "max_iters": 256, "topk": 10, "visited": "dense"}
+
+
+def _rank_out(out_dir: str, rank: int, obj: dict) -> None:
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(obj, f)
+
+
+def _ranks_in(out_dir: str, world: int) -> list:
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def spawn_ranks(fn, world: int, backend: str, *args, timeout_s: float = 600.0) -> list:
+    """Run ``fn(rank, world, *args, out_dir)`` on ``world`` ranks sharing
+    the card (a gloo or NCCL group through launch.mesh.spawn); returns each
+    rank's JSON dict. A failing rank, or one past the collectives' timeout,
+    raises here."""
+    from repro_torch.launch import mesh as M
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        M.spawn(fn, world, (*args, out), backend=backend, timeout_s=timeout_s)
+        return _ranks_in(out, world)
+
+
+def _card_mesh(world: int, backend: str):
+    from repro_torch.launch import mesh as M
+    torch.cuda.set_device(0)
+    return M.make_mesh((world,), ("data",), backend=backend, device="cuda:0")
+
+
+def _timed_build(mesh, build):
+    """(graph, stats) of one sharded build: seconds (host clock, synced),
+    the ring's seconds (CUDA events around its hops), its sent and staged
+    bytes, launches and the rank's peak memory."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.stats.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    g = build()
+    torch.cuda.synchronize()
+    st = mesh.stats.summary()
+    ring = st.get("ppermute", {"seconds": 0.0, "sent_bytes": 0, "staged_bytes": 0, "calls": 0})
+    return g, {"build_s": time.perf_counter() - t0, "exchange_s": ring["seconds"],
+               "hops": ring["calls"], "sent_bytes": ring["sent_bytes"],
+               "staged_bytes": ring["staged_bytes"], "comm": st,
+               "launches": {k: v for k, v in LAUNCHES.items() if v},
+               "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+# the kernels each medium build must launch (NN-Descent's build has none;
+# NSG's repair may also launch pairwise_l2, when a vertex is unreachable)
+SHARD_KERNELS = {"rnn-descent f32": {"rng_prune"}, "rnn-descent int8": {"rng_prune_int8"},
+                 "nn-descent": set(), "nsg-style": {"rng_prune"},
+                 f"rnn-descent f32 n={MEDIUM_N + 1}": {"rng_prune"}}
+
+
+def _medium_builds(x, x_pad):
+    """name -> (build function of (x, generator, mesh), its corpus, seed)."""
+    from repro_torch.core import nn_descent as nnd
+    from repro_torch.core import nsg_style as ns
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.quant import Quantization
+    f32 = rd.RNNDescentConfig(**FULL_BUILD, chunk=MEDIUM_N)
+    int8 = rd.RNNDescentConfig(**FULL_BUILD, chunk=MEDIUM_N,
+                               quant=Quantization(**QUANT_KW["int8"]))
+    return {
+        "rnn-descent f32": (lambda x, gen, mesh: rd.build(x, f32, gen, mesh=mesh), x, SEED + 1),
+        "rnn-descent int8": (lambda x, gen, mesh: rd.build(x, int8, gen, mesh=mesh), x, SEED + 1),
+        "nn-descent": (lambda x, gen, mesh: nnd.build(x, nnd.NNDescentConfig(), gen, mesh=mesh),
+                       x, SEED + 3),
+        "nsg-style": (lambda x, gen, mesh: ns.build(x, ns.NSGStyleConfig(), gen, mesh=mesh),
+                      x, SEED + 4),
+        f"rnn-descent f32 n={MEDIUM_N + 1}": (
+            lambda x, gen, mesh: rd.build(x, f32, gen, mesh=mesh), x_pad, SEED + 1),
+    }
+
+
+def gloo_cuda_probe() -> dict:
+    """Gloo's own collectives on CUDA tensors, each result held to its
+    expected value (the comm layer stages every collective through pinned
+    host memory either way; gloo's send/recv take CPU tensors only)."""
+    import torch.distributed as dist
+    world, rank = dist.get_world_size(), dist.get_rank()
+    base = torch.arange(4, dtype=torch.int32, device="cuda")
+    red = base + rank
+    dist.all_reduce(red)
+    cast = base + rank
+    dist.broadcast(cast, 0)
+    parts = [torch.empty_like(base) for _ in range(world)]
+    dist.all_gather(parts, base + rank)
+    blocks = torch.arange(world * 2, dtype=torch.int32, device="cuda") + 100 * rank
+    got = torch.empty_like(blocks)
+    dist.all_to_all_single(got, blocks)
+    want_a2a = torch.cat([torch.arange(rank * 2, rank * 2 + 2, device="cuda") + 100 * s
+                          for s in range(world)]).int()
+    torch.cuda.synchronize()
+    return {"all_reduce": bool(torch.equal(red, world * base + sum(range(world)))),
+            "broadcast": bool(torch.equal(cast, base)),
+            "all_gather": all(torch.equal(p, base + s) for s, p in enumerate(parts)),
+            "all_to_all_single": bool(torch.equal(got, want_a2a))}
+
+
+def sharded_medium_rank(rank, world, x, x_pad, refs, out_dir):
+    """Every medium build on this group's mesh, each held bit for bit to the
+    single-device graph (``refs``, shared from the parent); a gloo group of
+    two also probes gloo's own CUDA collectives first."""
+    import torch.distributed as dist
+    backend = dist.get_backend()
+    mesh = _card_mesh(world, backend)
+    res = {}
+    if backend == "nccl":
+        dist.barrier(device_ids=[0])        # the NCCL communicator comes up
+    elif world == 2:
+        res["gloo_cuda_probe"] = gloo_cuda_probe()
+    for name, (build, xx, seed) in _medium_builds(x, x_pad).items():
+        if name not in refs:
+            continue
+        g, st = _timed_build(mesh, lambda: build(
+            xx, torch.Generator(device="cuda").manual_seed(seed), mesh))
+        st["equal"] = all(torch.equal(a, b) for a, b in zip(g, refs[name]))
+        del g
+        res[name] = st
+    _rank_out(out_dir, rank, res)
+
+
+def _timed_search(mesh, run, nq: int, gt=None) -> tuple:
+    """((ids, dists), stats) of one search: seconds and QPS (host clock,
+    synced), recall@10 against ``gt``, launches, the collectives."""
+    from repro_torch.core import eval as E
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    mesh.stats.reset()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists = run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    st = {"search_s": sec, "qps": nq / sec, "launches": {k: v for k, v in LAUNCHES.items() if v},
+          "comm": mesh.stats.summary()}
+    if gt is not None:
+        st["recall_at_10"] = E.recall_topk(ids, gt)
+    return (ids, dists), st
+
+
+def sharded_full_rank(rank, world, x, q, g, gt, ref, xc, gc, ref_c, ckpt_dir, out_dir):
+    """Two gloo ranks sharing the card. ShardedANN.build (row-sharded
+    RNN-Descent, FULL, the path's generator seed) over the first CUT_N rows
+    ``xc``, its rows placed corpus-sharded, held block for block to the
+    single-device graph ``gc``; its dense search of ``q`` against ``ref_c``;
+    ann.save. Then at 1M on the path's graph ``g``: the dense search of
+    ``q`` query-sharded and corpus-sharded, each held bit for bit to
+    ``ref``, and the hashed query-sharded search's recall."""
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.distributed.ann import ShardedANN, place_rows
+    mesh = _card_mesh(world, "gloo")
+    ann, st = _timed_build(mesh, lambda: ShardedANN.build(
+        xc, "rnn-descent", rd.RNNDescentConfig(**FULL_BUILD),
+        torch.Generator(device="cuda").manual_seed(SEED + 1), mesh=mesh, serve_shard="corpus"))
+    st["block_equal"] = all(torch.equal(a, b) for a, b in
+                            zip(ann.graph, place_rows(gc, mesh, xc.shape[0])))
+    st["rows"] = ann.x.shape[0]
+    st["resident_bytes"] = ann.device_resident_bytes()
+    dense = S.SearchConfig(**SHARD_DENSE)
+    out, st["ann_corpus"] = _timed_search(mesh, lambda: ann.search(q, dense, tile_b=1024),
+                                          q.shape[0])
+    st["ann_corpus"]["equal"] = all(torch.equal(a, b) for a, b in zip(out, ref_c))
+    t0 = time.perf_counter()
+    ann.save(ckpt_dir)
+    st["save_s"] = time.perf_counter() - t0
+    del ann
+    ep = S.default_entry_point(x)
+    searches = {
+        "queries": (dense, "queries"), "corpus": (dense, "corpus"),
+        "queries hashed": (S.SearchConfig(**{**SHARD_DENSE, "visited": "hashed"}), "queries")}
+    for name, (scfg, shard) in searches.items():
+        out, st[name] = _timed_search(mesh, lambda: S.search_tiled(
+            x, g, q, ep, scfg, tile_b=1024, mesh=mesh, shard=shard), q.shape[0], gt)
+        if scfg.visited == "dense":
+            st[name]["equal"] = all(torch.equal(a, b) for a, b in zip(out, ref))
+    st["corpus_bytes_1m"] = -(-x.shape[0] // world) * x.shape[1] * x.element_size()
+    _rank_out(out_dir, rank, st)
+
+
+def sharded_phase(x, q, g, gt):
+    """Phase 9: the row-sharded builds, both search shardings and ShardedANN
+    on ranks sharing the one card: gloo at D = 2 and 4 (the comm layer stages
+    every collective through pinned host memory), NCCL at D = 1 (NCCL
+    refuses two ranks on one device)."""
+    from repro_torch.core import eval as E
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
+    from repro_torch.distributed.ann import ShardedANN
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    # medium: the phase-2 corpus, every build single-device first
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xm, _ = clustered_vectors(VectorDatasetSpec.sift_like(MEDIUM_N, MEDIUM_Q), gen, "cuda")
+    x_pad = torch.cat([xm, xm[:1] + 0.25])
+    refs, single = {}, {}
+    for name, (build, xx, seed) in _medium_builds(xm, x_pad).items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs[name] = build(xx, torch.Generator(device="cuda").manual_seed(seed), None)
+        torch.cuda.synchronize()
+        single[name] = time.perf_counter() - t0
+    pad_name = f"rnn-descent f32 n={MEDIUM_N + 1}"
+    for world, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo")):
+        want = {k: v for k, v in refs.items() if k != pad_name or world == 4}
+        ranks = spawn_ranks(sharded_medium_rank, world, backend, xm, x_pad, want)
+        if "gloo_cuda_probe" in ranks[0]:
+            probe = [r["gloo_cuda_probe"] for r in ranks]
+            check(all(all(p.values()) for p in probe), f"gloo's CUDA collectives: {probe}")
+            emit({"phase": "sharded_gloo_cuda_probe", "takes_cuda_tensors": probe[0]})
+        for name in want:
+            per = [r[name] for r in ranks]
+            check(all(p["equal"] for p in per),
+                  f"sharded medium {name} at D = {world}: a rank's graph differs")
+            check(all(set(p["launches"]) - {"pairwise_l2"} == SHARD_KERNELS[name]
+                      for p in per),
+                  f"sharded medium {name}: launched {[p['launches'] for p in per]}")
+            for p in per:
+                p.pop("comm")
+            emit({"phase": "sharded_medium", "build": name, "ranks": world, "backend": backend,
+                  "n": want[name].neighbors.shape[0], "single_device_build_s": single[name],
+                  "equal": True, "per_rank": per})
+    del refs, xm, x_pad
+    # the single-device references: the CUT_N build and its dense search,
+    # the path's dense search at 1M (the first SHARD_Q queries)
+    qs, gts = q[:SHARD_Q].contiguous(), gt[:SHARD_Q].contiguous()
+    dense = S.SearchConfig(**SHARD_DENSE)
+    xc = x[:CUT_N]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gc = rd.build(xc, rd.RNNDescentConfig(**FULL_BUILD),
+                  torch.Generator(device="cuda").manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    single_build_s = time.perf_counter() - t0
+    ref_c = S.search_tiled(xc, gc, qs, S.default_entry_point(xc), dense, tile_b=1024)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = S.search_tiled(x, g, qs, S.default_entry_point(x), dense, tile_b=1024)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    check(LAUNCHES["beam_score"] > 0, "single-device dense search launched no beam_score")
+    from repro_torch.core import graph as G
+    n_pad = -(-CUT_N // 2) * 2
+    sweep = 9 * G.default_buckets(FULL_BUILD["capacity"]) * n_pad // 2
+    closed = FULL_BUILD["t1"] * FULL_BUILD["t2"] * sweep \
+        + (FULL_BUILD["t1"] - 1) * 22 * G.default_buckets(FULL_BUILD["r"]) * n_pad // 2
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.empty_cache()
+        parent_gib = torch.cuda.memory_allocated() / 2**30
+        ranks = spawn_ranks(sharded_full_rank, 2, "gloo", x, qs, g, gts, ref, xc, gc, ref_c,
+                            ckpt)
+        for r in ranks:
+            check(r["block_equal"], "sharded build: a rank's rows differ from the single device's")
+            check(set(r["launches"]) == {"rng_prune"} and r["launches"]["rng_prune"] == 60,
+                  f"sharded build launched {r['launches']}")
+            check(r["sent_bytes"] == closed and r["staged_bytes"] == closed,
+                  f"sharded build ring bytes {r['sent_bytes']} / {r['staged_bytes']} != {closed}")
+            for name in ("ann_corpus", "queries", "corpus"):
+                check(r[name]["equal"], f"sharded {name} dense search differs")
+            for name in ("ann_corpus", "queries", "corpus", "queries hashed"):
+                check(set(r[name]["launches"]) == {"beam_score"}, f"{name}: {r[name]['launches']}")
+            check(abs(r["queries hashed"]["recall_at_10"] - r["queries"]["recall_at_10"])
+                  <= 0.005, f"sharded 1M hashed recall {r['queries hashed']['recall_at_10']}")
+        t0 = time.perf_counter()
+        ann = ShardedANN.restore(ckpt, xc, device="cuda")
+        restore_s = time.perf_counter() - t0
+        out = ann.search(qs, dense, tile_b=1024)
+        check(all(torch.equal(a, b) for a, b in zip(out, ref_c)),
+              "ShardedANN saved at D = 2, restored at D = 1: results differ")
+        check(all(torch.equal(a, b) for a, b in zip(ann.graph, gc)),
+              "ShardedANN restored at D = 1: graph differs from the single device's")
+        del ann, gc
+    emit({"phase": "sharded_full", "n": x.shape[0], "build_n": CUT_N, "d": x.shape[1],
+          "ranks": 2, "backend": "gloo", "build": "FULL s=20 r=96 t1=4 t2=15 M=128",
+          "queries": SHARD_Q, "search": "L=64 K=64 topk=10 dense (and hashed)",
+          "reduced": {"build_n": f"{CUT_N} (the first rows of the 1M corpus): the 1M build "
+                                 "takes 137.8 s on two gloo ranks sharing the card "
+                                 "(scripts/sharded_build.py, PR 20)"},
+          "wire_bytes_a_sweep_closed_form": sweep, "wire_bytes_build_closed_form": closed,
+          "single_device_build_s": single_build_s, "single_device_dense_search_s": single_s,
+          "single_device_qps": SHARD_Q / single_s,
+          "single_device_recall_at_10": E.recall_topk(ref[0], gts),
+          "restore_d1_s": restore_s, "restored_equal": True,
+          "parent_memory_allocated_gib": parent_gib, "per_rank": ranks})
+
+
 def warm_up() -> None:
     """One tiny launch of each kernel: loads its module, so no phase's
     timing pays for that."""
@@ -2410,8 +2727,10 @@ def main() -> int:
     report += streaming_1m(x, q, g)
     clock("streaming_1m")
     serving_1m(x, q, g)
-    del g
     clock("serving_1m")
+    sharded_phase(x, q, g, gt)
+    del g
+    clock("sharded")
     nsg_rows, nsg_launches = builders_phase(x, q, gt, res)
     clock("builders")
     report += rng_prune_report(x, {"NSG prune rows (C = 132)": nsg_rows},

@@ -103,15 +103,20 @@ def default_join_buckets(cfg: NNDescentConfig, capacity: int) -> int:
 
 
 def join_table(x: torch.Tensor, ids: torch.Tensor, flags: torch.Tensor,
-               cfg: NNDescentConfig, n_buckets: int) -> torch.Tensor:
+               cfg: NNDescentConfig, n_buckets: int, lo: int = 0,
+               n_rows: int | None = None) -> torch.Tensor:
     """The local join over ``ids``/``flags`` (n, j) scattered into packed
-    buckets: an (n, n_buckets) int64 table, each slot holding the least
-    ``(dist_key << 32) | id`` among the candidates of its row hashing there,
-    ``INT64_MAX`` if none. Source rows go in chunks of at most
-    ``JOIN_BUDGET`` candidates; only the active pairs of a chunk are
-    formed."""
+    buckets: an (n_rows, n_buckets) int64 table of the destination rows
+    [lo, lo + n_rows) (default: rows [0, n), the source rows' own), each
+    slot holding the least ``(dist_key << 32) | id`` among the candidates of
+    its row hashing there, ``INT64_MAX`` if none: the block restriction of
+    the whole table (the sharded join, ``core/shard.py``). Source rows go in
+    chunks of at most ``JOIN_BUDGET`` candidates; only the active pairs of a
+    chunk are formed."""
     n, j = ids.shape
-    table = torch.full((n * n_buckets,), INT64_MAX, dtype=torch.int64, device=ids.device)
+    restrict = n_rows is not None
+    n_rows = n if n_rows is None else n_rows
+    table = torch.full((n_rows * n_buckets,), INT64_MAX, dtype=torch.int64, device=ids.device)
     rows = max(1, JOIN_BUDGET // max(1, j * j))
     for s in range(0, n, rows):
         cid, cflag = ids[s:s + rows], flags[s:s + rows]
@@ -119,16 +124,18 @@ def join_table(x: torch.Tensor, ids: torch.Tensor, flags: torch.Tensor,
         # what the bucket scatter drops: self loops and NaN distances
         active = _active(cid, cflag, pair) & ~torch.isnan(pair) \
             & (cid[:, :, None] != cid[:, None, :])
+        if restrict:     # destination row (the pair's first id) in the block
+            active &= ((cid >= lo) & (cid < lo + n_rows))[:, :, None]
         f = active.view(-1).nonzero().squeeze(1)
         del active
         flat = cid.reshape(-1)
-        src = flat[f // j].long()
+        src = flat[f // j].long() - lo
         dst = flat[f // (j * j) * j + f % j]
         key = G.dist_key(pair.view(-1)[f])
         del pair, f
         table.scatter_reduce_(0, src * n_buckets + G._bucket_slots(dst, n_buckets),
                               (key.long() << 32) | dst.long(), reduce="amin")
-    return table.view(n, n_buckets)
+    return table.view(n_rows, n_buckets)
 
 
 def merge_rows_with_table(g: G.Graph, table: torch.Tensor, cap: int) -> G.Graph:
@@ -166,7 +173,7 @@ def join_and_update(x: torch.Tensor, g: G.Graph, cfg: NNDescentConfig) -> G.Grap
     joined vertex becomes "old" before the candidates land (Alg. 2 L7).
     The bucketed merge works in chunks of ``JOIN_BUDGET`` candidates (the
     join) or row entries (the row merge)."""
-    n, m = g.neighbors.shape
+    m = g.neighbors.shape[1]
     j = min(cfg.sample or m, m)          # join width: rows sorted, so the nearest j
     aged = G.Graph(g.neighbors, g.dists, torch.zeros_like(g.flags))
     nb = default_join_buckets(cfg, m)
@@ -176,27 +183,38 @@ def join_and_update(x: torch.Tensor, g: G.Graph, cfg: NNDescentConfig) -> G.Grap
                                        n_buckets=nb)
     table = join_table(x, g.neighbors[:, :j].contiguous(), g.flags[:, :j].contiguous(),
                        cfg, nb)
+    return merge_table_rows(aged, table, cfg.k)
+
+
+def merge_table_rows(g: G.Graph, table: torch.Tensor, cap: int) -> G.Graph:
+    """:func:`merge_rows_with_table` in chunks of ``JOIN_BUDGET`` row
+    entries."""
+    n, m = g.neighbors.shape
     out = G.empty_graph(n, m, g.neighbors.device)
-    rows = max(1, JOIN_BUDGET // (m + nb))
+    rows = max(1, JOIN_BUDGET // (m + table.shape[1]))
     for s in range(0, n, rows):
-        part = merge_rows_with_table(G.Graph(*(t[s:s + rows] for t in aged)),
-                                     table[s:s + rows], cfg.k)
+        part = merge_rows_with_table(G.Graph(*(t[s:s + rows] for t in g)),
+                                     table[s:s + rows], cap)
         for buf, val in zip(out, part):
             buf[s:s + rows] = val
     return out
 
 
 def build(x, cfg: NNDescentConfig, generator: torch.Generator | None = None,
-          device: str | torch.device = "cuda") -> G.Graph:
+          device: str | torch.device = "cuda", mesh=None) -> G.Graph:
     """NN-Descent: RandomGraph(S), then ``cfg.iters`` join-and-update
     iterations. ``x`` (n, d) float32: a tensor runs on its own device; numpy
     input is placed on ``device``. ``generator`` (on x's device) draws the
     random initial graph; None seeds one with 0. ``cfg.quant`` int8/pq
-    descends over the decoded corpus."""
+    descends over the decoded corpus. ``mesh``: row-sharded over the mesh's
+    ranks (``core/shard.py``), as in ``rnn_descent.build``."""
     x = as_tensor(x, device, torch.float32)
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
     x, _ = prep_corpus(x, cfg.quant)
+    if mesh is not None:
+        from repro_torch.core import shard
+        return shard.build_nn_descent(x, cfg, generator, mesh)
     g = random_init(x, cfg, generator)
     for _ in range(cfg.iters):
         g = join_and_update(x, g, cfg)

@@ -199,11 +199,18 @@ def refine(x: torch.Tensor, knn_g: G.Graph, cfg: NSGStyleConfig, entry=None) -> 
 
 
 def build(x, cfg: NSGStyleConfig, generator: torch.Generator | None = None,
-          entry=None, device: str | torch.device = "cuda") -> G.Graph:
+          entry=None, device: str | torch.device = "cuda", mesh=None) -> G.Graph:
     """NN-Descent (``cfg.knn``), then :func:`refine`. ``x`` and
     ``generator`` as in ``nn_descent.build``. ``cfg.quant`` int8/pq decodes
-    the corpus once at entry; every stage runs over ``x_hat``."""
+    the corpus once at entry; every stage runs over ``x_hat``. ``mesh``:
+    the K-NN stage and the per-row stages run row-sharded, the repair on
+    every rank (``core/shard.py``), as in ``rnn_descent.build``."""
     x = as_tensor(x, device, torch.float32)
     x, _ = prep_corpus(x, cfg.quant)
+    if mesh is not None:
+        from repro_torch.core import shard
+        if generator is None:
+            generator = torch.Generator(device=x.device).manual_seed(0)
+        return shard.build_nsg_style(x, cfg, generator, mesh, entry=entry)
     knn_g = nnd.build(x, cfg.knn, generator)
     return refine(x, knn_g, cfg, entry)

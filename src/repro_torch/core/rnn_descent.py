@@ -123,18 +123,26 @@ def add_reverse_edges(g: G.Graph, cfg: RNNDescentConfig) -> G.Graph:
 
 
 def build(x, cfg: RNNDescentConfig, generator: torch.Generator | None = None,
-          device: str | torch.device = "cuda") -> G.Graph:
+          device: str | torch.device = "cuda", mesh=None) -> G.Graph:
     """Paper Algorithm 6. ``x`` (n, d) float32: a tensor runs on its own
     device; numpy input is placed on ``device``. ``generator`` (on x's
     device) draws the random initial graph; None seeds one with 0.
 
     ``cfg.quant`` int8/pq builds the graph over the decoded corpus
     (:func:`prep_corpus`), the geometry the coded search traverses; the int8
-    prune gathers code rows instead of f32 rows."""
+    prune gathers code rows instead of f32 rows.
+
+    ``mesh`` (``launch.mesh.Mesh``): every rank of the mesh calls this with
+    the same corpus and generator state, and the sweeps run row-sharded
+    (``core/shard.py``); every rank gets the whole graph, equal bit for bit
+    to ``mesh=None``'s."""
     x = as_tensor(x, device, torch.float32)
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
     x, qx = prep_corpus(x, cfg.quant)
+    if mesh is not None:
+        from repro_torch.core import shard
+        return shard.build_rnn_descent(x, cfg, generator, mesh, qx=qx)
     g = random_init(x, cfg, generator)
     xg = gram_input(x, cfg)              # cast once per build, not per sweep
     for t1 in range(cfg.t1):

@@ -202,6 +202,31 @@ def _check_valid(valid, x: torch.Tensor) -> torch.Tensor | None:
 
 
 # -------------------------------------------------------------------- core
+class ScoreHooks:
+    """Pluggable scoring backend of :func:`_search_impl`.
+
+    The corpus-sharded path (``core/search_sharded.py``) reuses the beam
+    body (seeding, visited dedup, merge, retirement, rerank) and swaps only
+    the places that touch corpus-sized state for owner-contribute
+    collectives. Every hook returns values bit for bit equal to the
+    single-device computation it replaces; that is the whole parity
+    argument for ``shard="corpus"``.
+
+    ``n``/``capacity`` replace ``x.shape[0]``/``g.capacity`` (a rank holds
+    a block of the rows); ``seed``, ``beam`` and ``rerank`` replace the
+    three scoring sites; ``any_active`` replaces the termination flag's
+    ``any``: every rank must run the same iterations, so the corpus path
+    reduces it over the ranks."""
+
+    def __init__(self, n, capacity, seed, beam, rerank, any_active):
+        self.n = n                  # global corpus size
+        self.capacity = capacity    # global graph capacity (row width)
+        self.seed = seed            # (B, E) eps -> (B, E) f32 seed distances
+        self.beam = beam            # (B,) u -> ((B, K) nbrs, (B, K) cand_d)
+        self.rerank = rerank        # (B, R) rids -> (B, R) exact f32
+        self.any_active = any_active  # (B,) bool -> 0-d bool (over the ranks)
+
+
 def _merge_smallest(d: torch.Tensor, l: int, *others: torch.Tensor):
     """The ``l`` smallest of each row, ascending, ties toward the lower index
     (``lax.top_k(-d, l)``), with ``others`` gathered alongside."""
@@ -221,25 +246,33 @@ def _check_codes(cfg: SearchConfig, qx: QuantizedCorpus | None) -> str | None:
     return qmode
 
 
-def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
+def _search_impl(x: torch.Tensor | None, g: G.Graph | None, queries: torch.Tensor,
                  eps: torch.Tensor, cfg: SearchConfig,
                  lane_valid: torch.Tensor | None = None,
                  qx: QuantizedCorpus | None = None,
-                 valid: torch.Tensor | None = None):
+                 valid: torch.Tensor | None = None,
+                 hooks: ScoreHooks | None = None):
     """Returns (ids, dists, work, iters): results, per-lane expansion counts
     and the executed iteration count (a 0-d device tensor). ``valid`` (n,)
-    bool: vertices marked False are traversed but never returned."""
-    n = x.shape[0]
+    bool: vertices marked False are traversed but never returned.
+    ``hooks``: the scoring sites of the corpus-sharded path (``x``, ``g``
+    and ``qx`` are then unused)."""
+    n = x.shape[0] if hooks is None else hooks.n
     b = queries.shape[0]
     e = eps.shape[1]
     dev = queries.device
-    k = min(cfg.k, g.capacity)
+    k = min(cfg.k, g.capacity if hooks is None else hooks.capacity)
     inf = torch.tensor(float("inf"), device=dev)
-    qmode = _check_codes(cfg, qx)
-    xg = x.to(torch.bfloat16) if cfg.effective_gram_dtype == "bf16" else x
-    if qmode == "pq":
-        # loop-invariant: once per tile, never inside the beam loop
-        lut_a, lut_b, qsq = pq_lut(queries, qx.codebooks, cfg.metric)
+    if hooks is None:
+        qmode = _check_codes(cfg, qx)
+        xg = x.to(torch.bfloat16) if cfg.effective_gram_dtype == "bf16" else x
+        any_fn = torch.Tensor.any
+        if qmode == "pq":
+            # loop-invariant: once per tile, never inside the beam loop
+            lut_a, lut_b, qsq = pq_lut(queries, qx.codebooks, cfg.metric)
+    else:
+        qmode = cfg.quant.mode if cfg.quant.is_coded else None
+        any_fn = hooks.any_active
 
     # --- seed the beam with E entries (duplicate seeds within a lane inert);
     # seeds score through the corpus the beam scores (f32 rows, or the
@@ -249,7 +282,9 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
     ar = torch.arange(e, device=dev)
     dup = ((eps[:, :, None] == eps[:, None, :])
            & (ar[None, :, None] > ar[None, None, :])).any(dim=-1)
-    if qmode == "int8":
+    if hooks is not None:
+        ep_d = hooks.seed(eps)                                    # (B, E)
+    elif qmode == "int8":
         ep_d = score_lanes(int8_decode(qx.codes[eps.long()], qx.scale, qx.zero), queries,
                            cfg.metric)
     elif qmode == "pq":
@@ -278,7 +313,7 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
         else ~lane_valid.to(dev)
     work = torch.zeros((b,), dtype=torch.int32, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
-    go = (~done).any()
+    go = any_fn(~done)
     for it in range(cfg.max_iters):
         if it % _CHECK_EVERY == 0 and not bool(go):
             break
@@ -295,7 +330,9 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
         u = torch.where(active, torch.gather(beam_ids, 1, slot)[:, 0], -1)
         expanded.scatter_(1, slot, torch.gather(expanded, 1, slot) | active[:, None])
 
-        if qmode == "int8":
+        if hooks is not None:
+            nbrs, cand_d = hooks.beam(u)
+        elif qmode == "int8":
             nbrs, cand_d, _ = bs_ops.beam_score_int8(qx.codes, qx.scale, qx.zero,
                                                      g.neighbors, u, queries, k=k,
                                                      metric=cfg.metric)
@@ -321,7 +358,7 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
             torch.cat([beam_d, torch.where(fresh, cand_d, inf)], dim=1), cfg.l,
             torch.cat([beam_ids, torch.where(fresh, nbrs, -1)], dim=1),
             torch.cat([expanded, ~fresh], dim=1))
-        go = (~done).any()
+        go = any_fn(~done)
     rerank = min(cfg.quant.rerank_k, cfg.l) if qmode else 0
     ok = beam_ids >= 0
     if valid is not None:
@@ -331,7 +368,10 @@ def _search_impl(x: torch.Tensor, g: G.Graph, queries: torch.Tensor,
         # entries against x, then take the top-k of the exact distances
         # (-1/+inf pad)
         q_d, rids = _merge_smallest(torch.where(ok, beam_d, inf), rerank, beam_ids)
-        exact = score_lanes(x[rids.clamp(min=0).long()], queries, cfg.metric)
+        if hooks is not None:
+            exact = hooks.rerank(rids)
+        else:
+            exact = score_lanes(x[rids.clamp(min=0).long()], queries, cfg.metric)
         exact = torch.where(q_d < inf, exact, inf)
         out_d, out_ids = _merge_smallest(exact, cfg.topk, rids)
         return torch.where(out_d < inf, out_ids, -1), out_d, work, iters
@@ -364,7 +404,8 @@ def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
                  lane_valid: torch.Tensor | None = None,
                  device: str | torch.device = "cuda",
                  qx: QuantizedCorpus | None = None,
-                 valid: torch.Tensor | None = None):
+                 valid: torch.Tensor | None = None,
+                 mesh=None, shard: str = "queries"):
     """Stream an arbitrary query count through ``tile_b``-lane tiles; only
     one tile's search state is alive at a time. Results equal :func:`search`.
 
@@ -375,7 +416,26 @@ def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
     a coded ``cfg.quant`` and ``valid``, the (n,) tombstone mask (see
     :func:`search`). ``with_stats`` also returns
     {"work": lane-iterations expanded, "launched": iterations executed x
-    lanes launched, "tiles", "tile_lanes"}."""
+    lanes launched, "tiles", "tile_lanes"}.
+
+    ``mesh`` (``launch.mesh.Mesh``; every rank calls with the same
+    arguments and gets the whole result):
+      * ``shard="queries"``: the tiles split over the ranks of the mesh's
+        "queries" axes, each rank holding the whole corpus and graph and
+        running a contiguous run of tiles; the tile shrinks toward
+        ceil(b / D) so a small batch never pads to D full tiles. Lanes are
+        independent (the kernels and ``score_lanes`` sum in an order that
+        does not depend on the tile), so results equal ``mesh=None``'s
+        bit for bit.
+      * ``shard="corpus"``: the rows of ``x``, ``g`` and ``qx`` split over
+        the "rows" axes, and each beam step goes through owner-contribute
+        collectives (``core/search_sharded.py``); this entry slices the
+        rank's block from the whole arrays. Results equal ``mesh=None``'s
+        bit for bit."""
+    if shard not in ("queries", "corpus"):
+        raise ValueError(
+            f"unknown shard mode {shard!r}: expected \"queries\" (tiles shard, corpus "
+            "replicated) or \"corpus\" (rows shard, queries tile through collectives)")
     x = as_tensor(x, device, torch.float32)
     queries = as_tensor(queries, x.device, torch.float32)
     _check_codes(cfg, qx)
@@ -386,31 +446,58 @@ def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
         raise ValueError(
             f"lane_valid has shape {tuple(lane_valid.shape)} but the query batch "
             f"is {b}: pass one bool per lane (or None for all-live)")
+    if shard == "corpus":
+        if mesh is None:
+            raise ValueError(
+                "shard=\"corpus\" requires mesh=: corpus sharding partitions x and "
+                "the adjacency rows over the mesh's \"rows\" axis")
+        from repro_torch.core import search_sharded as SS
+        x_loc, nb_loc, qx_loc = SS.local_corpus(x, g.neighbors, qx, mesh)
+        return SS.search_tiled_corpus(x_loc, nb_loc, queries, eps, cfg, tile_b, mesh,
+                                      n=x.shape[0], valid=valid, qx=qx_loc,
+                                      with_stats=with_stats, lane_valid=lane_valid)
     tile_b = min(tile_b, b) if b > 0 else 1
-    pad = (-b) % tile_b
+    qaxes, n_dev, me = (), 1, 0
+    if mesh is not None and b > 0:
+        from repro_torch.distributed import comm as C
+        from repro_torch.distributed import sharding as SH
+        qaxes = SH.mesh_axes(mesh, "queries")
+        n_dev = SH.axis_count(mesh, "queries")
+        me = C.axis_index(mesh, qaxes)
+        tile_b = min(tile_b, -(-b // n_dev))
+    pad = (-b) % (tile_b * n_dev)
     lv = torch.arange(b + pad, device=x.device) < b
     if lane_valid is not None:
         lv[:b] &= lane_valid.to(x.device).bool()
     if pad:
         queries = torch.cat([queries, queries.new_zeros((pad, queries.shape[1]))])
         eps = torch.cat([eps, eps[:1].expand(pad, eps.shape[1])])
+    # this rank's contiguous run of tiles (all of them without a mesh)
+    span = (b + pad) // n_dev
     ids, dists, work, iters = [], [], [], []
-    for s in range(0, b + pad, tile_b):
+    for s in range(me * span, (me + 1) * span, tile_b):
         out = _search_impl(x, g, queries[s:s + tile_b], eps[s:s + tile_b], cfg,
                            lane_valid=lv[s:s + tile_b], qx=qx, valid=valid)
         for acc, val in zip((ids, dists, work, iters), out):
             acc.append(val)
     if ids:
-        ids, dists = torch.cat(ids)[:b], torch.cat(dists)[:b]
+        ids, dists, work = torch.cat(ids), torch.cat(dists), torch.cat(work)
+        iters = torch.stack(iters).sum()
     else:
         ids = torch.zeros((0, cfg.topk), dtype=torch.int32, device=x.device)
         dists = torch.zeros((0, cfg.topk), device=x.device)
+        work = torch.zeros((0,), dtype=torch.int32, device=x.device)
+        iters = torch.zeros((), dtype=torch.int32, device=x.device)
+    if n_dev > 1:
+        ids, dists, work = (C.all_gather(t, mesh, qaxes) for t in (ids, dists, work))
+        iters = C.psum(iters, mesh, qaxes)
+    ids, dists = ids[:b], dists[:b]
     if not with_stats:
         return ids, dists
     stats = {
-        "work": int(torch.cat(work)[:b].sum()) if work else 0,
-        "launched": int(torch.stack(iters).sum()) * tile_b if iters else 0,
-        "tiles": len(iters),
+        "work": int(work[:b].sum()),
+        "launched": int(iters) * tile_b,
+        "tiles": (b + pad) // tile_b if b > 0 else 0,
         "tile_lanes": tile_b,
     }
     return ids, dists, stats

@@ -1,0 +1,92 @@
+"""Fault tolerance and straggler detection for long-running jobs (port of
+``repro.distributed.fault``).
+
+  * StepWatchdog      per-step wall-time tracker; flags stragglers above
+                      ``straggler_factor`` x the trailing median.
+  * run_with_restarts crash-looping driver: run the step loop, checkpoint
+                      every k steps, on failure restore the latest commit
+                      and continue; a step that derives its data from its
+                      index makes recovery exact.
+  * elastic restore   checkpoints are host numpy (the port's checkpoint,
+                      the reference's format), so a job resumes onto
+                      whatever device it runs on now (``device=``, the
+                      reference's ``shardings=``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch import checkpoint as ckpt
+from repro_torch.obs import trace
+
+
+@dataclasses.dataclass
+class StepWatchdog:
+    window: int = 50
+    straggler_factor: float = 1.5
+    times: list = dataclasses.field(default_factory=list)
+
+    def record(self, seconds: float) -> dict:
+        self.times.append(seconds)
+        hist = self.times[-self.window:]
+        med = float(np.median(hist))
+        is_straggler = len(hist) >= 10 and seconds > self.straggler_factor * med
+        return {
+            "step_time_s": seconds,
+            "step_time_median_s": med,
+            "straggler": bool(is_straggler),
+        }
+
+
+def run_with_restarts(
+    make_state: Callable[[], Any],          # fresh state
+    step_fn: Callable[[Any, int], tuple[Any, dict]],   # (state, step) -> (state, metrics)
+    n_steps: int,
+    ckpt_dir: str,
+    ckpt_every: int = 10,
+    max_restarts: int = 3,
+    keep: int = 3,
+    device: str | torch.device = "cpu",
+) -> tuple[Any, list[dict]]:
+    """Deterministic crash-recovery driver.
+
+    ``step_fn`` receives the global step index and must derive its batch
+    from it (deterministic data order == exact recovery). Any exception
+    triggers a restore from the latest commit (its leaves as tensors on
+    ``device``); unrecoverable only after ``max_restarts``."""
+    history: list[dict] = []
+    restarts = 0
+    state = make_state()
+    start = 0
+    latest = ckpt.latest_step(ckpt_dir)
+    if latest is not None:
+        state = ckpt.restore(ckpt_dir, latest, state, device=device)
+        start = latest + 1
+
+    watchdog = StepWatchdog()
+    step = start
+    while step < n_steps:
+        try:
+            with trace.timed("fault/step", step=step) as tm:
+                state, metrics = step_fn(state, step)
+            metrics.update(watchdog.record(tm.seconds))
+            history.append(metrics)
+            if (step + 1) % ckpt_every == 0 or step == n_steps - 1:
+                ckpt.save(ckpt_dir, step, state, keep=keep)
+            step += 1
+        except Exception:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            latest = ckpt.latest_step(ckpt_dir)
+            state = make_state()
+            if latest is not None:
+                state = ckpt.restore(ckpt_dir, latest, state, device=device)
+                step = latest + 1
+            else:
+                step = 0
+    return state, history

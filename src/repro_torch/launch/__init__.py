@@ -1,1 +1,3 @@
-"""Binding (arch, shape) cells to the port's step functions."""
+"""Launch helpers: ``steps`` binds (arch, shape) cells to the port's step
+functions; ``mesh`` names meshes of ranks over ``torch.distributed`` and
+spawns them."""

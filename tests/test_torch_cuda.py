@@ -972,3 +972,51 @@ def test_serving_session_on_the_card_equals_the_cpu_route(dev, monkeypatch):
     for a, b in zip(out["cpu"][1], out["cuda"][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert out["cpu"][2] == out["cuda"][2]
+
+
+# ------------------------------------------------------------ sharded slice
+@pytest.fixture(scope="module")
+def sharded_on_the_card():
+    """Two gloo ranks sharing the card (tests/_dist_workers.card_ranks) on a
+    6,001-row corpus (odd, so the rows pad), with the single-device build
+    and dense search they are held to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import _dist_workers as W
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, q = clustered_vectors(VectorDatasetSpec.sift_like(6001, 96), gen, dev)
+    cfg = rd.RNNDescentConfig(t1=2, t2=4)
+    g = rd.build(x, cfg, torch.Generator(device=dev).manual_seed(1))
+    ids, dists = S.search_tiled(x, g, q, S.default_entry_point(x),
+                                S.SearchConfig(l=64, k=64, topk=10, visited="dense"), tile_b=64)
+    torch.cuda.synchronize()
+    return W.run(W.card_ranks, 2, x, q, g, ids, dists, cfg), x.shape[0], cfg
+
+
+def test_comm_layer_stages_cuda_tensors_under_gloo(sharded_on_the_card):
+    ranks, _, _ = sharded_on_the_card
+    payload = {"ppermute": 24, "all_to_all": 32, "all_gather": 24, "pmin": 24, "psum": 24}
+    for r in ranks:
+        assert all(r["comm_equal"].values()), r["comm_equal"]
+        assert r["comm_staged"] == payload, r["comm_staged"]
+
+
+def test_sharded_build_on_the_card_equals_single_device(sharded_on_the_card):
+    """Ring bytes: t1 t2 sweeps at 9 bytes a slot and t1 - 1 reverse passes
+    at 22, over (n_pad / 2) x 256 slots, all staged through the host."""
+    ranks, n, cfg = sharded_on_the_card
+    half = -(-n // 2)
+    closed = cfg.t1 * cfg.t2 * 9 * 256 * half + (cfg.t1 - 1) * 22 * 256 * half
+    for r in ranks:
+        assert r["build_equal"]
+        assert r["sent"] == closed and r["staged"] == closed
+
+
+@pytest.mark.parametrize("shard", ["queries", "corpus"])
+def test_sharded_search_on_the_card_equals_single_device(sharded_on_the_card, shard):
+    for r in sharded_on_the_card[0]:
+        assert r[shard + "_equal"]

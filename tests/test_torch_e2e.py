@@ -66,7 +66,11 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert not bad, bad\n"
         "want = {'repro_torch.checkpoint.checkpoint', 'repro_torch.streaming.store',\n"
         "        'repro_torch.streaming.updates', 'repro_torch.streaming.index',\n"
-        "        'repro_torch.serving.frontend', 'repro_torch.obs.trace'}\n"
+        "        'repro_torch.serving.frontend', 'repro_torch.obs.trace',\n"
+        "        'repro_torch.launch.mesh', 'repro_torch.distributed.sharding',\n"
+        "        'repro_torch.distributed.comm', 'repro_torch.distributed.ann',\n"
+        "        'repro_torch.distributed.fault', 'repro_torch.core.shard',\n"
+        "        'repro_torch.core.search_sharded'}\n"
         "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
