@@ -43,14 +43,16 @@ Phases (any failure raises and exits non-zero):
      >= recall before - 0.05, the routes within 0.01, f32 within 0.03 of the
      JAX package's (scripts/reference_medium.py serve); then 512 requests
      with dense visited at tiles of 64 and 7 lanes, equal bit for bit;
-  4. main path at full size (n = 1M, d = 128, FULL; 10k queries; hashed
-     search_tiled): launch counts are zeroed just before and read just after,
+  4. main path at full size through the paper's cells (launch.steps.bind
+     "rnnd-ann": build_1m, n = 1M, d = 128, FULL; 10k queries; hashed
+     search_tiled), launch counts zeroed just before and read just after,
      and every kernel must have launched; each sweep's prune time stands
      beside its input's extent statistics (e = 1 + the last valid slot of a
      row: mean, p50, p99, share of rows with e <= 32); then the
      dense-visited oracle at L = 64 (recall within 0.005 of the hashed run),
      recall/QPS at L = 128, 256, and a torch.profiler trace of the search
-     (device busy time);
+     (device busy time); the search_1m cell's bound step (SEARCH, top-1,
+     entry 0, the queries padded to 10,240 in one call), its own launches;
   5. each kernel against its plain version on the main path's shapes and
      data, timed with CUDA events (rounds of back-to-back calls, median
      round and spread) beside its bound and, where one exists, a single
@@ -62,6 +64,17 @@ Phases (any failure raises and exits non-zero):
      iteration 20 of the first tile (f32 rows), on random ids over bf16
      rows, and over a seeded 960-wide corpus (GIST1M's width) on the same
      adjacency, each exact on integer-valued rows and queries (l2, ip);
+  5a. ann_gist, the build_gist cell (GIST1M's width, d = 960): the medium
+     check (numpy_mixture's 5,000 rows and 200 queries at d = 960, FULL,
+     kernels and plain versions, held to each other and to the JAX
+     package's recall within 0.01); rng_prune (f32, bf16) and
+     rng_prune_int8 on the first 8192 rows of the 1M build's own
+     RandomGraph(S), pairwise_l2 on the 1,000 queries x 1M, each held and
+     timed as in phase 5; bind("rnnd-ann", "build_gist") over a 1M x 960
+     GIST-like corpus: build seconds and the merge's and prune's shares,
+     the peak memory of each build stage, launches, out-degree, connectivity, graph quality,
+     recall@10 and QPS of the hashed search against pairwise_l2's ground
+     truth; rng_prune on the built graph's rows;
   5b. the streaming index over the main path's corpus and graph (capacity
      2^20, StreamingConfig() with the FULL build): 32 rounds of two insert
      batches of 1,024 points (the corpus's mixture) and one delete batch of
@@ -130,16 +143,29 @@ Phases (any failure raises and exits non-zero):
      and RNN-Descent at n = 20,001) bit for bit against the single-device
      graph, with build and ring seconds, wire and staged bytes, peak memory
      and launches a rank; at D = 2,
-     ShardedANN.build over the first 500k rows (CUT_N) against the
+     ShardedANN.build over the first 250k rows (SHARD_BUILD_N) against the
      single-device build (the ring's bytes held to the closed form, 60
      rng_prune launches a rank), its corpus-sharded dense search, save, and
      restore at D = 1 serving the same results; on the path's 1M graph, the
      first 1,000 queries dense query-sharded and corpus-sharded, each bit for
      bit the single-device dense search, and hashed (recall@10 within 0.005
      of dense), with QPS and each rank's corpus bytes.
-Cut to fit the script's time (about 590 s): the sort-oracle witness, the
-PQ path and the sharded build run over the first 500k rows of the 1M corpus
-(CUT_N); scripts/sharded_build.py runs the sharded build at 1M. "clock" lines
+  9b. sharded streaming and serving (the mesh= paths of StreamingANN and
+     ServingFrontend), gloo ranks sharing the card: whether two
+     single-device runs of 3b's churn schedule with hashed seeding give
+     equal stores (if not, the parities seed dense); at D = 2 and 4
+     from_corpus, the schedule and compact under mesh=, every store equal
+     to the single device's; the D = 2 store saved and restored at D = 1
+     and with no mesh; at D = 2 a ManualClock serving script (256 requests,
+     4 churn events, dense visited) query- and corpus-sharded, every result
+     and store equal to the single device's session; at 1M, D = 2, on the
+     path's store, 8 insert and 4 delete batches of 1,024, the final store
+     equal to the single device's, with inserts/s, deletes/s, the
+     exchange's seconds and bytes and each rank's peak memory.
+Cut to fit the script's time (about 700 s): the sort-oracle witness and the
+PQ path run over the first 500k rows of the 1M corpus (CUT_N), the sharded
+phase's ShardedANN build over the first 250k (SHARD_BUILD_N);
+scripts/sharded_build.py runs the sharded build at 1M. "clock" lines
 give the seconds since start after each phase. The last lines are the
 kernels' JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -165,13 +191,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 F32_PEAK = 67e12     # H100 SXM f32 outside the tensor cores, FLOP/s (700 W)
 HBM_RATE = 3.35e12   # H100 SXM HBM3, bytes/s
 SEED = 0
-# the paper's build (rnnd_ann.FULL: S = 20, R = 96, T1 = 4, T2 = 15, M = 128)
-FULL_BUILD = {"s": 20, "r": 96, "t1": 4, "t2": 15, "capacity": 128}
 FULL_N, FULL_Q = 1_000_000, 10_000
 MEDIUM_N, MEDIUM_Q = 20_000, 500
+# the GIST-width medium check: numpy_mixture's corpus at d = 960 (rows, queries)
+GIST_MEDIUM = (5_000, 200)
 # Paths cut to fit the script's time: the first rows of the 1M corpus, with
-# their own ground truth (the sort-oracle witness, then the PQ path)
+# their own ground truth (the sort-oracle witness, then the PQ path), and the
+# rows of the sharded phase's ShardedANN build
 CUT_N = 500_000
+SHARD_BUILD_N = 250_000
 # The JAX package on the CPU at the medium configuration: f32, int8, pq over
 # its own draw of the same mixture (scripts/reference_medium.py); the
 # baselines (NNDescentConfig(), NSGStyleConfig() on it) over numpy_mixture's
@@ -187,7 +215,10 @@ REF_MEDIUM = {"f32": {"recall_at_10": 0.998, "avg_out_degree": 12.5},
               # scripts/reference_medium.py churn: medium_streaming's schedule
               "churn": {"recall_stream": 0.9908, "recall_rebuild": 0.9944},
               # scripts/reference_medium.py serve: medium_serving's f32 session
-              "serve": {"recall_before": 0.9898, "recall_after": 0.9900}}
+              "serve": {"recall_before": 0.9898, "recall_after": 0.9900},
+              # scripts/reference_medium.py gist: ann_gist's medium check (d = 960)
+              "gist": {"recall_at_10": 1.0, "recall_at_1": 1.0, "avg_out_degree": 11.0058,
+                       "connectivity": 0.9998}}
 QUANT_KW = {"int8": {"mode": "int8", "rerank_k": 64},
             "pq": {"mode": "pq", "m": 32, "rerank_k": 64}}
 # the kernels each corpus mode's path must launch (and no other)
@@ -202,6 +233,20 @@ CODED_DELTA = {"int8": 0.03, "pq": 0.05}
 # ceiling of 1 (int8) it is "f32 minus 0.05". PQ's ceiling is far below 1
 # at 1M (PERF.md): the quantizer's loss, not the graph's.
 FULL_CODED_SLACK = 0.05
+
+
+def full_build(**kw):
+    """``rnnd_ann.FULL``, the paper's build (S = 20, R = 96, T1 = 4, T2 = 15,
+    M = 128), with ``kw`` replaced."""
+    from repro_torch.configs import rnnd_ann
+    return dataclasses.replace(rnnd_ann.FULL, **kw)
+
+
+def full_search(**kw):
+    """``rnnd_ann.SEARCH`` (L = K = 64, 256 iterations), top-10, with ``kw``
+    replaced."""
+    from repro_torch.configs import rnnd_ann
+    return dataclasses.replace(rnnd_ann.SEARCH, **{"topk": 10, **kw})
 
 
 def check(cond: bool, msg: str) -> None:
@@ -317,6 +362,32 @@ def event_timed(module, names):
             out[name].extend(s.elapsed_time(e) for s, e in events[name])
 
 
+@contextlib.contextmanager
+def stage_peaks(module, names):
+    """Wrap ``module.<name>`` for each name (top-level stages that do not
+    call one another): the allocator's peak in GiB while each call runs,
+    the largest over its calls; yields {name: GiB}, filled in as calls
+    end. Each call resets the peak counter, so the span's own peak is the
+    largest of these readings."""
+    saved, out = {}, {n: 0.0 for n in names}
+    for name in names:
+        orig = saved[name] = getattr(module, name)
+
+        def wrapper(*a, _orig=orig, _name=name, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = _orig(*a, **kw)
+            torch.cuda.synchronize()
+            out[_name] = max(out[_name], torch.cuda.max_memory_allocated() / 2**30)
+            return res
+        setattr(module, name, wrapper)
+    try:
+        yield out
+    finally:
+        for name in names:
+            setattr(module, name, saved[name])
+
+
 def graph_quality(x, g, rows: int, gen_seed: int) -> dict:
     """Build-side witness: for ``rows`` sampled vertices, the share whose
     exact nearest neighbour is in its adjacency row (the RNG prune never
@@ -420,9 +491,12 @@ def check_launches(launches: dict, mode: str, route: str = "kernel") -> None:
 
 
 def run_path(x, q, n_queries_tile: int, gen_seed: int, medium: bool,
-             merge: str = "bucketed", mode: str = "f32", gt=None, snap: dict | None = None):
+             merge: str = "bucketed", mode: str = "f32", gt=None, snap: dict | None = None,
+             build_step=None):
     """Build (FULL), ground truth (unless ``gt`` is given), hashed tiled
-    search (SEARCH, top-10). A coded ``mode`` ("int8", "pq") builds under
+    search (SEARCH, top-10). ``build_step``: a bound ``ann_build`` cell
+    (``launch.steps.bind``) whose step builds, from this seed, with its own
+    config (which must be this path's). A coded ``mode`` ("int8", "pq") builds under
     that quantization (the build encodes the corpus itself), encodes the
     corpus again for the search, as a server would, and searches the codes
     with the rerank tail. Each sweep's prune time stands beside its input's
@@ -434,16 +508,22 @@ def run_path(x, q, n_queries_tile: int, gen_seed: int, medium: bool,
     from repro_torch.quant import quantization as Qm
     quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
     # chunk: rows per gather of the plain prune (a medium sweep in one)
-    cfg = rd.RNNDescentConfig(**FULL_BUILD,
-                              chunk=MEDIUM_N if medium else 512, merge=merge, quant=quant)
-    scfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10, quant=quant)
+    cfg = full_build(chunk=MEDIUM_N if medium else 512, merge=merge, quant=quant)
+    scfg = full_search(quant=quant)
     res = {"mode": mode}
     with event_timed(rd, ("prune_rows", "update_neighbors", "add_reverse_edges")) as ev, \
             event_timed(Qm, ("quantize_int8", "train_pq", "encode_pq_rows")) as qev, \
             captured(Qm, "encode_corpus") as built_qx, prune_inputs(rd, snap) as (hists, hist_ms):
+        gen = torch.Generator(device=x.device).manual_seed(gen_seed)
+        if build_step is not None:
+            check(build_step.cfg == cfg and build_step.input_specs["x"][0] == tuple(x.shape),
+                  f"{build_step.shape.name}: bound config or shape is not the path's")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        g = rd.build(x, cfg, torch.Generator(device=x.device).manual_seed(gen_seed))
+        if build_step is not None:
+            g = build_step.step_fn({}, {"x": x, "generator": gen})
+        else:
+            g = rd.build(x, cfg, gen)
         torch.cuda.synchronize()
         res["build_s"] = time.perf_counter() - t0
     res["prune_s"] = sum(ev["prune_rows"]) / 1e3
@@ -608,7 +688,7 @@ def search_graph(x, q, g, gt, tile_b: int) -> dict:
     QPS, out-degree and the connectivity lower bound."""
     from repro_torch.core import eval as E
     from repro_torch.core import search as S
-    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10)
+    cfg = full_search()
     ep = S.default_entry_point(x)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -848,7 +928,7 @@ def medium_streaming():
     pool, q = (torch.from_numpy(a).to("cuda") for a in numpy_mixture(MEDIUM_N, MEDIUM_Q, SEED))
     n0, schedule = churn_schedule(MEDIUM_N)
     # chunk: rows per gather of the plain prune (a medium sweep in one)
-    cfg = StreamingConfig(build=rd.RNNDescentConfig(**FULL_BUILD, chunk=MEDIUM_N), **STREAM_KW)
+    cfg = StreamingConfig(build=full_build(chunk=MEDIUM_N), **STREAM_KW)
     ref = REF_MEDIUM["churn"]
     out = {}
     for mode in ("f32", "int8", "pq"):
@@ -1105,7 +1185,7 @@ def medium_serving():
     from repro_torch.streaming import store as ST
     x_np, q_np = numpy_mixture(MEDIUM_N, MEDIUM_Q, SEED)
     n0 = int(MEDIUM_N / 1.3)
-    cfg = StreamingConfig(build=rd.RNNDescentConfig(**FULL_BUILD, chunk=MEDIUM_N), **STREAM_KW)
+    cfg = StreamingConfig(build=full_build(chunk=MEDIUM_N), **STREAM_KW)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     base = StreamingANN.from_corpus(x_np[:n0], cfg,
@@ -1194,9 +1274,9 @@ def streaming_1m(x, q, g):
     from repro_torch.streaming import store as ST
     from repro_torch.streaming import updates as U
     n, b = x.shape[0], STREAM_BATCH
-    build = rd.RNNDescentConfig(**FULL_BUILD)
+    build = full_build()
     cfg = StreamingConfig(build=build)
-    scfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10)
+    scfg = full_search()
     centers = mixture_centers(VectorDatasetSpec.sift_like(FULL_N, FULL_Q),
                               torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
@@ -1384,7 +1464,7 @@ def serving_1m(x, q, g):
     pool = mixture_rows(centers, SERVE_WB * (SERVE_EVENTS_1M + 4),
                         torch.Generator(device="cuda").manual_seed(SEED + 40)).cpu().numpy()
     ann = StreamingANN(ST.from_built(x, g, capacity=2**20), StreamingConfig(
-        build=rd.RNNDescentConfig(**FULL_BUILD)))
+        build=full_build()))
     q_np = q[:SERVE_QUERIES_1M].cpu().numpy()
     res = serving_session(ann, q_np, S.SearchConfig(**CHURN_SEARCH), pool, n, SERVE_REQ_1M,
                           SERVE_EVENTS_1M, trace_requests=SERVE_TRACED_1M)
@@ -1455,24 +1535,63 @@ def builders_phase(x, q, gt, rnnd: dict):
     return rows, launches
 
 
+def bound_search(bound, x, q, g, gt) -> dict:
+    """The ``search_1m`` cell as bound (``rnnd_ann.SEARCH``, top-1, entry
+    point 0, all queries in one call) over the path's graph, its queries
+    padded by repetition to the cell's multiple of 512: recall@1 over the
+    real queries, QPS, launches (counted from zero over this call alone)."""
+    from repro_torch.core import eval as E
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    (nq, d), _ = bound.input_specs["queries"]
+    check(bound.input_specs["x"][0] == tuple(x.shape) and nq >= q.shape[0],
+          f"search_1m: bound inputs {bound.input_specs} against x {tuple(x.shape)}")
+    qp = torch.cat([q, q[:nq - q.shape[0]]])
+    batch = {"x": x, "neighbors": g.neighbors, "dists": g.dists, "queries": qp}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists = bound.step_fn({}, batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    check(set(launches) == {"beam_score"}, f"search_1m launched {launches}")
+    check(ids.shape == (nq, 1) and bool(torch.isfinite(dists).all())
+          and bool(((ids >= 0) & (ids < x.shape[0])).all()), "search_1m: bad results")
+    res = {"queries": nq, "search_s": sec, "qps": nq / sec, "launches": launches,
+           "recall_at_1": E.recall_at_k(ids[:q.shape[0]], gt)}
+    check(res["recall_at_1"] >= 0.78, f"search_1m recall@1 {res['recall_at_1']}")
+    return res
+
+
 def full_phase():
+    """The main path through the paper's cells: ``build_1m`` and
+    ``search_1m`` bound by ``launch.steps.bind("rnnd-ann", ...)``; the
+    allocator's peak of each build stage beside the path's."""
+    from repro_torch.core import rnn_descent as rd
     from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x, q = clustered_vectors(VectorDatasetSpec.sift_like(FULL_N, FULL_Q), gen, "cuda")
+    build_step = steps.bind("rnnd-ann", "build_1m", device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     snap = {}
-    g, gt, ids, _, res = run_path(x, q, 1024, SEED + 1, medium=False, snap=snap)
+    with stage_peaks(rd, ("random_init", "update_neighbors", "add_reverse_edges")) as peaks:
+        g, gt, ids, _, res = run_path(x, q, 1024, SEED + 1, medium=False, snap=snap,
+                                      build_step=build_step)
     launches = dict(LAUNCHES)
     check_launches(launches, "f32")
     res["launches"] = launches
-    res["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["stage_peak_gib"] = peaks
+    res["max_memory_allocated_gib"] = max(torch.cuda.max_memory_allocated() / 2**30,
+                                          *peaks.values())
     res.update(graph_quality(x, g, 10_000, SEED + 11))
+    res["search_1m_bound"] = bound_search(steps.bind("rnnd-ann", "search_1m", device="cuda"), x, q, g, gt)
     emit({"phase": "path", "n": FULL_N, "d": 128, "queries": FULL_Q,
-          "build": "FULL s=20 r=96 t1=4 t2=15 M=128", "search": "L=64 K=64 topk=10 hashed",
-          "reduced": None, **res})
+          "build": "bind('rnnd-ann', 'build_1m'): FULL s=20 r=96 t1=4 t2=15 M=128",
+          "search": "L=64 K=64 topk=10 hashed", "reduced": None, **res})
     # 0.801 on the committed code; the sort-oracle build below must agree
     check(res["recall_at_10"] >= 0.78, f"full-size recall@10 {res['recall_at_10']}")
     search_checks(x, q, g, gt, ids, res["recall_at_10"])
@@ -1527,7 +1646,7 @@ def search_trace(x, q, g, search_s, mode: str = "f32", qx=None):
     from repro_torch.core import search as S
     from repro_torch.quant import Quantization
     quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
-    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10, quant=quant)
+    cfg = full_search(quant=quant)
     ep = S.default_entry_point(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1622,7 +1741,7 @@ def frontier_snapshot(x, q, g, mode: str, qx=None) -> torch.Tensor:
     from repro_torch.quant import Quantization
     name = "beam_score" if mode == "f32" else f"beam_score_{mode}"
     quant = Quantization(**QUANT_KW[mode]) if mode != "f32" else Quantization()
-    cfg = S.SearchConfig(l=64, k=64, max_iters=256, topk=10, quant=quant)
+    cfg = full_search(quant=quant)
     with captured(B, name) as calls:
         S.search(x, g, q[:1024], S.default_entry_point(x), cfg, qx=qx)
     check(len(calls) > SNAP_ITER, f"{mode} search ran {len(calls)} beam iterations")
@@ -1875,6 +1994,220 @@ def kernel_phase(x, q, g, launches, snap):
         "library_ms": time_ms(lambda i: torch.cdist(qa, x), inner=5)["ms"],
         "library_call": "torch.cdist (Euclidean, i.e. the square root of the same matrix)",
         "shape": {"na": 1024, "nb": n, "d": d}})
+    return report
+
+
+# ------------------------------------------------------------- GIST1M's width
+GIST_N, GIST_Q = 1_000_000, 1_000     # the build_gist cell and its queries
+# recall@10 floor of the 1M GIST-width build (hashed, L = K = 64): its first
+# run on the card read 0.7124 (PERF.md); no JAX number exists at 1M
+GIST_RECALL_FLOOR = 0.69
+
+
+def gist_medium() -> dict:
+    """The GIST-width medium check: numpy_mixture's corpus at d = 960
+    (GIST_MEDIUM rows and queries, shared with scripts/reference_medium.py
+    gist), the FULL build and hashed search through the kernels and through
+    the plain versions, held to each other and to the JAX package's recall
+    within 0.01, and to its out-degree within 10 %."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    ref = REF_MEDIUM["gist"]
+    x, q = (torch.from_numpy(a).to("cuda") for a in numpy_mixture(*GIST_MEDIUM, SEED, d=960))
+    out = {}
+    for route in ("kernel", "plain"):
+        reset_launches()
+        with plain_versions() if route == "plain" else contextlib.nullcontext():
+            g, _, _, _, res = run_path(x, q, q.shape[0], SEED + 1, medium=True)
+        res["launches"] = dict(LAUNCHES)
+        check_launches(res["launches"], "f32", route)
+        emit({"phase": "ann_gist_medium", "route": route, "n": x.shape[0], "d": x.shape[1],
+              "queries": q.shape[0], "build": "rnnd_ann.FULL",
+              "search": "L=64 K=64 topk=10 hashed", "reference": ref, **res})
+        check(abs(res["recall_at_10"] - ref["recall_at_10"]) <= 0.01,
+              f"GIST medium {route}: recall@10 {res['recall_at_10']} against the JAX "
+              f"package's {ref['recall_at_10']}")
+        check(abs(res["avg_out_degree"] - ref["avg_out_degree"]) <= 0.1 * ref["avg_out_degree"],
+              f"GIST medium {route}: out-degree {res['avg_out_degree']}")
+        out[route] = res
+    delta = abs(out["kernel"]["recall_at_10"] - out["plain"]["recall_at_10"])
+    check(delta <= 0.01, f"GIST medium: kernel vs plain recall@10 differ by {delta}")
+    return out
+
+
+def int8_prune_report(x, inputs: dict, launches: int) -> list:
+    """rng_prune_int8 beside its plain version at each prune input over the
+    int8 codes of ``x`` (``quantize_int8``): exact on a small integer code
+    space (codes in [-8, 8], dyadic scale, integer zero: every sum exact in
+    f32 at any d here), held to the agreement limits on the real codes, and
+    timed (l2)."""
+    from repro_torch.core import distances as D
+    from repro_torch.kernels.rng_prune import ops as R
+    from repro_torch.quant import int8_decode, quantize_int8
+    n, d = x.shape
+    qx = quantize_int8(x)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    ci = torch.randint(-8, 9, (n, d), generator=gen, device="cuda").to(torch.int8)
+    sc_i = 2.0 ** -torch.randint(0, 2, (d,), generator=gen, device="cuda").float()
+    ze_i = torch.randint(-3, 4, (d,), generator=gen, device="cuda").float()
+    xh = int8_decode(qx.codes, qx.scale, qx.zero)
+    scale = 2 * float((xh * xh).sum(1).max())
+    del xh
+    xi = int8_decode(ci, sc_i, ze_i)
+    report = []
+    for label, (ids, dists, flags) in inputs.items():
+        rows, m = ids.shape
+        src = torch.arange(rows, device="cuda", dtype=torch.int32)[:, None].expand(rows, m)
+        di = D.gather_dists(xi, src.reshape(-1), ids.reshape(-1), "l2").reshape(rows, -1)
+        for metric in ("l2", "ip"):
+            ker = R.rng_prune_int8(ci, sc_i, ze_i, ids, di, flags, metric)
+            ref = R.rng_prune_int8_plain(ci, sc_i, ze_i, ids, di, flags, metric, chunk=rows)
+            check(all(torch.equal(a, b) for a, b in zip(ker, ref)),
+                  f"rng_prune_int8 integer-valued {metric} at {label}: kernel != plain")
+        errs = {}
+        for metric in ("l2", "ip", "cos"):
+            ker = R.rng_prune_int8(qx.codes, qx.scale, qx.zero, ids, dists, flags, metric)
+            ref = R.rng_prune_int8_plain(qx.codes, qx.scale, qx.zero, ids, dists, flags,
+                                         metric, chunk=rows)
+            errs[metric] = _prune_agreement(
+                "rng_prune_int8", ker, ref, 1e-5 * (2.0 if metric == "cos" else scale),
+                {"input": label, "metric": metric, "rows": rows, "M": m, "d": d})
+        call = (qx.codes, qx.scale, qx.zero, ids, dists, flags)
+        report.append({
+            "name": "rng_prune_int8", "input": label, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rng_prune.cu",
+            "replaces": "src/repro/kernels/rng_prune/kernel.py:129",
+            "launches": launches, "max_abs_err": errs["l2"],
+            "tolerance": f"keep, red_w agreement >= 0.999; red_d <= 1e-5 * 2 max|x_hat|^2 = "
+                         f"{1e-5 * scale:.3g} (l2, ip), 2e-5 (cos); exact on an integer-valued "
+                         "code space",
+            **_timed_keys(time_ms(lambda i: R.rng_prune_int8(*call), inner=20),
+                          time_ms(lambda i: R.rng_prune_int8_plain(*call, "l2", rows),
+                                  inner=1, rounds=3, warmup=1)),
+            **prune_bound(ids, d, 1, 2 * d * 4),
+            "device_ms": device_ms(lambda i: R.rng_prune_int8(*call), 20, "rng_prune_kernel"),
+            "library_ms": None, "shape": {"rows": rows, "M": m, "d": d}})
+    return report
+
+
+def pairwise_l2_report(x, qa, launches: int, label: str) -> dict:
+    """pairwise_l2 beside its plain version on ``qa`` x the corpus: within
+    1e-5 of |a|^2 + |b|^2, exact on integer-valued rows; timed beside
+    torch.cdist."""
+    from repro_torch.kernels.pairwise_l2 import ops as P
+    n, d = x.shape
+    na = qa.shape[0]
+    ker = P.pairwise_l2(qa, x)
+    ref = P.pairwise_l2_ref(qa, x)
+    scale = (qa * qa).sum(1)[:, None] + (x * x).sum(1)[None, :]
+    rel = float(((ker - ref).abs() / scale).max())
+    err = float((ker - ref).abs().max())
+    del ker, ref, scale
+    check(rel <= 1e-5, f"pairwise_l2 ({label}): error {rel} of |a|^2 + |b|^2")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    bi = torch.randint(-8, 9, (100_000, d), generator=gen, device="cuda").float()
+    ai = bi[:1024].contiguous()
+    check(torch.equal(P.pairwise_l2(ai, bi), P.pairwise_l2_ref(ai, bi)),
+          f"pairwise_l2 integer-valued ({label}): kernel != plain")
+    del ai, bi
+    return {
+        "name": "pairwise_l2", "input": label, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pairwise_l2.cu",
+        "replaces": "src/repro/kernels/pairwise_l2/kernel.py:49",
+        "launches": launches, "max_abs_err": err, "tolerance": "|err| <= 1e-5 * (|a|^2 + |b|^2)",
+        **_timed_keys(time_ms(lambda i: P.pairwise_l2(qa, x), inner=3, rounds=3),
+                      time_ms(lambda i: P.pairwise_l2_ref(qa, x), inner=3, rounds=3)),
+        **_bound(2.0 * na * n * d, (na * d + n * d + na * n) * 4.0),
+        "device_ms": device_ms(lambda i: P.pairwise_l2(qa, x), 3, "pairwise_l2_kernel"),
+        "library_ms": time_ms(lambda i: torch.cdist(qa, x), inner=3, rounds=3)["ms"],
+        "library_call": "torch.cdist (Euclidean, i.e. the square root of the same matrix)",
+        "shape": {"na": na, "nb": n, "d": d}}
+
+
+def ann_gist() -> list:
+    """The ``build_gist`` cell: the medium GIST-width check, then rng_prune
+    (f32, bf16, int8) and pairwise_l2 at d = 960 against their plain
+    versions (the prune on the first PRUNE_ROWS rows of the 1M build's own
+    RandomGraph(S), before the build, so a fault shows as a kernel fault),
+    then ``bind("rnnd-ann", "build_gist")`` over a 1M x 960 GIST-like
+    corpus: build seconds with the merge's and the prune's share, the
+    allocator's peak in each stage (RandomGraph(S), the sweeps, the reverse
+    passes), launches (zeroed just before the build, read after the search),
+    out-degree, connectivity, graph quality, recall@10 and QPS of a hashed
+    search_tiled (L = K = 64) over GIST_Q queries against pairwise_l2's
+    ground truth; then rng_prune on the built graph's rows. Returns the
+    kernels' entries."""
+    from repro_torch.core import eval as E
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    gist_medium()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x, q = clustered_vectors(VectorDatasetSpec.gist_like(GIST_N, GIST_Q), gen, "cuda")
+    step = steps.bind("rnnd-ann", "build_gist", device="cuda")
+    init = rd.random_init(x, step.cfg, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    sweep1 = {"GIST sweep 1 (d = 960)": tuple(t[:PRUNE_ROWS].contiguous() for t in init)}
+    del init
+    report = rng_prune_report(x, sweep1, 0) + int8_prune_report(x, sweep1, 0)
+    report.append(pairwise_l2_report(x, q, 0, f"{GIST_Q} GIST queries x 1M (d = 960)"))
+    torch.cuda.empty_cache()
+    clock("ann_gist_kernels")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    res = {}
+    stages = ("random_init", "update_neighbors", "add_reverse_edges")
+    with event_timed(rd, ("prune_rows", "update_neighbors", "add_reverse_edges")) as ev, \
+            stage_peaks(rd, stages) as peaks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = step.step_fn({}, {"x": x, "generator": torch.Generator(device="cuda")
+                              .manual_seed(SEED + 1)})
+        torch.cuda.synchronize()
+        res["build_s"] = time.perf_counter() - t0
+    res["prune_s"] = sum(ev["prune_rows"]) / 1e3
+    res["merge_s"] = (sum(ev["update_neighbors"]) - sum(ev["prune_rows"])) / 1e3
+    res["reverse_s"] = sum(ev["add_reverse_edges"]) / 1e3
+    res["prune_share"] = res["prune_s"] / res["build_s"]
+    res["merge_share"] = res["merge_s"] / res["build_s"]
+    res["stage_peak_gib"] = peaks
+    res["max_memory_allocated_gib"] = max(peaks.values())
+    t0 = time.perf_counter()
+    _, gt = E.ground_truth(x, q, k=10, tile=1024)
+    torch.cuda.synchronize()
+    res["gt_s"] = time.perf_counter() - t0
+    ep = S.default_entry_point(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists = S.search_tiled(x, g, q, ep, full_search(), tile_b=1024)
+    torch.cuda.synchronize()
+    res["search_s"] = time.perf_counter() - t0
+    launches = res["launches"] = dict(LAUNCHES)
+    check_launches(launches, "f32")
+    check(ids.shape == (GIST_Q, 10) and bool(torch.isfinite(dists).all())
+          and bool((torch.diff(dists, dim=1) >= 0).all()), "GIST search: bad results")
+    res["qps"] = GIST_Q / res["search_s"]
+    res["recall_at_10"] = E.recall_topk(ids, gt)
+    res["recall_at_1"] = E.recall_at_k(ids, gt)
+    res["avg_out_degree"] = E.degree_stats(g)["avg_out_degree"]
+    res["connectivity"] = E.connectivity_lower_bound(g, int(ep))
+    res.update(graph_quality(x, g, 10_000, SEED + 11))
+    emit({"phase": "ann_gist", "cell": "rnnd-ann/build_gist", "n": GIST_N, "d": x.shape[1],
+          "queries": GIST_Q, "build": "bind('rnnd-ann', 'build_gist'): FULL",
+          "search": "L=64 K=64 topk=10 hashed", "reduced": None, **res})
+    check(res["recall_at_10"] >= GIST_RECALL_FLOOR,
+          f"GIST 1M recall@10 {res['recall_at_10']} below {GIST_RECALL_FLOOR}")
+    check(res["connectivity"] >= 0.99, f"GIST 1M connectivity {res['connectivity']}")
+    final = {"GIST final graph (d = 960)": tuple(t[:PRUNE_ROWS].contiguous() for t in g)}
+    del g, gt, ids, dists
+    report += rng_prune_report(x, final, launches["rng_prune"])
+    for entry in report:
+        entry["launches"] = launches.get(entry["name"], 0)
+        entry["launches_path"] = "rnnd-ann/build_gist (build, ground truth, search)"
+    del x, q
+    torch.cuda.empty_cache()
     return report
 
 
@@ -2435,8 +2768,8 @@ def _medium_builds(x, x_pad):
     from repro_torch.core import nsg_style as ns
     from repro_torch.core import rnn_descent as rd
     from repro_torch.quant import Quantization
-    f32 = rd.RNNDescentConfig(**FULL_BUILD, chunk=MEDIUM_N)
-    int8 = rd.RNNDescentConfig(**FULL_BUILD, chunk=MEDIUM_N,
+    f32 = full_build(chunk=MEDIUM_N)
+    int8 = full_build(chunk=MEDIUM_N,
                                quant=Quantization(**QUANT_KW["int8"]))
     return {
         "rnn-descent f32": (lambda x, gen, mesh: rd.build(x, f32, gen, mesh=mesh), x, SEED + 1),
@@ -2519,7 +2852,7 @@ def _timed_search(mesh, run, nq: int, gt=None) -> tuple:
 
 def sharded_full_rank(rank, world, x, q, g, gt, ref, xc, gc, ref_c, ckpt_dir, out_dir):
     """Two gloo ranks sharing the card. ShardedANN.build (row-sharded
-    RNN-Descent, FULL, the path's generator seed) over the first CUT_N rows
+    RNN-Descent, FULL, the path's generator seed) over the first SHARD_BUILD_N rows
     ``xc``, its rows placed corpus-sharded, held block for block to the
     single-device graph ``gc``; its dense search of ``q`` against ``ref_c``;
     ann.save. Then at 1M on the path's graph ``g``: the dense search of
@@ -2530,7 +2863,7 @@ def sharded_full_rank(rank, world, x, q, g, gt, ref, xc, gc, ref_c, ckpt_dir, ou
     from repro_torch.distributed.ann import ShardedANN, place_rows
     mesh = _card_mesh(world, "gloo")
     ann, st = _timed_build(mesh, lambda: ShardedANN.build(
-        xc, "rnn-descent", rd.RNNDescentConfig(**FULL_BUILD),
+        xc, "rnn-descent", full_build(),
         torch.Generator(device="cuda").manual_seed(SEED + 1), mesh=mesh, serve_shard="corpus"))
     st["block_equal"] = all(torch.equal(a, b) for a, b in
                             zip(ann.graph, place_rows(gc, mesh, xc.shape[0])))
@@ -2600,14 +2933,14 @@ def sharded_phase(x, q, g, gt):
                   "n": want[name].neighbors.shape[0], "single_device_build_s": single[name],
                   "equal": True, "per_rank": per})
     del refs, xm, x_pad
-    # the single-device references: the CUT_N build and its dense search,
+    # the single-device references: the SHARD_BUILD_N build and its dense search,
     # the path's dense search at 1M (the first SHARD_Q queries)
     qs, gts = q[:SHARD_Q].contiguous(), gt[:SHARD_Q].contiguous()
     dense = S.SearchConfig(**SHARD_DENSE)
-    xc = x[:CUT_N]
+    xc = x[:SHARD_BUILD_N]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gc = rd.build(xc, rd.RNNDescentConfig(**FULL_BUILD),
+    gc = rd.build(xc, full_build(),
                   torch.Generator(device="cuda").manual_seed(SEED + 1))
     torch.cuda.synchronize()
     single_build_s = time.perf_counter() - t0
@@ -2620,10 +2953,11 @@ def sharded_phase(x, q, g, gt):
     single_s = time.perf_counter() - t0
     check(LAUNCHES["beam_score"] > 0, "single-device dense search launched no beam_score")
     from repro_torch.core import graph as G
-    n_pad = -(-CUT_N // 2) * 2
-    sweep = 9 * G.default_buckets(FULL_BUILD["capacity"]) * n_pad // 2
-    closed = FULL_BUILD["t1"] * FULL_BUILD["t2"] * sweep \
-        + (FULL_BUILD["t1"] - 1) * 22 * G.default_buckets(FULL_BUILD["r"]) * n_pad // 2
+    n_pad = -(-SHARD_BUILD_N // 2) * 2
+    full = full_build()
+    sweep = 9 * G.default_buckets(full.capacity) * n_pad // 2
+    closed = full.t1 * full.t2 * sweep \
+        + (full.t1 - 1) * 22 * G.default_buckets(full.r) * n_pad // 2
     with tempfile.TemporaryDirectory() as ckpt:
         torch.cuda.empty_cache()
         parent_gib = torch.cuda.memory_allocated() / 2**30
@@ -2650,18 +2984,341 @@ def sharded_phase(x, q, g, gt):
         check(all(torch.equal(a, b) for a, b in zip(ann.graph, gc)),
               "ShardedANN restored at D = 1: graph differs from the single device's")
         del ann, gc
-    emit({"phase": "sharded_full", "n": x.shape[0], "build_n": CUT_N, "d": x.shape[1],
+    emit({"phase": "sharded_full", "n": x.shape[0], "build_n": SHARD_BUILD_N, "d": x.shape[1],
           "ranks": 2, "backend": "gloo", "build": "FULL s=20 r=96 t1=4 t2=15 M=128",
           "queries": SHARD_Q, "search": "L=64 K=64 topk=10 dense (and hashed)",
-          "reduced": {"build_n": f"{CUT_N} (the first rows of the 1M corpus): the 1M build "
-                                 "takes 137.8 s on two gloo ranks sharing the card "
-                                 "(scripts/sharded_build.py, PR 20)"},
+          "reduced": {"build_n": f"{SHARD_BUILD_N} (the first rows of the 1M corpus): the 1M "
+                                 "build takes 137.8 s on two gloo ranks sharing the card "
+                                 "(scripts/sharded_build.py)"},
           "wire_bytes_a_sweep_closed_form": sweep, "wire_bytes_build_closed_form": closed,
           "single_device_build_s": single_build_s, "single_device_dense_search_s": single_s,
           "single_device_qps": SHARD_Q / single_s,
           "single_device_recall_at_10": E.recall_topk(ref[0], gts),
           "restore_d1_s": restore_s, "restored_equal": True,
           "parent_memory_allocated_gib": parent_gib, "per_rank": ranks})
+
+
+# ------------------------------------------------------ sharded streaming (10b)
+SS_WORLDS = (2, 4)                   # gloo ranks sharing the card at medium
+SS_REQ, SS_EVENTS = 256, 4           # the sharded serving script: requests, churn events
+SS_1M_ROUNDS = 4                     # rounds of two insert and one delete batch at 1M, D = 2
+
+
+def _store_leaves(st) -> list:
+    from repro_torch.checkpoint.checkpoint import flatten
+    return [t for _, t in flatten(st)]
+
+
+def _same_leaves(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _seeding(mode: str) -> None:
+    """Seed inserts through ``mode`` visited ("hashed", the default, or
+    "dense") in this process."""
+    from repro_torch.streaming import updates as U
+    if mode == "dense":
+        orig = U.StreamingConfig.seed_search_cfg
+        U.StreamingConfig.seed_search_cfg = \
+            lambda self: dataclasses.replace(orig(self), visited="dense")
+
+
+def _churn_stores(ann, pool, schedule) -> tuple:
+    """Run ``schedule`` (churn_schedule's ops) on ``ann``, then compact:
+    (the store's leaves after each step, insert and delete seconds)."""
+    leaves, secs = [_store_leaves(ann.store)], {"ins": 0.0, "del": 0.0}
+    for op, arg in schedule:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ann.insert(pool[arg]) if op == "ins" else ann.delete(arg)
+        torch.cuda.synchronize()
+        secs[op] += time.perf_counter() - t0
+        leaves.append(_store_leaves(ann.store))
+    ann.compact()
+    leaves.append(_store_leaves(ann.store))
+    return leaves, secs
+
+
+def _replay_sharded(fe, q_np, pool, writes) -> list | None:
+    """The sharded serving script under a ManualClock: request i is query
+    i, the clock moves 5 ms a request with a pump after each, the write
+    batches of ``writes`` join after their request; drain (and on a mesh
+    close). Returns [(ids, dists), ...] on rank 0, None on the followers."""
+    if not fe.leader:
+        fe.follow()
+        return None
+    rids, w = [], 0
+    for i in range(SS_REQ):
+        rids.append(fe.submit(q_np[i % q_np.shape[0]]))
+        while w < len(writes) and writes[w][0] <= i:
+            _, kind, arg = writes[w]
+            fe.submit_insert(pool[arg]) if kind == "insert" else fe.submit_delete(arg)
+            w += 1
+        fe.clock.t += 0.005
+        fe.pump()
+    fe.drain()
+    if fe.mesh is not None:
+        fe.close()
+    return [fe.result(r) for r in rids]
+
+
+def _serving_cfg(scfg):
+    from repro_torch.serving import AdmissionConfig, ServingConfig, WriterConfig
+    return ServingConfig(admission=AdmissionConfig(tile_lanes=SERVE_TILE),
+                         writer=WriterConfig(insert_batch=SERVE_WB, delete_batch=SERVE_WB),
+                         search=scfg)
+
+
+def sharded_streaming_rank(rank, world, pool, n0, schedule, seeding, refs, serve, ckpt_dir,
+                           out_dir):
+    """Medium, on a gloo group sharing the card: StreamingANN.from_corpus
+    (row-sharded build), medium_streaming's churn schedule and compact
+    under ``mesh=``, every store held to the single device's ``refs``; at
+    D = 2 the store saved under ``ckpt_dir`` and ``serve``'s script served
+    query- and corpus-sharded, rank 0 holding every result to the single
+    device's."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ServingFrontend
+    from repro_torch.streaming import StreamingANN, StreamingConfig
+    mesh = _card_mesh(world, "gloo")
+    _seeding(seeding)
+    cfg = StreamingConfig(build=full_build(chunk=MEDIUM_N), **STREAM_KW)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ann = StreamingANN.from_corpus(pool[:n0], cfg, mesh=mesh,
+                                   generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    mesh.stats.reset()
+    leaves, secs = _churn_stores(ann, pool, schedule)
+    st = mesh.stats.summary()
+    ring = st.get("ppermute", {"seconds": 0.0, "sent_bytes": 0, "calls": 0})
+    res = {"equal": [_same_leaves(a, b) for a, b in zip(leaves, refs)],
+           "inserts_per_s": sum(len(pool[a]) for o, a in schedule if o == "ins") / secs["ins"],
+           "deletes_per_s": sum(len(a) for o, a in schedule if o == "del") / secs["del"],
+           "exchange_s": ring["seconds"], "exchange_hops": ring["calls"],
+           "exchange_bytes": ring["sent_bytes"],
+           "gathered_bytes": st.get("all_gather", {}).get("sent_bytes", 0),
+           "launches": {k: v for k, v in LAUNCHES.items() if v},
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if serve is not None:
+        ann.save(ckpt_dir)
+        store, scfg, q_np, new_np, writes, want = serve
+        for shard_mode in ("queries", "corpus"):
+            a = StreamingANN(store=store, cfg=cfg, mesh=mesh)
+            fe = ServingFrontend(a, dataclasses.replace(_serving_cfg(scfg), shard=shard_mode),
+                                 clock=ManualClock())
+            got = _replay_sharded(fe, q_np, new_np, writes)
+            res[f"serve_{shard_mode}_store_equal"] = _same_leaves(_store_leaves(a.store),
+                                                                 want[1])
+            if got is not None:
+                res[f"serve_{shard_mode}_equal"] = sum(
+                    np.array_equal(i, wi) and np.array_equal(d.view(np.uint32),
+                                                             wd.view(np.uint32))
+                    for (i, d), (wi, wd) in zip(got, want[0]))
+    torch.cuda.synchronize()
+    _rank_out(out_dir, rank, res)
+
+
+def sharded_1m_rank(rank, world, x, g, new, gone, seeding, want, out_dir):
+    """At 1M, D = 2 on the path's store (capacity 2^20): SS_1M_ROUNDS rounds
+    of two insert batches and one delete batch of STREAM_BATCH under
+    ``mesh=``, the final store held to the single device's ``want``."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.streaming import StreamingANN, StreamingConfig
+    from repro_torch.streaming import store as ST
+    mesh = _card_mesh(world, "gloo")
+    _seeding(seeding)
+    ann = StreamingANN(ST.from_built(x, g), StreamingConfig(build=full_build()), mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.stats.reset()
+    reset_launches()
+    secs = _schedule_1m(ann, new, gone)
+    st = mesh.stats.summary()
+    ring = st.get("ppermute", {"seconds": 0.0, "sent_bytes": 0, "calls": 0})
+    b = STREAM_BATCH
+    _rank_out(out_dir, rank, {
+        "equal": _same_leaves(_store_leaves(ann.store), want),
+        "inserts_per_s": 2 * SS_1M_ROUNDS * b / secs["ins"],
+        "deletes_per_s": SS_1M_ROUNDS * b / secs["del"],
+        "exchange_s": ring["seconds"], "exchange_hops": ring["calls"],
+        "exchange_bytes": ring["sent_bytes"],
+        "gathered_bytes": st.get("all_gather", {}).get("sent_bytes", 0),
+        "comm": st, "launches": {k: v for k, v in LAUNCHES.items() if v},
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+
+def _schedule_1m(ann, new, gone) -> dict:
+    """SS_1M_ROUNDS rounds of (insert, insert, delete) batches of
+    STREAM_BATCH; insert and delete seconds (host clock, synced)."""
+    b, secs, i = STREAM_BATCH, {"ins": 0.0, "del": 0.0}, 0
+    for r in range(SS_1M_ROUNDS):
+        for op in ("ins", "ins", "del"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if op == "ins":
+                ann.insert(new[i * b:(i + 1) * b])
+                i += 1
+            else:
+                ann.delete(gone[r * b:(r + 1) * b])
+            torch.cuda.synchronize()
+            secs[op] += time.perf_counter() - t0
+    return secs
+
+
+def _restore_d1(ckpt_dir: str, cfg, want) -> dict:
+    """Restore the D = 2 store onto a one-rank gloo mesh of this process
+    and onto no mesh; each held leaf for leaf to ``want``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.streaming import StreamingANN
+    with tempfile.TemporaryDirectory() as tmp:
+        M.init_process_group(0, 1, os.path.join(tmp, "store"), backend="gloo", timeout_s=300)
+        try:
+            mesh = M.make_mesh((1,), ("data",), backend="gloo", device="cuda:0")
+            t0 = time.perf_counter()
+            d1 = StreamingANN.restore(ckpt_dir, cfg, mesh=mesh)
+            res = {"restore_d1_s": time.perf_counter() - t0,
+                   "restore_d1_equal": _same_leaves(_store_leaves(d1.store), want)}
+        finally:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    none = StreamingANN.restore(ckpt_dir, cfg, device="cuda")
+    res["restore_none_s"] = time.perf_counter() - t0
+    res["restore_none_equal"] = _same_leaves(_store_leaves(none.store), want)
+    return res
+
+
+def sharded_streaming(x, g):
+    """Item 10b on gloo ranks sharing the card. Medium: whether two
+    single-device runs of medium_streaming's churn schedule with hashed
+    seeding give equal stores (if not, every parity below seeds dense and
+    the hashed runs are held by recall in medium_streaming); at D = 2 and 4
+    the schedule and compact under ``mesh=``, every store equal to the
+    single device's; the D = 2 store saved and restored at D = 1 and with
+    no mesh; a ManualClock serving script (SS_REQ requests, SS_EVENTS churn
+    events, dense visited) served at D = 2 query- and corpus-sharded, every
+    result and store equal to the single device's session. 1M, D = 2: on
+    the path's store SS_1M_ROUNDS rounds of two insert batches and one
+    delete batch of STREAM_BATCH, the final store equal to the single
+    device's; inserts/s, deletes/s, the exchange's seconds and bytes, each
+    rank's peak memory."""
+    from repro_torch.core import search as S
+    from repro_torch.data.synthetic import VectorDatasetSpec, mixture_centers, mixture_rows
+    from repro_torch.serving import ServingFrontend
+    from repro_torch.streaming import StreamingANN, StreamingConfig
+    from repro_torch.streaming import store as ST
+    from repro_torch.streaming import updates as U
+    pool_np, q_np = numpy_mixture(MEDIUM_N, MEDIUM_Q, SEED)
+    pool = torch.from_numpy(pool_np).to("cuda")
+    n0, schedule = churn_schedule(MEDIUM_N)
+    cfg = StreamingConfig(build=full_build(chunk=MEDIUM_N), **STREAM_KW)
+    seed_cfg = U.StreamingConfig.seed_search_cfg
+
+    def single(seeding):
+        _seeding(seeding)
+        try:
+            ann = StreamingANN.from_corpus(
+                pool[:n0], cfg, generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+            return _churn_stores(ann, pool, schedule)
+        finally:
+            U.StreamingConfig.seed_search_cfg = seed_cfg
+
+    runs = [single("hashed") for _ in range(2)]
+    repeatable = all(_same_leaves(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    seeding = "hashed" if repeatable else "dense"
+    refs, secs = runs[0] if repeatable else single("dense")
+    del runs
+    # the serving script's single-device session (dense search; seeding as above)
+    scfg = S.SearchConfig(**{**CHURN_SEARCH, "visited": "dense"})
+    base = StreamingANN.from_corpus(pool[:n0], cfg,
+                                    generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    store = ST.grow(base.store, n0 + SERVE_WB * (SS_EVENTS + 2) + 1)
+    warm, writes = serving_script(n0, SERVE_WB, SS_EVENTS, SS_REQ)
+    ann = StreamingANN(store, cfg)
+    _seeding(seeding)
+    try:
+        for op, arg in warm:
+            ann.insert(pool_np[n0:][arg]) if op == "ins" else ann.delete(arg)
+        store = ann.store
+        fe = ServingFrontend(StreamingANN(store, cfg), _serving_cfg(scfg), clock=ManualClock())
+        want = _replay_sharded(fe, q_np, pool_np[n0:], writes)
+        want = (want, _store_leaves(fe.ann.store))
+    finally:
+        U.StreamingConfig.seed_search_cfg = seed_cfg
+    emit({"phase": "sharded_streaming_single", "pool": MEDIUM_N, "n0": n0,
+          "hashed_seeding_repeatable": repeatable, "parity_seeding": seeding,
+          "inserts_per_s": sum(len(pool_np[a]) for o, a in schedule if o == "ins") / secs["ins"],
+          "deletes_per_s": sum(len(a) for o, a in schedule if o == "del") / secs["del"]})
+    with tempfile.TemporaryDirectory() as ckpt:
+        for world in SS_WORLDS:
+            serve = (store, scfg, q_np, pool_np[n0:], writes, want) if world == 2 else None
+            ranks = spawn_ranks(sharded_streaming_rank, world, "gloo", pool, n0, schedule,
+                                seeding, refs, serve, ckpt)
+            for r in ranks:
+                check(all(r["equal"]), f"sharded streaming D = {world}: stores equal "
+                      f"{r['equal']} (from_corpus, each op, compact)")
+                check(set(r["launches"]) == {"rng_prune", "beam_score"},
+                      f"sharded streaming D = {world} launched {r['launches']}")
+            if serve is not None:
+                for mode in ("queries", "corpus"):
+                    check(ranks[0][f"serve_{mode}_equal"] == SS_REQ,
+                          f"sharded serving ({mode}): {ranks[0][f'serve_{mode}_equal']} of "
+                          f"{SS_REQ} results equal the single device's")
+                    check(all(r[f"serve_{mode}_store_equal"] for r in ranks),
+                          f"sharded serving ({mode}): a rank's store differs")
+            emit({"phase": "sharded_streaming", "scale": "medium", "ranks": world,
+                  "backend": "gloo", "pool": MEDIUM_N, "n0": n0, "seeding": seeding,
+                  "schedule": "churn_schedule, then compact", "equal": True,
+                  "serving": None if serve is None else {
+                      "requests": SS_REQ, "events": SS_EVENTS, "tile_lanes": SERVE_TILE,
+                      "search": "CHURN_SEARCH, dense", "shards": ["queries", "corpus"],
+                      "equal": True},
+                  "per_rank": ranks})
+        rest = _restore_d1(ckpt, cfg, refs[-1])
+        check(rest["restore_d1_equal"] and rest["restore_none_equal"],
+              f"store saved at D = 2: restored {rest}")
+        emit({"phase": "sharded_streaming_restore", "saved_ranks": 2, **rest})
+    del refs, want, store, base, ann, fe, pool
+    clock("sharded_streaming_medium")
+
+    # 1M, D = 2, on the path's store
+    n, b = x.shape[0], STREAM_BATCH
+    centers = mixture_centers(VectorDatasetSpec.sift_like(FULL_N, FULL_Q),
+                              torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    new = mixture_rows(centers, 2 * SS_1M_ROUNDS * b, gen)
+    gone = torch.randperm(n, generator=gen, device="cuda")[:SS_1M_ROUNDS * b].int()
+    cfg1m = StreamingConfig(build=full_build())
+
+    def single_1m(seeding):
+        _seeding(seeding)
+        try:
+            ann = StreamingANN(ST.from_built(x, g), cfg1m)
+            secs = _schedule_1m(ann, new, gone)
+            return _store_leaves(ann.store), secs
+        finally:
+            U.StreamingConfig.seed_search_cfg = seed_cfg
+
+    a, secs = single_1m("hashed")
+    repeat_1m = _same_leaves(a, single_1m("hashed")[0])
+    seeding_1m = "hashed" if repeat_1m else "dense"
+    want_1m, secs = (a, secs) if repeat_1m else single_1m("dense")
+    del a
+    ranks = spawn_ranks(sharded_1m_rank, 2, "gloo", x, g, new, gone, seeding_1m, want_1m)
+    for r in ranks:
+        check(r["equal"], "sharded streaming at 1M, D = 2: a rank's store differs")
+        check(set(r["launches"]) == {"rng_prune", "beam_score"},
+              f"sharded streaming at 1M launched {r['launches']}")
+    emit({"phase": "sharded_streaming", "scale": "1M", "ranks": 2, "backend": "gloo",
+          "n": n, "batches": {"insert": 2 * SS_1M_ROUNDS, "delete": SS_1M_ROUNDS, "rows": b},
+          "hashed_seeding_repeatable": repeat_1m, "seeding": seeding_1m, "equal": True,
+          "single_device": {"inserts_per_s": 2 * SS_1M_ROUNDS * b / secs["ins"],
+                            "deletes_per_s": SS_1M_ROUNDS * b / secs["del"]},
+          "per_rank": ranks})
+    del want_1m, new, gone
 
 
 def warm_up() -> None:
@@ -2724,13 +3381,17 @@ def main() -> int:
     report = kernel_phase(x, q, g, launches, snap)
     del snap
     clock("kernels")
+    report += ann_gist()
+    clock("ann_gist")
     report += streaming_1m(x, q, g)
     clock("streaming_1m")
     serving_1m(x, q, g)
     clock("serving_1m")
     sharded_phase(x, q, g, gt)
-    del g
     clock("sharded")
+    sharded_streaming(x, g)
+    del g
+    clock("sharded_streaming")
     nsg_rows, nsg_launches = builders_phase(x, q, gt, res)
     clock("builders")
     report += rng_prune_report(x, {"NSG prune rows (C = 132)": nsg_rows},

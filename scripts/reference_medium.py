@@ -1,6 +1,6 @@
 """The JAX package's numbers for the medium configuration of chip_smoke.py.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py [f32 int8 pq nnd nsg churn serve]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_medium.py [f32 int8 pq nnd nsg churn serve gist]
 
 Runs the reference (``repro``, jnp paths, CPU) on the SIFT-like mixture at
 n = 20k with 500 queries: build ``rnnd_ann.FULL`` under each corpus mode
@@ -56,12 +56,15 @@ BUILDERS = {"nnd": lambda x, key: nnd.build(x, nnd.NNDescentConfig(), key),
             "nsg": lambda x, key: nsg.build(x, nsg.NSGStyleConfig(), key)}
 
 
-def corpus(baseline: bool):
-    """(x, queries, ground truth, entry point) of the medium configuration."""
-    if baseline:
+def corpus(baseline: bool, gist: bool = False):
+    """(x, queries, ground truth, entry point) of the medium configuration
+    (``gist``: the 960-wide numpy-drawn corpus of chip_smoke.py's ann_gist)."""
+    if baseline or gist:
         sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        from chip_smoke import MEDIUM_N, MEDIUM_Q, SEED, numpy_mixture
-        x, q = (jnp.asarray(a) for a in numpy_mixture(MEDIUM_N, MEDIUM_Q, SEED))
+        from chip_smoke import GIST_MEDIUM, MEDIUM_N, MEDIUM_Q, SEED, numpy_mixture
+        shape = (GIST_MEDIUM[0], GIST_MEDIUM[1], SEED, 960) if gist else \
+            (MEDIUM_N, MEDIUM_Q, SEED)
+        x, q = (jnp.asarray(a) for a in numpy_mixture(*shape))
     else:
         x, q = clustered_vectors(jax.random.PRNGKey(0), VectorDatasetSpec.sift_like(20_000, 500))
     _, gt = E.ground_truth(x, q, k=10)
@@ -172,9 +175,10 @@ def main(modes) -> None:
         if mode in ("churn", "serve"):
             churn() if mode == "churn" else serve()
             continue
-        if (mode in BUILDERS) not in data:
-            data[mode in BUILDERS] = corpus(mode in BUILDERS)
-        x, q, gt, ep = data[mode in BUILDERS]
+        kind = "gist" if mode == "gist" else mode in BUILDERS
+        if kind not in data:
+            data[kind] = corpus(mode in BUILDERS, gist=mode == "gist")
+        x, q, gt, ep = data[kind]
         quant = QUANTS.get(mode, Quantization())
         t0 = time.perf_counter()
         if mode in BUILDERS:
@@ -183,8 +187,9 @@ def main(modes) -> None:
             g = rd.build(x, dataclasses.replace(FULL, quant=quant), jax.random.PRNGKey(1))
         qx = encode_corpus(x, quant) if quant.is_coded else None
         cfg = dataclasses.replace(SEARCH, topk=10, quant=quant)
-        ids, _ = S.search_tiled(x, g, q, ep, cfg, tile_b=500, qx=qx)
-        print(json.dumps({"mode": mode, "n": 20_000, "queries": 500,
+        ids, _ = S.search_tiled(x, g, q, ep, cfg, tile_b=q.shape[0], qx=qx)
+        print(json.dumps({"mode": mode, "n": int(x.shape[0]), "d": int(x.shape[1]),
+                          "queries": int(q.shape[0]),
                           "recall_at_10": float(E.recall_topk(ids, gt)),
                           "recall_at_1": float(E.recall_at_k(ids, gt)),
                           "avg_out_degree": E.degree_stats(g)["avg_out_degree"],

@@ -27,7 +27,7 @@ def rank_main(rank, world, x, g_ref, out_dir):
     from repro_torch.core import rnn_descent as rd
     mesh = cs._card_mesh(world, "gloo")
     g, st = cs._timed_build(mesh, lambda: rd.build(
-        x, rd.RNNDescentConfig(**cs.FULL_BUILD),
+        x, cs.full_build(),
         torch.Generator(device="cuda").manual_seed(cs.SEED + 1), mesh=mesh))
     st["equal"] = all(torch.equal(a, b) for a, b in zip(g, g_ref))
     cs._rank_out(out_dir, rank, st)
@@ -52,19 +52,20 @@ def main() -> int:
     x = x[:args.n].contiguous()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    g = rd.build(x, rd.RNNDescentConfig(**cs.FULL_BUILD),
+    g = rd.build(x, cs.full_build(),
                  torch.Generator(device="cuda").manual_seed(cs.SEED + 1))
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
     print(smi, flush=True)
-    b, br = G.default_buckets(cs.FULL_BUILD["capacity"]), G.default_buckets(cs.FULL_BUILD["r"])
+    full = cs.full_build()
+    b, br = G.default_buckets(full.capacity), G.default_buckets(full.r)
     ok = True
     for d in args.ranks:
         ranks = cs.spawn_ranks(rank_main, d, "gloo", x, g)
         n_pad = -(-args.n // d) * d
         hop = n_pad // d * (d - 1)
-        closed = cs.FULL_BUILD["t1"] * cs.FULL_BUILD["t2"] * 9 * b * hop \
-            + (cs.FULL_BUILD["t1"] - 1) * 22 * br * hop
+        closed = full.t1 * full.t2 * 9 * b * hop \
+            + (full.t1 - 1) * 22 * br * hop
         print(json.dumps({"n": args.n, "ranks": d, "backend": "gloo",
                           "build": "FULL s=20 r=96 t1=4 t2=15 M=128",
                           "single_device_build_s": single_s, "wire_bytes_closed_form": closed,

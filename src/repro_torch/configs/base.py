@@ -1,10 +1,13 @@
-"""Recsys glue of ``repro.configs.base``: shapes, input specs, smoke batches
-and the Criteo-like vocabulary mix (the LM and GNN glue is not ported yet).
+"""Recsys and ANN glue of ``repro.configs.base``: shapes, input specs, smoke
+batches and the Criteo-like vocabulary mix (the LM and GNN glue is not
+ported yet).
 
 Step kinds per cell:
-  serve    -> recsys forward (sigmoid scores)
-  retrieval-> recsys candidate scoring (1 query x n_candidates)
-  train    -> a later slice of the port
+  serve     -> recsys forward (sigmoid scores)
+  retrieval -> recsys candidate scoring (1 query x n_candidates)
+  ann_build -> RNN-Descent index construction (the paper)
+  ann_search-> beam search over a built graph
+  train     -> a later slice of the port
 """
 from __future__ import annotations
 
@@ -19,13 +22,14 @@ from repro_torch import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str                 # train | serve | retrieval
+    kind: str                 # train | serve | retrieval | ann_build | ann_search
     dims: dict
 
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
     arch_id: str
+    family: str               # recsys | ann (the reference's lm and gnn: not ported)
     shapes: tuple[ShapeSpec, ...]
     make_config: Callable[[str | None, bool], Any]   # (shape_name, reduced) -> cfg
 
@@ -105,4 +109,12 @@ def criteo_vocab_sizes(n_fields: int, reduced: bool = False) -> tuple[int, ...]:
 def make_recsys_arch(arch_id: str, full, smoke) -> Arch:
     def make_config(shape_name, reduced):
         return smoke if reduced else full
-    return Arch(arch_id, RECSYS_SHAPES, make_config)
+    return Arch(arch_id, "recsys", RECSYS_SHAPES, make_config)
+
+
+# ----------------------------------------------------------- ANN (the paper)
+ANN_SHAPES = (
+    ShapeSpec("build_1m", "ann_build", dict(n=1_000_000, d=128)),
+    ShapeSpec("build_gist", "ann_build", dict(n=1_000_000, d=960)),
+    ShapeSpec("search_1m", "ann_search", dict(n=1_000_000, d=128, queries=10_000)),
+)

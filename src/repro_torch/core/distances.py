@@ -97,18 +97,40 @@ def topk_smallest(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.gather(vals, 1, order), torch.gather(idx, 1, order)
 
 
-def gather_dists(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                 metric: str = "l2") -> torch.Tensor:
-    """Distances between row pairs (x[u[i]], x[v[i]]). Invalid (-1) ids -> +inf."""
+# Bytes of (pairs, d) temporaries one block of :func:`gather_dists` may hold
+# (the gathered rows, their difference and its square: four (pairs, d)
+# blocks). The reference's XLA fuses the gather into the reduction; eager
+# PyTorch materialises it, 3 x 76.8 GB for RandomGraph(S) at n = 1M,
+# d = 960, S = 20 in one block.
+GATHER_BUDGET = 2 << 30
+
+
+def _gather_dists_block(x, u, v, metric):
     xu = x[u.clamp(min=0).long()]
     xv = x[v.clamp(min=0).long()]
     if metric == "l2":
         diff = xu - xv
-        d = torch.sum(diff * diff, dim=-1)
-    elif metric == "ip":
-        d = -torch.sum(xu * xv, dim=-1)
-    elif metric == "cos":
-        d = 1.0 - torch.sum(_normalize(xu) * _normalize(xv), dim=-1)
-    else:
+        return torch.sum(diff * diff, dim=-1)
+    if metric == "ip":
+        return -torch.sum(xu * xv, dim=-1)
+    return 1.0 - torch.sum(_normalize(xu) * _normalize(xv), dim=-1)
+
+
+def gather_dists(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                 metric: str = "l2") -> torch.Tensor:
+    """Distances between row pairs (x[u[i]], x[v[i]]). Invalid (-1) ids -> +inf.
+
+    The pairs run in blocks whose (pairs, d) temporaries stay under
+    ``GATHER_BUDGET`` bytes at any d. Each distance is one row's own sum over
+    d, so the result does not depend on the block size."""
+    if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
+    block = max(1, GATHER_BUDGET // (4 * max(1, x.shape[-1]) * x.element_size()))
+    p = u.shape[0]
+    if p <= block:
+        d = _gather_dists_block(x, u, v, metric)
+    else:
+        d = torch.empty(p, dtype=x.dtype, device=x.device)
+        for s in range(0, p, block):
+            d[s:s + block] = _gather_dists_block(x, u[s:s + block], v[s:s + block], metric)
     return torch.where((u < 0) | (v < 0), torch.full_like(d, float("inf")), d)

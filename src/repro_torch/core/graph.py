@@ -82,7 +82,9 @@ def dedup_row_ids(ids: torch.Tensor) -> torch.Tensor:
 def random_init_graph(x: torch.Tensor, s: int, capacity: int, metric: str = "l2",
                       generator: torch.Generator | None = None) -> Graph:
     """RandomGraph(S): ``s`` random out-neighbors per vertex (no self loops,
-    per-row deduped), distances attached, rows sorted, all flags "new"."""
+    per-row deduped), distances attached (``gather_dists``: its (pairs, d)
+    temporaries stay under ``distances.GATHER_BUDGET`` at any d), rows
+    sorted, all flags "new"."""
     n = x.shape[0]
     dev = x.device
     ids = torch.randint(0, n, (n, s), generator=generator, device=dev,

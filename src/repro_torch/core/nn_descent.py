@@ -219,3 +219,10 @@ def build(x, cfg: NNDescentConfig, generator: torch.Generator | None = None,
     for _ in range(cfg.iters):
         g = join_and_update(x, g, cfg)
     return g
+
+
+def build_jit(x, cfg: NNDescentConfig, generator: torch.Generator | None = None) -> G.Graph:
+    """The reference's name for the whole build as one compiled program
+    (``lax.scan`` over the iterations). The port has no jit: this is
+    :func:`build`, the same graph."""
+    return build(x, cfg, generator)

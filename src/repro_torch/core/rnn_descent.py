@@ -151,3 +151,10 @@ def build(x, cfg: RNNDescentConfig, generator: torch.Generator | None = None,
         if t1 != cfg.t1 - 1:
             g = add_reverse_edges(g, cfg)
     return g
+
+
+def build_jit(x, cfg: RNNDescentConfig, generator: torch.Generator | None = None) -> G.Graph:
+    """The reference's name for the whole build as one compiled program
+    (``lax.scan`` over the sweeps), which ``launch.steps.bind`` binds. The
+    port has no jit: this is :func:`build`, the same graph."""
+    return build(x, cfg, generator)

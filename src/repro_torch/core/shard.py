@@ -114,9 +114,8 @@ def gather_rows(g_local: G.Graph, n: int, mesh) -> G.Graph:
 def _initial_graph(draw, init: G.Graph | None, n: int, m: int, device, mesh) -> G.Graph:
     """RandomGraph(S), the same on every rank: ``draw()`` runs on index 0 of
     the rows axes and the graph is broadcast (one rank at a time holds the
-    draw's transients: three (n * S, d) f32 blocks, 29 GiB at n = 1M), so
-    it is the single-device draw from that rank's generator. A caller's
-    ``init`` is checked equal on every rank instead."""
+    draw's transients), so it is the single-device draw from that rank's
+    generator. A caller's ``init`` is checked equal on every rank instead."""
     if init is not None:
         _check_replicated(init, mesh)
         return init

@@ -1,5 +1,5 @@
 """Serving front end: asynchronous request admission over a streaming index
-(port of ``repro.serving``, single device).
+(port of ``repro.serving``).
 
 Everything below this package is a batch call: hand ``search_tiled`` a
 (B, d) block and wait. A serving workload is the opposite shape — queries
@@ -32,8 +32,8 @@ Module map:
 * :mod:`repro_torch.serving.loadgen`   — deterministic open-loop load
   generator
 
-Not ported: ``shard="corpus"`` (a mesh-bound index) — ``ServingFrontend``
-raises for it.
+A mesh-bound index serves from rank 0, which owns admission, the clock and
+the writer; the other ranks follow its steps (``ServingFrontend.follow``).
 """
 from repro_torch.serving.admission import AdmissionConfig, AdmissionQueue
 from repro_torch.serving.frontend import ServingConfig, ServingFrontend

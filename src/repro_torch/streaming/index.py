@@ -1,6 +1,6 @@
 """StreamingANN: a dynamic ANN index (insert, delete, search, compact,
 save/restore) over the capacity-padded :class:`repro_torch.streaming.store.Store`
-(port of ``repro.streaming.index``, single device).
+(port of ``repro.streaming.index``).
 
 Epoch-snapshot serving
 ----------------------
@@ -17,7 +17,15 @@ Serving is tombstone-aware: ``search`` passes the store's live-row mask to
 surface; capacity padding is unreachable) and seeds from live rows only.
 Persistence rides repro_torch.checkpoint: the whole store (vectors,
 adjacency, masks, epoch, codes, remap) saves as host arrays in the
-reference's format and restores onto a device.
+reference's format and restores onto a device, or onto a mesh of any size.
+
+Mesh composition (``mesh=``, a ``launch.mesh.Mesh``): every rank of the mesh
+holds one ``StreamingANN`` with the whole store on its device (the
+reference's replicated placement) and calls each method with the same
+arguments. Construction runs the row-sharded build, updates the sharded
+frontier sweeps and delete repair of ``updates``, ``compact``'s repair
+sweeps the sharded ``update_neighbors``, and search either sharding of
+``search_tiled``; every result equals the single device's bit for bit.
 """
 from __future__ import annotations
 
@@ -36,9 +44,24 @@ from repro_torch.streaming import store as ST
 from repro_torch.streaming import updates as U
 
 
+def _place(st: ST.Store, mesh) -> ST.Store:
+    """The store on the mesh's device, whole on every rank (the reference
+    commits it replicated, ``P()``; update programs partition internally)."""
+    if mesh is None:
+        return st
+    dev = mesh.device
+
+    def put(t):
+        return None if t is None else t.to(dev)
+    qx = None if st.qx is None else QuantizedCorpus(*map(put, st.qx))
+    return ST.Store(put(st.x), G.Graph(*map(put, st.graph)), put(st.occupied),
+                    put(st.tombstone), put(st.epoch), qx, put(st.remap))
+
+
 @dataclasses.dataclass
 class StreamingANN:
-    """A dynamic index on the device of its store.
+    """A dynamic index on the device of its store (the mesh's device when
+    it is bound to one).
 
     >>> ann = StreamingANN.from_corpus(x, cfg=StreamingConfig(...))
     >>> new_ids = ann.insert(new_vectors)       # row ids of the new points
@@ -50,23 +73,28 @@ class StreamingANN:
 
     store: ST.Store
     cfg: U.StreamingConfig
+    mesh: Any = None
+
+    def __post_init__(self):
+        self.store = _place(self.store, self.mesh)
 
     # ------------------------------------------------------------ lifecycle
     @classmethod
     def from_corpus(cls, x, cfg: U.StreamingConfig | None = None,
                     generator: torch.Generator | None = None,
                     capacity: int | None = None,
-                    device: str | torch.device = "cuda") -> "StreamingANN":
-        """Batch-build the initial graph (``rnn_descent.build``; ``x`` as a
-        tensor runs on its device, numpy input is placed on ``device``) and
-        wrap it into a padded store."""
+                    device: str | torch.device = "cuda", mesh=None) -> "StreamingANN":
+        """Batch-build the initial graph (``rnn_descent.build``, row-sharded
+        over ``mesh`` when given; ``x`` as a tensor runs on its device,
+        numpy input is placed on ``device``, or on the mesh's) and wrap it
+        into a padded store."""
         cfg = cfg if cfg is not None else U.StreamingConfig()
-        x = as_tensor(x, device, torch.float32)
-        g = rd.build(x, cfg.build, generator)
+        x = as_tensor(x, mesh.device if mesh is not None else device, torch.float32)
+        g = rd.build(x, cfg.build, generator, mesh=mesh)
         # the builder's own encode (deterministic in x and the config), so
         # the serving codes are the geometry the graph was built over
         qx = encode_corpus(x, cfg.build.quant) if cfg.build.quant.is_coded else None
-        return cls(store=ST.from_built(x, g, capacity=capacity, qx=qx), cfg=cfg)
+        return cls(store=ST.from_built(x, g, capacity=capacity, qx=qx), cfg=cfg, mesh=mesh)
 
     # -------------------------------------------------------------- queries
     def snapshot(self) -> tuple[int, ST.Store]:
@@ -76,14 +104,15 @@ class StreamingANN:
         return int(st.epoch), st
 
     def search(self, queries, cfg: S.SearchConfig | None = None, entry_points=None,
-               tile_b: int = 256, with_stats: bool = False, lane_valid=None,
-               store: ST.Store | None = None):
+               tile_b: int = 256, shard: str = "queries", with_stats: bool = False,
+               lane_valid=None, store: ST.Store | None = None):
         """Tombstone-aware search over the current epoch's store: deleted
         rows route traffic but never appear in the top-k; lanes reaching
-        fewer than topk live vertices pad with (-1, +inf). ``with_stats`` and
-        ``lane_valid`` pass through to :func:`repro_torch.core.search.search_tiled`;
-        ``store=`` searches an explicit snapshot (from :meth:`snapshot`)
-        instead of the live reference."""
+        fewer than topk live vertices pad with (-1, +inf). ``shard``,
+        ``with_stats`` and ``lane_valid`` pass through to
+        :func:`repro_torch.core.search.search_tiled` with the bound mesh
+        (``shard="corpus"`` needs one); ``store=`` searches an explicit
+        snapshot (from :meth:`snapshot`) instead of the live reference."""
         st = self.store if store is None else store          # one read = one epoch
         cfg = cfg if cfg is not None else S.SearchConfig()
         qx = None
@@ -103,7 +132,7 @@ class StreamingANN:
             entry_points = S.default_entry_point(st.x, cfg.metric, valid=valid)
         return S.search_tiled(st.x, st.graph, queries, entry_points, cfg, tile_b=tile_b,
                               with_stats=with_stats, lane_valid=lane_valid, qx=qx,
-                              valid=valid)
+                              valid=valid, mesh=self.mesh, shard=shard)
 
     # -------------------------------------------------------------- updates
     def insert(self, new_x) -> np.ndarray:
@@ -115,7 +144,7 @@ class StreamingANN:
         b = new_x.shape[0]
         if ST.free_count(st) < b:
             st = ST.grow(st, ST.occupied_count(st) + b)
-        st, slots = U.insert(st, new_x, self.cfg)
+        st, slots = U.insert(st, new_x, self.cfg, mesh=self.mesh)
         self.store = st                      # atomic epoch swap
         return slots
 
@@ -150,7 +179,7 @@ class StreamingANN:
                 "assigned by insert() (stale ids from before a compact()? "
                 "translate through last_remap)")
         newly = ~st.tombstone[rows].cpu().numpy()
-        self.store = U.delete(st, ids_np, self.cfg)
+        self.store = U.delete(st, ids_np, self.cfg, mesh=self.mesh)
         return newly
 
     def compact(self, repair_sweeps: int = 1) -> np.ndarray:
@@ -158,10 +187,19 @@ class StreamingANN:
         old-row -> new-row remap (-1 for removed rows), which also persists
         on the store (``last_remap``) through save/restore. ``repair_sweeps``
         full ``update_neighbors`` passes then re-knit regions that leaned on
-        tombstone bridges (0 to skip)."""
+        tombstone bridges (0 to skip), row-sharded over the bound mesh (each
+        rank sweeps its rows, then the rows are gathered)."""
         st, remap = ST.compact(self.store)
         for _ in range(repair_sweeps):
-            st = st._replace(graph=rd.update_neighbors(st.x, st.graph, self.cfg.build))
+            if self.mesh is not None:
+                from repro_torch.core import shard
+                g = shard.rnn_update_neighbors(rd.gram_input(st.x, self.cfg.build),
+                                               shard.local_rows(st.graph, self.mesh),
+                                               self.cfg.build, self.mesh)
+                g = shard.gather_rows(g, st.graph.n, self.mesh)
+            else:
+                g = rd.update_neighbors(st.x, st.graph, self.cfg.build)
+            st = st._replace(graph=g)
         self.store = st
         return remap
 
@@ -175,16 +213,23 @@ class StreamingANN:
     # ---------------------------------------------------------- persistence
     def save(self, ckpt_dir: str, step: int | None = None) -> None:
         """Atomic-commit save of the whole store (host arrays). Default step:
-        the current epoch."""
+        the current epoch. Under a mesh rank 0 writes and every rank returns
+        once it has."""
         st = self.store
-        checkpoint.save(ckpt_dir, int(st.epoch) if step is None else step, st)
+        if self.mesh is None or self.mesh.rank == 0:
+            checkpoint.save(ckpt_dir, int(st.epoch) if step is None else step, st)
+        if self.mesh is not None:
+            from repro_torch.distributed import comm as C
+            C.psum(torch.zeros((), device=self.mesh.device), self.mesh, self.mesh.axis_names)
 
     @classmethod
     def restore(cls, ckpt_dir: str, cfg: U.StreamingConfig | None = None,
-                step: int | None = None,
-                device: str | torch.device = "cuda") -> "StreamingANN":
-        """Restore onto ``device``: tombstones, capacity padding, the epoch,
-        codes and the last remap all round-trip."""
+                step: int | None = None, device: str | torch.device = "cuda",
+                mesh=None) -> "StreamingANN":
+        """Elastic restore onto ``mesh`` (any size, not necessarily the one
+        the store was saved from) or, without one, onto ``device``:
+        tombstones, capacity padding, the epoch, codes and the last remap
+        all round-trip."""
         if step is None:
             step = checkpoint.latest_step(ckpt_dir)
             if step is None:
@@ -200,12 +245,13 @@ class StreamingANN:
             qx_like = None
         like = ST.Store(x=0, graph=G.Graph(0, 0, 0), occupied=0, tombstone=0, epoch=0,
                         qx=qx_like, remap=0 if ".remap" in names else None)
-        st = checkpoint.restore(ckpt_dir, step, like, device=device)
+        st = checkpoint.restore(ckpt_dir, step, like,
+                                device=mesh.device if mesh is not None else device)
         if cfg is None:
             m = st.graph.neighbors.shape[1]
             cfg = U.StreamingConfig(build=rd.RNNDescentConfig(capacity=m, r=min(96, m)),
                                     seed_k=min(24, m))
-        return cls(store=st, cfg=cfg)
+        return cls(store=st, cfg=cfg, mesh=mesh)
 
     # ------------------------------------------------------------ inspection
     @property

@@ -1,5 +1,5 @@
 """Incremental index maintenance: batched insert and delete with localized
-RNN-Descent repair (port of ``repro.streaming.updates``, single device).
+RNN-Descent repair (port of ``repro.streaming.updates``).
 
 Insert (one batch of B points)
 ------------------------------
@@ -35,6 +35,19 @@ Every update returns a new store and leaves its input untouched: the rows it
 changes are written into private copies (with one scratch row past the
 capacity, which takes the writes the reference drops with ``mode="drop"``),
 and the arrays it does not change are shared.
+
+Sharded updates (``mesh=``, a ``launch.mesh.Mesh``; every rank calls with the
+same store and arguments): the store stays whole on every rank, as the
+reference places it replicated. The frontier rows of an insert sweep
+partition over the mesh's "rows" axes (``f_pad`` rounded up to a multiple of
+D); each rank prunes its slice and scatters the replacement edges one
+destination block at a time, and ``shard.exchange_scatter`` (the ring of the
+sharded builds) hands each rank the combined bucket block of its own rows.
+A delete partitions the affected rows, which need no exchange. Each rank
+then ``all_gather``-s the rows it updated, so every rank writes the same
+rows into its store. Per-row work is the single device's and the bucket
+fold is an exact minimum, so every rank's store equals the single-device
+store bit for bit.
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ from repro_torch.core import distances as D
 from repro_torch.core import graph as G
 from repro_torch.core import rnn_descent as rd
 from repro_torch.core import search as S
+from repro_torch.core import shard
 from repro_torch.quant import encode_rows
 from repro_torch.streaming.store import Store, active_mask, free_count
 
@@ -130,6 +144,31 @@ def _scatter_rows_(bufs: G.Graph, idx: torch.Tensor, blk: G.Graph) -> None:
         dst[rows] = src
 
 
+def _round_up(v: int, mult: int) -> int:
+    return -(-v // mult) * mult
+
+
+def _n_dev(mesh) -> int:
+    return 1 if mesh is None else shard.n_shards(mesh)
+
+
+def _my_rows(idx: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's slice of a row-id buffer whose length divides by the
+    shard count (the whole buffer without a mesh)."""
+    if mesh is None:
+        return idx
+    lo, n_blk = shard.block_range(idx.shape[0], mesh)
+    return idx[lo:lo + n_blk]
+
+
+def _gather_blocks(blk: G.Graph, mesh) -> G.Graph:
+    """Every rank's block of updated rows, concatenated in rank order (one
+    ``all_gather`` of the three fields packed)."""
+    if mesh is None:
+        return blk
+    return shard.gather_rows(blk, blk.n * _n_dev(mesh), mesh)
+
+
 def _frontier_ids(slots: torch.Tensor, cand_ids: torch.Tensor, cap: int,
                   f_pad: int) -> torch.Tensor:
     """Sorted-unique frontier buffer: new slots and seeded candidates, with
@@ -160,15 +199,16 @@ def _n_buckets(cfg: StreamingConfig, m: int) -> int:
     return cfg.build.n_buckets or G.default_buckets(m)
 
 
-def _frontier_sweep(x, g: G.Graph, frontier, ex_rows, ex_ids, ex_d,
-                    cfg: StreamingConfig, f_pad: int) -> G.Graph:
-    """One localized RNN-Descent sweep over the frontier: fused RNG prune,
-    replacement edges routed into frontier-local bucket tables, bucket
-    merge. ``ex_*`` carries extra candidate offers (the reverse edges
-    v -> new on the first sweep, empty afterwards). Returns the frontier's
-    new rows."""
+def _sweep_slice(x, g: G.Graph, f_slice, frontier, ex_rows, ex_ids, ex_d,
+                 cfg: StreamingConfig, f_pad: int):
+    """The rank-local half of a frontier sweep over the rows ``f_slice``
+    (a slice of ``frontier``): the fused RNG prune, and the replacement
+    edges (w -> v) with the extra offers ``ex_*`` as a scatter into
+    frontier-local bucket tables. Returns (the slice's pruned rows,
+    ``scatter_block(lo, f_blk)``: the tables of destination rows
+    [lo, lo + f_blk))."""
     cap, m = g.neighbors.shape
-    blk = _gather_rows(g, frontier, cap)
+    blk = _gather_rows(g, f_slice, cap)
     keep, red_w, red_d = _prune(x, blk, cfg)
     pruned = G.sort_rows(G.Graph(torch.where(keep, blk.neighbors, -1),
                                  torch.where(keep, blk.dists, INF),
@@ -183,17 +223,44 @@ def _frontier_sweep(x, g: G.Graph, frontier, ex_rows, ex_ids, ex_d,
     # out before the scatter: the staged minimum does not depend on them
     sel = ((rows < f_pad) & (ids >= 0)).nonzero().squeeze(1)
     rows, ids, dist = rows[sel], ids[sel], dist[sel]
-    _, kt, it, ft = G.bucket_scatter_tables(
-        rows, ids, dist, torch.full(ids.shape, NEW, dtype=torch.uint8, device=ids.device),
-        f_pad, _n_buckets(cfg, m), row_ids=frontier)
-    b_ids, b_d, b_f = G.decode_bucket_tables(kt, it, ft)
-    return G.merge_rows_with_buckets(pruned, b_ids, b_d, b_f, m, m)
+    flags = torch.full(ids.shape, NEW, dtype=torch.uint8, device=ids.device)
+    nb = _n_buckets(cfg, m)
+
+    def scatter_block(lo, f_blk):
+        # the block restriction: rows outside [lo, lo + f_blk) fail the
+        # range guard of the scatter
+        return G.bucket_scatter_tables(rows - lo, ids, dist, flags, f_blk, nb,
+                                       row_ids=frontier[lo:lo + f_blk])
+    return pruned, scatter_block
+
+
+def _merge_tables(pruned: G.Graph, tables) -> G.Graph:
+    """Merge a row block with its combined bucket tables."""
+    _, kt, it, ft = tables
+    m = pruned.capacity
+    return G.merge_rows_with_buckets(pruned, *G.decode_bucket_tables(kt, it, ft), m, m)
+
+
+def _frontier_sweep(x, g: G.Graph, frontier, ex_rows, ex_ids, ex_d,
+                    cfg: StreamingConfig, f_pad: int, mesh=None) -> G.Graph:
+    """One localized RNN-Descent sweep over (this rank's slice of) the
+    frontier: fused RNG prune, replacement edges routed into frontier-local
+    bucket tables, bucket merge. ``ex_*`` carries extra candidate offers
+    (the reverse edges v -> new on the first sweep, empty afterwards),
+    replicated over the ranks: exact under the idempotent min-fold. Returns
+    the new rows of the slice."""
+    pruned, scatter_block = _sweep_slice(x, g, _my_rows(frontier, mesh), frontier,
+                                         ex_rows, ex_ids, ex_d, cfg, f_pad)
+    if mesh is None:
+        return _merge_tables(pruned, scatter_block(0, f_pad))
+    return _merge_tables(pruned, shard.exchange_scatter(mesh, f_pad, scatter_block))
 
 
 def _graft(x, g: G.Graph, occupied, new_x, slots, cand_ids, cand_d,
-           cfg: StreamingConfig, f_pad: int):
+           cfg: StreamingConfig, f_pad: int, mesh=None):
     """The insert's body: write the new rows, then reverse-repair and sweep
-    the frontier. Returns (x, graph, occupied) of the new store."""
+    the frontier (``f_pad`` a multiple of the mesh's shard count). Returns
+    (x, graph, occupied) of the new store."""
     cap, m = g.neighbors.shape
     b, k = cand_ids.shape
     dev = x.device
@@ -237,16 +304,20 @@ def _graft(x, g: G.Graph, occupied, new_x, slots, cand_ids, cand_d,
     empty_d = torch.zeros((0,), device=dev)
     for t in range(cfg.sweeps):
         ex = (off_rows, off_ids, off_d) if t == 0 else (empty_i, empty_i, empty_d)
-        _scatter_rows_(bufs, frontier, _frontier_sweep(x2, g2, frontier, *ex, cfg, f_pad))
+        rows = _frontier_sweep(x2, g2, frontier, *ex, cfg, f_pad, mesh)
+        _scatter_rows_(bufs, frontier, _gather_blocks(rows, mesh))
     return x2, g2, occ2
 
 
-def insert(store: Store, new_x, cfg: StreamingConfig) -> tuple[Store, np.ndarray]:
+def insert(store: Store, new_x, cfg: StreamingConfig,
+           mesh=None) -> tuple[Store, np.ndarray]:
     """Insert a batch of vectors; returns ``(new_store, row_ids)`` (numpy
     int32 row ids). The store must have ``free_count(store) >= len(new_x)``:
     growth is :class:`repro_torch.streaming.index.StreamingANN`'s job. The
     input store is untouched, so snapshots taken before the call keep
-    serving the previous epoch."""
+    serving the previous epoch. ``mesh``: the seeding search runs
+    query-sharded and the frontier sweeps row-sharded; every rank gets the
+    single-device store."""
     new_x = as_tensor(new_x, store.x.device, torch.float32)
     b = new_x.shape[0]
     if b == 0:
@@ -260,9 +331,10 @@ def insert(store: Store, new_x, cfg: StreamingConfig) -> tuple[Store, np.ndarray
     active = active_mask(store)
     eps = S.default_entry_point(store.x, cfg.metric, valid=active)
     cand_ids, cand_d = S.search_tiled(store.x, store.graph, new_x, eps, cfg.seed_search_cfg(),
-                                      tile_b=min(SEED_TILE, b), valid=active)
+                                      tile_b=min(SEED_TILE, b), valid=active, mesh=mesh)
+    f_pad = _round_up(b * (1 + cfg.seed_k), _n_dev(mesh))
     x2, g2, occ2 = _graft(store.x, store.graph, store.occupied, new_x, slots, cand_ids,
-                          cand_d, cfg, b * (1 + cfg.seed_k))
+                          cand_d, cfg, f_pad, mesh)
     qx2 = store.qx
     if qx2 is not None:
         # encode into the frozen code space (trained at quantize time): a
@@ -308,13 +380,16 @@ def _repair_block(x, g: G.Graph, tomb, a_idx, cfg: StreamingConfig) -> G.Graph:
                                torch.zeros_like(merged.flags)))
 
 
-def delete(store: Store, ids, cfg: StreamingConfig) -> Store:
+def delete(store: Store, ids, cfg: StreamingConfig, mesh=None) -> Store:
     """Tombstone a batch of row ids and splice-repair their live
     in-neighbours; returns the new store (input untouched).
 
     Ids that are out of range, unoccupied or already tombstoned are skipped
     (delete is idempotent; a batch of nothing returns the store itself). The
-    repair budget is ``delete_fanout`` affected rows per deleted id."""
+    repair budget is ``delete_fanout`` affected rows per deleted id.
+    ``mesh``: the affected rows partition over the ranks (their buffer
+    padded with sentinels to a multiple of D; the rows repaired are the
+    single device's) and every rank gets the single-device store."""
     cap = store.capacity
     dev = store.x.device
     ids = torch.as_tensor(np.asarray(ids.cpu() if isinstance(ids, torch.Tensor) else ids)
@@ -336,10 +411,11 @@ def delete(store: Store, ids, cfg: StreamingConfig) -> Store:
     aff = affected.nonzero().squeeze(1)
     budget = min(cap, max(bd * cfg.delete_fanout, 1))
     take = min(aff.shape[0], budget)
-    a_idx = torch.full((budget,), cap, dtype=torch.int32, device=dev)
+    a_idx = torch.full((_round_up(budget, _n_dev(mesh)),), cap, dtype=torch.int32, device=dev)
     a_idx[:take] = aff[:take].int()
 
     bufs, g2 = _writable(store.graph)
-    _scatter_rows_(bufs, a_idx, _repair_block(store.x, store.graph, tomb_new, a_idx, cfg))
+    rows = _repair_block(store.x, store.graph, tomb_new, _my_rows(a_idx, mesh), cfg)
+    _scatter_rows_(bufs, a_idx, _gather_blocks(rows, mesh))
     return Store(x=store.x, graph=g2, occupied=store.occupied, tombstone=tomb_new,
                  epoch=store.epoch + 1, qx=store.qx, remap=store.remap)

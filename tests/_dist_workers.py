@@ -7,6 +7,7 @@ directory it is given; the test process reads and checks them.
 """
 import os
 
+import numpy as np
 import torch
 
 from repro_torch.core import graph as G
@@ -170,6 +171,121 @@ def card_ranks(rank, world, x, q, g_ref, ref_ids, ref_dists, cfg, out_dir):
         ids, dists = S.search_tiled(x, g, q, ep, dense, tile_b=64, mesh=mesh, shard=sh)
         res[sh + "_equal"] = bool(torch.equal(ids, ref_ids) and torch.equal(dists, ref_dists))
     torch.cuda.synchronize()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+class ManualClock:
+    """Deterministic monotonic clock for replaying sessions."""
+
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> float:
+        self.t += dt
+        return self.t
+
+
+def dense_seeding():
+    """Inserts seed through dense visited, as the reference's parity tests
+    run them: hashed inserts racing for one slot pick the winner in an order
+    XLA and PyTorch do not share."""
+    import dataclasses
+
+    from repro_torch.streaming import updates as U
+    orig = U.StreamingConfig.seed_search_cfg
+    U.StreamingConfig.seed_search_cfg = \
+        lambda self: dataclasses.replace(orig(self), visited="dense")
+
+
+def store_leaves(st) -> list:
+    """(name, leaf) of every leaf of a store, cloned (the checkpoint's
+    flatten order)."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    return [(name, t.clone()) for name, t in flatten(st)]
+
+
+def replay_session(fe_cls, ann, cfg, q, pool):
+    """Submit ``q`` in order (the clock 4 ms on a request, a pump after
+    each), with an insert and a delete batch after requests 10, 25 and 40;
+    drain. Returns (results, telemetry summary); on a mesh the ranks other
+    than 0 follow rank 0's session and return None."""
+    fe = fe_cls(ann, cfg, clock=ManualClock())
+    if not getattr(fe, "leader", True):
+        fe.follow()
+        return None
+    writes = {10: 0, 25: 1, 40: 2}
+    rids = []
+    for i, row in enumerate(q):
+        rids.append(fe.submit(row))
+        if i in writes:
+            e = writes[i]
+            fe.submit_insert(pool[4 * e:4 * e + 4])
+            fe.submit_delete(np.arange(30 + 6 * e, 36 + 6 * e))   # 6: a tail stays
+        fe.clock.advance(0.004)
+        fe.pump()
+    fe.drain()
+    if getattr(fe, "mesh", None) is not None:
+        fe.close()
+    return [fe.result(r) for r in rids], fe.telemetry.summary()
+
+
+def streaming(rank, world, cases, session, ckpt_save, ckpt_restore, out_dir):
+    """The streaming index on this group's mesh: for each case (name ->
+    store, config, ops) a StreamingANN over the store runs the ops (insert
+    rows, delete ids, compact), each store and output kept; the first
+    case's last store saved to ``ckpt_save`` (rank 0 writes) and
+    ``ckpt_restore`` restored onto this mesh; the ``session`` (store,
+    config, serving config, queries, pool) replayed under shard="queries"
+    and "corpus". Inserts seed through dense visited."""
+    import dataclasses
+
+    from repro_torch.serving import ServingFrontend
+    from repro_torch.streaming import StreamingANN
+    torch.set_num_threads(1)
+    dense_seeding()
+    mesh = _mesh(world)
+    res = {}
+    for name, (store, cfg, ops) in cases.items():
+        ann = StreamingANN(store=store, cfg=cfg, mesh=mesh)
+        for i, (op, arg) in enumerate(ops):
+            out = ann.compact() if op == "compact" else getattr(ann, op)(arg)
+            res[name, i] = (store_leaves(ann.store), out)
+        if ckpt_save is not None and name == next(iter(cases)):
+            ann.save(ckpt_save)
+    if ckpt_restore is not None:
+        cfg = next(iter(cases.values()))[1]
+        res["restored"] = store_leaves(StreamingANN.restore(ckpt_restore, cfg, mesh=mesh).store)
+    store, cfg, scfg, q, pool = session
+    for shard_mode in ("queries", "corpus"):
+        ann = StreamingANN(store=store, cfg=cfg, mesh=mesh)
+        out = replay_session(ServingFrontend, ann, dataclasses.replace(scfg, shard=shard_mode),
+                             q, pool)
+        res["session", shard_mode] = (out, store_leaves(ann.store))
+    res["stats"] = mesh.stats.summary()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def card_streaming(rank, world, store, cfg, new_x, dels, want, out_dir):
+    """On the card, gloo ranks sharing it: a StreamingANN over ``store``
+    inserts ``new_x`` and deletes ``dels`` row-sharded (seeding dense),
+    each store held leaf for leaf to the single device's ``want``."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.streaming import StreamingANN
+    torch.cuda.set_device(0)
+    dense_seeding()
+    mesh = M.make_mesh((world,), ("data",), backend="gloo", device="cuda:0")
+    ann = StreamingANN(store=store, cfg=cfg, mesh=mesh)
+    reset_launches()
+    ann.insert(new_x)
+    res = {"insert": [torch.equal(t, w) for (_, t), w in zip(store_leaves(ann.store), want[0])]}
+    ann.delete(dels)
+    res["delete"] = [torch.equal(t, w) for (_, t), w in zip(store_leaves(ann.store), want[1])]
+    torch.cuda.synchronize()
+    res["launches"] = {k: v for k, v in LAUNCHES.items() if v}
+    res["ring"] = mesh.stats.summary().get("ppermute", {}).get("calls", 0)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 

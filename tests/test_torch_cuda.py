@@ -1020,3 +1020,122 @@ def test_sharded_build_on_the_card_equals_single_device(sharded_on_the_card):
 def test_sharded_search_on_the_card_equals_single_device(sharded_on_the_card, shard):
     for r in sharded_on_the_card[0]:
         assert r[shard + "_equal"]
+
+
+# ------------------------------------------------- GIST1M's width (d = 960)
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("m", [50, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_rng_prune_at_gist_width(dev, dtype, metric, m, integer):
+    """rng_prune (f32, bf16) and rng_prune_int8 on rows of a 960-wide corpus
+    (7.5 times the d-chunks of d = 128 through the copy ring; int8's shared
+    memory grows with d): bit for bit the plain version on integer-valued
+    rows and codes, the agreement limits of the real-data tests otherwise."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.rng_prune import ops as R
+    from repro_torch.quant import int8_decode
+    gen = torch.Generator(device=dev).manual_seed(21)
+    n, d = 3000, 960
+    if dtype == "int8" and integer:
+        # small codes, dyadic scale, integer zero: every sum over 960 dims
+        # stays exact in f32 (full-range codes would not)
+        codes = torch.randint(-8, 9, (n, d), generator=gen, device=dev).to(torch.int8)
+        scale = 2.0 ** -torch.randint(0, 2, (d,), generator=gen, device=dev).float()
+        zero = torch.randint(-3, 4, (d,), generator=gen, device=dev).float()
+        xv = int8_decode(codes, scale, zero)
+    elif dtype == "int8":
+        codes, scale, zero = _int8_space(gen, n, d, dev, integer)
+        xv = int8_decode(codes, scale, zero)
+    else:
+        xv = (torch.randint(-8, 9, (n, d), generator=gen, device=dev).float() if integer
+              else torch.randn(n, d, generator=gen, device=dev))
+    ids, dists, flags = _graph(xv, m, gen)
+    name = "rng_prune_int8" if dtype == "int8" else "rng_prune"
+    before = LAUNCHES[name]
+    if dtype == "int8":
+        ker = R.rng_prune_int8(codes, scale, zero, ids, dists, flags, metric)
+        ref = R.rng_prune_int8_plain(codes, scale, zero, ids, dists, flags, metric)
+    else:
+        xx = xv.to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+        ker = R.rng_prune(xx, ids, dists, flags, metric)
+        ref = R.rng_prune_plain(xx, ids, dists, flags, metric)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    if integer:
+        for a, b in zip(ker, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        return
+    assert float((ker[0] == ref[0]).float().mean()) >= 0.999
+    assert float((ker[1] == ref[1]).float().mean()) >= 0.999
+    same = (ker[1] == ref[1]) & (ker[1] >= 0)
+    xf = xv.float()
+    assert float((ker[2] - ref[2])[same].abs().max()) <= 1e-5 * 2 * float((xf * xf).sum(1).max())
+
+
+def test_pairwise_l2_at_gist_width(dev):
+    """pairwise_l2 at d = 960: bit for bit on integer-valued rows, within
+    1e-5 of |a|^2 + |b|^2 on real ones."""
+    from repro_torch.kernels.pairwise_l2 import ops as P
+    gen = torch.Generator(device=dev).manual_seed(22)
+    ai = torch.randint(-8, 9, (300, 960), generator=gen, device=dev).float()
+    bi = torch.randint(-8, 9, (5000, 960), generator=gen, device=dev).float()
+    torch.testing.assert_close(P.pairwise_l2(ai, bi), P.pairwise_l2_ref(ai, bi), rtol=0, atol=0)
+    a = torch.randn(300, 960, generator=gen, device=dev)
+    b = torch.randn(5000, 960, generator=gen, device=dev)
+    scale = (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
+    assert float(((P.pairwise_l2(a, b) - P.pairwise_l2_ref(a, b)).abs() / scale).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [128, 960])
+def test_random_init_does_not_depend_on_the_gather_budget_on_the_card(dev, d, monkeypatch):
+    """RandomGraph(S) at S = 20 drawn whole and in blocks of 4,096 pairs
+    (the budget's derived block) is the same graph bit for bit, with the
+    same distances."""
+    from repro_torch.core import distances as D
+    from repro_torch.core import graph as G
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(20_000, d, generator=gen, device=dev)
+    graphs = []
+    for budget in (1 << 40, 4 * d * 4 * 4096):
+        monkeypatch.setattr(D, "GATHER_BUDGET", budget)
+        graphs.append(G.random_init_graph(x, 20, 128, "l2",
+                                          torch.Generator(device=dev).manual_seed(7)))
+    for a, b in zip(*graphs):
+        assert torch.equal(a, b)
+
+
+def test_sharded_streaming_on_the_card_equals_single_device(dev, monkeypatch):
+    """Two gloo ranks sharing the card: StreamingANN(mesh=) inserts 200
+    points (the store grows) and deletes 150 rows; each store equals the
+    single device's on the card leaf for leaf (seeding dense on both). The
+    frontier sweeps and the repair prune through rng_prune on every rank,
+    and the frontier exchange runs its ring."""
+    import dataclasses
+
+    import _dist_workers as W
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.streaming import StreamingANN
+    from repro_torch.streaming import store as ST
+    from repro_torch.streaming import updates as U
+    gen = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randint(-8, 9, (1400, 24), generator=gen, device=dev).float()
+    cfg = U.StreamingConfig(
+        build=rd.RNNDescentConfig(s=8, r=16, t1=2, t2=3, capacity=24, chunk=128),
+        seed_l=32, seed_k=12, seed_iters=64, batch_k=4, splice_k=6, delete_fanout=7)
+    g0 = rd.build(x[:1200], cfg.build, torch.Generator(device=dev).manual_seed(1))
+    store = ST.from_built(x[:1200], g0)
+    orig = U.StreamingConfig.seed_search_cfg
+    monkeypatch.setattr(U.StreamingConfig, "seed_search_cfg",
+                        lambda self: dataclasses.replace(orig(self), visited="dense"))
+    ann = StreamingANN(store=store, cfg=cfg)
+    want = []
+    ann.insert(x[1200:])
+    want.append([t.clone() for _, t in W.store_leaves(ann.store)])
+    ann.delete(torch.arange(100, 250))
+    want.append([t.clone() for _, t in W.store_leaves(ann.store)])
+    torch.cuda.synchronize()
+    ranks = W.run(W.card_streaming, 2, store, cfg, x[1200:], torch.arange(100, 250), want)
+    for r in ranks:
+        assert all(r["insert"]) and all(r["delete"])
+        assert r["launches"]["rng_prune"] == 2 + 1 and r["ring"] > 0

@@ -70,7 +70,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.launch.mesh', 'repro_torch.distributed.sharding',\n"
         "        'repro_torch.distributed.comm', 'repro_torch.distributed.ann',\n"
         "        'repro_torch.distributed.fault', 'repro_torch.core.shard',\n"
-        "        'repro_torch.core.search_sharded'}\n"
+        "        'repro_torch.core.search_sharded', 'repro_torch.configs.rnnd_ann',\n"
+        "        'repro_torch.launch.steps'}\n"
         "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )

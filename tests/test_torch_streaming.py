@@ -329,3 +329,43 @@ def test_quantized_store_search_and_insert(corpus, base_ann):
         ids, _ = ann.search(x[500:560], dataclasses.replace(SCFG, quant=quant))
         assert np.mean(ids[:, 0].numpy() == new_ids) >= 0.95
         assert not np.isin(ids.numpy(), np.arange(20)).any()
+
+
+@pytest.mark.parametrize("n_sim", [1, 2, 4])
+def test_frontier_exchange_simulated_matches_single_device(int_store, n_sim, monkeypatch):
+    """The sharded frontier sweep simulated in one process: the frontier
+    padded to a multiple of ``n_sim`` blocks, each block's rows pruned on
+    their own (``_sweep_slice``), every destination block's tables folded
+    from every block's partial (``combine_bucket_tables_pair``, in the
+    ring's order) and merged: the rows of both sweeps of an insert equal
+    the single-device sweep's bit for bit, and the padded rows stay empty."""
+    x, _, _, st_q = int_store
+    pst = _port(RST.grow(st_q, 700))
+    calls, orig = [], U._frontier_sweep
+
+    def spy(xx, g, *rest):
+        g = G.Graph(*(t.clone() for t in g))      # the insert writes into g's buffers
+        out = orig(xx, g, *rest)
+        calls.append(((xx, g, *rest), out))
+        return out
+
+    monkeypatch.setattr(U, "_frontier_sweep", spy)
+    U.insert(pst, x[500:600], CFG)
+    assert len(calls) == CFG.sweeps
+    for (xx, g, frontier, er, ei, ed, cfg, f_pad, mesh), want in calls:
+        assert mesh is None and want.n == f_pad
+        fp = U._round_up(f_pad, n_sim)
+        fr = torch.cat([frontier, frontier.new_full((fp - f_pad,), g.n)])
+        blk = fp // n_sim
+        parts = [U._sweep_slice(xx, g, fr[r * blk:(r + 1) * blk], fr, er, ei, ed, cfg, fp)
+                 for r in range(n_sim)]
+        rows = []
+        for b in range(n_sim):
+            acc = parts[b][1](b * blk, blk)
+            for j in range(1, n_sim):
+                acc = G.combine_bucket_tables_pair(acc, parts[(b - j) % n_sim][1](b * blk, blk))
+            rows.append(U._merge_tables(parts[b][0], acc))
+        got = G.Graph(*(torch.cat(t) for t in zip(*rows)))
+        for a, w in zip(got, want):
+            assert torch.equal(a[:f_pad], w)
+        assert bool((got.neighbors[f_pad:] == -1).all())
