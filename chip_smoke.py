@@ -64,6 +64,20 @@ Phases (any failure raises and exits non-zero):
      iteration 20 of the first tile (f32 rows), on random ids over bf16
      rows, and over a seeded 960-wide corpus (GIST1M's width) on the same
      adjacency, each exact on integer-valued rows and queries (l2, ip);
+  5o. obs, while the path's corpus, queries and graph are alive: the obs
+     session (``repro_torch.obs.__main__.main``: a build, search and serve
+     untraced then traced, bit for bit, no kernel built or library loaded in
+     its measured session, trace.json's span families); the 1M build again
+     through bind("rnnd-ann", "build_1m") with the path's seed and obs
+     enabled with its hooks: its graph bit for bit the path's, 60
+     rnn_descent/sweep spans (one rng_prune launch each) and 3 reverse
+     spans, an obs_build line of the per-sweep readouts (edges new, pruned
+     and live, occupancy, wall and device ms); the path's 10k-query search
+     traced (the untraced ids and distances, the search/tiled span's lane
+     work); obs_device_bytes gauges at each stage, the peak one equal to
+     torch.cuda.max_memory_allocated(); python -m repro_torch.analysis
+     --passes lint,kernel,dispatch,recompile --check-baseline (the card's
+     registers, spills and occupancy of every kernel instance);
   5a. ann_gist, the build_gist cell (GIST1M's width, d = 960): the medium
      check (numpy_mixture's 5,000 rows and 200 queries at d = 960, FULL,
      kernels and plain versions, held to each other and to the JAX
@@ -143,7 +157,7 @@ Phases (any failure raises and exits non-zero):
      and RNN-Descent at n = 20,001) bit for bit against the single-device
      graph, with build and ring seconds, wire and staged bytes, peak memory
      and launches a rank; at D = 2,
-     ShardedANN.build over the first 250k rows (SHARD_BUILD_N) against the
+     ShardedANN.build over the first 125k rows (SHARD_BUILD_N) against the
      single-device build (the ring's bytes held to the closed form, 60
      rng_prune launches a rank), its corpus-sharded dense search, save, and
      restore at D = 1 serving the same results; on the path's 1M graph, the
@@ -162,9 +176,10 @@ Phases (any failure raises and exits non-zero):
      path's store, 8 insert and 4 delete batches of 1,024, the final store
      equal to the single device's, with inserts/s, deletes/s, the
      exchange's seconds and bytes and each rank's peak memory.
-Cut to fit the script's time (about 700 s): the sort-oracle witness and the
+Cut to fit the script's time (about 770 s): the sort-oracle witness and the
 PQ path run over the first 500k rows of the 1M corpus (CUT_N), the sharded
-phase's ShardedANN build over the first 250k (SHARD_BUILD_N);
+phase's ShardedANN build over the first 125k (SHARD_BUILD_N; 250k before
+the obs phase was added);
 scripts/sharded_build.py runs the sharded build at 1M. "clock" lines
 give the seconds since start after each phase. The last lines are the
 kernels' JSON, the card's name and power limit, and
@@ -199,7 +214,7 @@ GIST_MEDIUM = (5_000, 200)
 # their own ground truth (the sort-oracle witness, then the PQ path), and the
 # rows of the sharded phase's ShardedANN build
 CUT_N = 500_000
-SHARD_BUILD_N = 250_000
+SHARD_BUILD_N = 125_000
 # The JAX package on the CPU at the medium configuration: f32, int8, pq over
 # its own draw of the same mixture (scripts/reference_medium.py); the
 # baselines (NNDescentConfig(), NSGStyleConfig() on it) over numpy_mixture's
@@ -1012,21 +1027,21 @@ def serve_coalesced(ann, q_np, scfg, tile_lanes: int, n: int = 512) -> list:
 
 @contextlib.contextmanager
 def no_kernel_builds():
-    """Count ``_build.build_all`` calls (the only place nvcc runs) and the
-    loaded kernel libraries while the block runs: yields {"nvcc_runs",
-    "libs_added"} filled in on exit."""
+    """Read the kernel-build and library-load tallies of ``obs.cudahooks``
+    (``kernels/_build`` keeps them: each nvcc run, each library opened)
+    and the kernel entries looked up, while the block runs: yields
+    {"nvcc_runs", "libs_added", "entries_added"} filled in on exit."""
     from repro_torch.kernels import _build
-    out, orig, libs = {"nvcc_runs": 0}, _build.build_all, len(_build._LIBS)
-
-    def counted(*a, **kw):
-        out["nvcc_runs"] += 1
-        return orig(*a, **kw)
-    _build.build_all = counted
+    from repro_torch.obs import cudahooks
+    out = {}
+    builds, libs, entries = (cudahooks.kernel_builds(), cudahooks.kernel_libs_loaded(),
+                             len(_build._LIBS))
     try:
         yield out
     finally:
-        _build.build_all = orig
-        out["libs_added"] = len(_build._LIBS) - libs
+        out["nvcc_runs"] = cudahooks.kernel_builds() - builds
+        out["libs_added"] = cudahooks.kernel_libs_loaded() - libs
+        out["entries_added"] = len(_build._LIBS) - entries
 
 
 def serving_session(ann, q_np, scfg, pool, n0: int, n_req: int, n_events: int,
@@ -1131,7 +1146,7 @@ def serving_session(ann, q_np, scfg, pool, n0: int, n_req: int, n_events: int,
         "tiles", "occupancy_mean", "queue_depth_p95", "staleness_mean", "staleness_max",
         "write_commits", "rows_written", "dead_ids_in_results", "malformed_results")})
     want = {"insert": wb * n_events, "delete": wb * n_events}
-    check(res["nvcc_runs"] == 0 and res["libs_added"] == 0,
+    check(res["nvcc_runs"] == 0 and res["libs_added"] == 0 and res["entries_added"] == 0,
           f"serving session built kernels: {builds}")
     check(res["completed"] == n_req and res["rows_written"] == want,
           f"serving session completed {res['completed']} of {n_req}, wrote "
@@ -2001,6 +2016,115 @@ def kernel_phase(x, q, g, launches, snap):
 GIST_N, GIST_Q = 1_000_000, 1_000     # the build_gist cell and its queries
 # recall@10 floor of the 1M GIST-width build (hashed, L = K = 64): its first
 # run on the card read 0.7124 (PERF.md); no JAX number exists at 1M
+def obs_phase(x, q, g, path_res: dict) -> None:
+    """Phase 5o: the obs session, the traced 1M build and search against the
+    path's untraced ones, the memory gauges and the analysis CLI on the
+    card."""
+    from repro_torch import obs
+    from repro_torch.core import search as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.obs import cudahooks, trace
+    from repro_torch.obs.__main__ import main as obs_main
+
+    # (a) the scripted session on the card
+    out_dir = os.path.join(ROOT, "build", "obs")
+    t0 = time.perf_counter()
+    rc = obs_main(["--out", out_dir])
+    session_s = time.perf_counter() - t0
+    check(rc == 0, f"python -m repro_torch.obs on the card exited {rc}")
+    obs.reset()
+
+    # (b) the 1M build traced, with the hooks
+    build_step = steps.bind("rnnd-ann", "build_1m", device="cuda")
+    scfg = full_search()
+    ep = S.default_entry_point(x)
+    untraced = S.search_tiled(x, g, q, ep, scfg, tile_b=1024, with_stats=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    obs.enable()
+    try:
+        mem = {"start": cudahooks.record_memory("start")}
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gt_ = build_step.step_fn({}, {"x": x, "generator": gen})
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        mem["build"] = cudahooks.record_memory("build")
+        peak_torch = torch.cuda.max_memory_allocated()
+        build_launches = {k: v for k, v in LAUNCHES.items() if v}
+        # (c) the path's search traced
+        traced = S.search_tiled(x, gt_, q, ep, scfg, tile_b=1024, with_stats=True)
+        torch.cuda.synchronize()
+        mem["search"] = cudahooks.record_memory("search")
+    finally:
+        obs.disable()
+    evs = trace.events()
+    same = [bool(torch.equal(a, b)) for a, b in zip(gt_, g)]
+    check(all(same), f"traced 1M build differs from the path's graph (neighbors, dists, "
+                     f"flags equal: {same})")
+    del gt_
+    sweeps = [e for e in evs if e["name"] == "rnn_descent/sweep"]
+    reverses = [e for e in evs if e["name"] == "rnn_descent/reverse"]
+    cfg = build_step.cfg
+    check(len(sweeps) == cfg.t1 * cfg.t2 and len(reverses) == cfg.t1 - 1,
+          f"traced 1M build: {len(sweeps)} sweep and {len(reverses)} reverse spans")
+    check(all(e["attrs"].get("launches_rng_prune") == 1 and e["attrs"]["launches"] == 1
+              for e in sweeps), "a traced sweep launched other than one rng_prune")
+    check(build_launches == {"rng_prune": cfg.t1 * cfg.t2},
+          f"traced 1M build launched {build_launches}")
+    keys = ["sweep", "t1", "edges_new", "edges_pruned", "edges_live", "occupancy", "wall_ms",
+            "device_ms"]
+    rows = [[e["attrs"].get("sweep"), e["attrs"].get("t1"), e["attrs"]["edges_new"],
+             e["attrs"].get("edges_pruned"), e["attrs"]["edges_live"],
+             e["attrs"]["occupancy"], e["dur_s"] * 1e3, e["attrs"]["device_ms"]]
+            for e in sorted(sweeps + reverses, key=lambda e: e["start_s"])]
+    emit({"phase": "obs_build", "n": x.shape[0], "cell": "bind('rnnd-ann', 'build_1m')",
+          "traced_build_s": traced_s, "untraced_build_s": path_res["build_s"],
+          "spans": {"sweep": len(sweeps), "reverse": len(reverses)},
+          "launches": build_launches,
+          "note": "rows in order; a reverse row has sweep null, edges_pruned null",
+          "keys": keys, "rows": rows})
+
+    # (c) traced search equals the untraced one
+    same_search = torch.equal(untraced[0], traced[0]) and torch.equal(untraced[1], traced[1])
+    check(same_search and untraced[2] == traced[2],
+          "traced 10k-query search differs from the untraced one")
+    (tiled,) = [e for e in evs if e["name"] == "search/tiled"]
+    ta = tiled["attrs"]
+    # (d) the gauges: the peak one is the allocator's
+    peak_gauge = mem["build"][f"cuda:{torch.cuda.current_device()}"]["peak_allocated_bytes"]
+    check(peak_gauge == peak_torch,
+          f"peak gauge {peak_gauge} != max_memory_allocated {peak_torch}")
+    emit({"phase": "obs_search", "queries": q.shape[0], "search": "L=64 K=64 topk=10 hashed",
+          "equal_to_untraced": same_search, "span_ms": tiled["dur_s"] * 1e3,
+          **{k: ta[k] for k in ("work", "launched", "tiles", "tile_lanes", "b", "tile_b",
+                               "launches", "device_ms")}})
+    emit({"phase": "obs_memory", "gauges": mem, "peak_gauge_equals_max_memory_allocated":
+          peak_gauge == peak_torch, "obs_session_s": session_s})
+
+    # (e) the analysis CLI on the card, in a process of its own
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--passes",
+           "lint,kernel,dispatch,recompile", "--check-baseline"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    done = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    lines = done.stdout.splitlines()
+    for line in lines:
+        if line.startswith(("kernel-check card:", "recompile-guard", "analysis:", "NEW ",
+                            "repo-lint")):
+            print(f"[analysis] {line}", flush=True)
+    check(done.returncode == 0, f"python -m repro_torch.analysis on the card exited "
+                                f"{done.returncode}: {done.stderr[-2000:]}")
+    card_lines = [ln for ln in lines if ln.startswith("kernel-check card:")]
+    check(len(card_lines) >= 36, f"kernel check read {len(card_lines)} instances on the card")
+    emit({"phase": "obs_analysis", "seconds": time.perf_counter() - t0,
+          "instances_checked": len(card_lines), "summary": lines[-1] if lines else ""})
+    obs.reset()
+
+
 GIST_RECALL_FLOOR = 0.69
 
 
@@ -2987,9 +3111,10 @@ def sharded_phase(x, q, g, gt):
     emit({"phase": "sharded_full", "n": x.shape[0], "build_n": SHARD_BUILD_N, "d": x.shape[1],
           "ranks": 2, "backend": "gloo", "build": "FULL s=20 r=96 t1=4 t2=15 M=128",
           "queries": SHARD_Q, "search": "L=64 K=64 topk=10 dense (and hashed)",
-          "reduced": {"build_n": f"{SHARD_BUILD_N} (the first rows of the 1M corpus): the 1M "
-                                 "build takes 137.8 s on two gloo ranks sharing the card "
-                                 "(scripts/sharded_build.py)"},
+          "reduced": {"build_n": f"{SHARD_BUILD_N} (the first rows of the 1M corpus; 250000 "
+                                 "before the obs phase took its place in the script's time): "
+                                 "the 1M build takes 137.8 s on two gloo ranks sharing the "
+                                 "card (scripts/sharded_build.py)"},
           "wire_bytes_a_sweep_closed_form": sweep, "wire_bytes_build_closed_form": closed,
           "single_device_build_s": single_build_s, "single_device_dense_search_s": single_s,
           "single_device_qps": SHARD_Q / single_s,
@@ -3381,6 +3506,8 @@ def main() -> int:
     report = kernel_phase(x, q, g, launches, snap)
     del snap
     clock("kernels")
+    obs_phase(x, q, g, res)
+    clock("obs")
     report += ann_gist()
     clock("ann_gist")
     report += streaming_1m(x, q, g)

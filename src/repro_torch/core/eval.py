@@ -2,7 +2,6 @@
 truth, recall, degree statistics, connectivity, timing."""
 from __future__ import annotations
 
-import time
 from typing import Callable
 
 import numpy as np
@@ -131,13 +130,17 @@ def connectivity_lower_bound(g: G.Graph, entry: int, iters: int = 64) -> float:
 
 def timed(fn: Callable, *args, repeats: int = 1, **kw) -> tuple[float, object]:
     """Wall-clock a call (best of ``repeats``), synchronising the card
-    before and after when CUDA is in use; returns (sec, result)."""
+    before and after when CUDA is in use; returns (sec, result). Each repeat
+    lands on the obs trace as an ``eval/timed`` span when tracing is on
+    (``obs.trace.timed`` measures unconditionally)."""
+    from repro_torch.obs import trace
     sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    name = getattr(fn, "__name__", type(fn).__name__)
     best, out = float("inf"), None
     for _ in range(repeats):
         sync()
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        sync()
-        best = min(best, time.perf_counter() - t0)
+        with trace.timed("eval/timed", fn=name) as tm:
+            out = fn(*args, **kw)
+            sync()
+        best = min(best, tm.seconds)
     return best, out

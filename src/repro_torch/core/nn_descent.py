@@ -207,7 +207,10 @@ def build(x, cfg: NNDescentConfig, generator: torch.Generator | None = None,
     input is placed on ``device``. ``generator`` (on x's device) draws the
     random initial graph; None seeds one with 0. ``cfg.quant`` int8/pq
     descends over the decoded corpus. ``mesh``: row-sharded over the mesh's
-    ranks (``core/shard.py``), as in ``rnn_descent.build``."""
+    ranks (``core/shard.py``), as in ``rnn_descent.build``. With
+    ``repro_torch.obs`` enabled each iteration runs under an
+    ``nn_descent/iter`` span with the readouts of ``rnn_descent.build``'s
+    sweeps; the graph is bit for bit the untraced one."""
     x = as_tensor(x, device, torch.float32)
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
@@ -215,9 +218,19 @@ def build(x, cfg: NNDescentConfig, generator: torch.Generator | None = None,
     if mesh is not None:
         from repro_torch.core import shard
         return shard.build_nn_descent(x, cfg, generator, mesh)
+    from repro_torch.obs import cudahooks as _ch
+    from repro_torch.obs import graphstats as _gs
+    from repro_torch.obs import trace as _tr
     g = random_init(x, cfg, generator)
-    for _ in range(cfg.iters):
-        g = join_and_update(x, g, cfg)
+    prev_live = None
+    for it in range(cfg.iters):
+        with _tr.span("nn_descent/iter") as sp, _ch.span_costs(sp, x.device):
+            g = join_and_update(x, g, cfg)
+            if sp:
+                _gs.sync(g.neighbors)
+                prev_live = _gs.record_sweep(
+                    sp, g, algo="nn_descent", phase="sweep",
+                    prev_live=prev_live, iter=it)
     return g
 
 

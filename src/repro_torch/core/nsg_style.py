@@ -188,14 +188,33 @@ def refine(x: torch.Tensor, knn_g: G.Graph, cfg: NSGStyleConfig, entry=None) -> 
     edges capped at R, connectivity repair (always through the sort merge,
     whatever ``cfg.merge``: it runs once, and nothing offers a dropped
     repair edge again). ``x`` is the corpus as built (decoded when coded)."""
-    cand_ids, cand_d = expand_candidates(x, knn_g, cfg.c, cfg.metric)
-    capped = rng_cap_rows(x, cand_ids, cand_d, cfg)
+    from repro_torch.obs import cudahooks as _ch
+    from repro_torch.obs import graphstats as _gs
+    from repro_torch.obs import trace as _tr
+    with _tr.span("nsg_style/expand") as sp:
+        cand_ids, cand_d = expand_candidates(x, knn_g, cfg.c, cfg.metric)
+        if sp:
+            _gs.sync(cand_ids)
+            sp.set(pool=int(cand_ids.shape[1]))
+    with _tr.span("nsg_style/prune") as sp, _ch.span_costs(sp, x.device):
+        capped = rng_cap_rows(x, cand_ids, cand_d, cfg)
+        if sp:
+            _gs.sync(capped.neighbors)
+            _gs.record_sweep(sp, capped, algo="nsg_style", phase="sweep")
     del cand_ids, cand_d
-    g = G.add_reverse_edges(capped, cfg.r, merge=cfg.merge, n_buckets=cfg.n_buckets)
+    with _tr.span("nsg_style/reverse") as sp:
+        g = G.add_reverse_edges(capped, cfg.r, merge=cfg.merge, n_buckets=cfg.n_buckets)
+        if sp:
+            _gs.sync(g.neighbors)
+            _gs.record_sweep(sp, g, algo="nsg_style", phase="reverse")
     if entry is None:
         from repro_torch.core.search import default_entry_point
         entry = default_entry_point(x, cfg.metric)
-    return ensure_reachable(x, g, entry, cfg.metric)
+    with _tr.span("nsg_style/repair") as sp:
+        g = ensure_reachable(x, g, entry, cfg.metric)
+        if sp:
+            _gs.sync(g.neighbors)
+    return g
 
 
 def build(x, cfg: NSGStyleConfig, generator: torch.Generator | None = None,
@@ -204,7 +223,11 @@ def build(x, cfg: NSGStyleConfig, generator: torch.Generator | None = None,
     ``generator`` as in ``nn_descent.build``. ``cfg.quant`` int8/pq decodes
     the corpus once at entry; every stage runs over ``x_hat``. ``mesh``:
     the K-NN stage and the per-row stages run row-sharded, the repair on
-    every rank (``core/shard.py``), as in ``rnn_descent.build``."""
+    every rank (``core/shard.py``), as in ``rnn_descent.build``. With
+    ``repro_torch.obs`` enabled the stages run under ``nsg_style/knn``,
+    ``/expand``, ``/prune``, ``/reverse`` and ``/repair`` spans, the prune
+    and the reverse pass with the per-sweep graph readouts; the graph is
+    bit for bit the untraced one."""
     x = as_tensor(x, device, torch.float32)
     x, _ = prep_corpus(x, cfg.quant)
     if mesh is not None:
@@ -212,5 +235,10 @@ def build(x, cfg: NSGStyleConfig, generator: torch.Generator | None = None,
         if generator is None:
             generator = torch.Generator(device=x.device).manual_seed(0)
         return shard.build_nsg_style(x, cfg, generator, mesh, entry=entry)
-    knn_g = nnd.build(x, cfg.knn, generator)
+    from repro_torch.obs import graphstats as _gs
+    from repro_torch.obs import trace as _tr
+    with _tr.span("nsg_style/knn") as sp:
+        knn_g = nnd.build(x, cfg.knn, generator)
+        if sp:
+            _gs.sync(knn_g.neighbors)
     return refine(x, knn_g, cfg, entry)

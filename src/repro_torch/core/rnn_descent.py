@@ -135,7 +135,17 @@ def build(x, cfg: RNNDescentConfig, generator: torch.Generator | None = None,
     ``mesh`` (``launch.mesh.Mesh``): every rank of the mesh calls this with
     the same corpus and generator state, and the sweeps run row-sharded
     (``core/shard.py``); every rank gets the whole graph, equal bit for bit
-    to ``mesh=None``'s."""
+    to ``mesh=None``'s.
+
+    Observability: with ``repro_torch.obs`` enabled each sweep runs under
+    an ``rnn_descent/sweep`` span (each reverse pass under
+    ``rnn_descent/reverse``) that synchronises the card once at its end
+    and records the sweep's edge readouts, kernel launches and device
+    time; the launches are the same either way, so the built graph is bit
+    for bit the untraced one."""
+    from repro_torch.obs import cudahooks as _ch
+    from repro_torch.obs import graphstats as _gs
+    from repro_torch.obs import trace as _tr
     x = as_tensor(x, device, torch.float32)
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
@@ -145,11 +155,24 @@ def build(x, cfg: RNNDescentConfig, generator: torch.Generator | None = None,
         return shard.build_rnn_descent(x, cfg, generator, mesh, qx=qx)
     g = random_init(x, cfg, generator)
     xg = gram_input(x, cfg)              # cast once per build, not per sweep
+    prev_live, sweep = None, 0
     for t1 in range(cfg.t1):
         for _ in range(cfg.t2):
-            g = update_neighbors(xg, g, cfg, qx=qx)
+            with _tr.span("rnn_descent/sweep") as sp, _ch.span_costs(sp, x.device):
+                g = update_neighbors(xg, g, cfg, qx=qx)
+                if sp:
+                    _gs.sync(g.neighbors)
+                    prev_live = _gs.record_sweep(
+                        sp, g, algo="rnn_descent", phase="sweep",
+                        prev_live=prev_live, sweep=sweep, t1=t1)
+            sweep += 1
         if t1 != cfg.t1 - 1:
-            g = add_reverse_edges(g, cfg)
+            with _tr.span("rnn_descent/reverse") as sp, _ch.span_costs(sp, x.device):
+                g = add_reverse_edges(g, cfg)
+                if sp:
+                    _gs.sync(g.neighbors)
+                    prev_live = _gs.record_sweep(
+                        sp, g, algo="rnn_descent", phase="reverse", t1=t1)
     return g
 
 

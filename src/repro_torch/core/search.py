@@ -431,7 +431,49 @@ def search_tiled(x, g: G.Graph, queries, entry_points, cfg: SearchConfig,
         the "rows" axes, and each beam step goes through owner-contribute
         collectives (``core/search_sharded.py``); this entry slices the
         rank's block from the whole arrays. Results equal ``mesh=None``'s
-        bit for bit."""
+        bit for bit.
+
+    Observability: with ``repro_torch.obs`` enabled the call runs under a
+    ``search/tiled`` span that synchronises the card at its end and carries
+    ``b, tile_b, shard, l, k, quant, mesh``; with ``with_stats`` also
+    ``work, launched, tiles, tile_lanes``, folded into the
+    ``search_lane_work_total``, ``search_lanes_launched_total`` and
+    ``search_tiles_total`` counters. The launches are the same either way,
+    so the results are bit for bit the untraced ones."""
+    from repro_torch.obs import trace as _tr
+    args = (x, g, queries, entry_points, cfg, tile_b, with_stats, lane_valid, device,
+            qx, valid, mesh, shard)
+    if not _tr.enabled():
+        return _search_tiled(*args)
+    from repro_torch.obs import cudahooks as _ch
+    from repro_torch.obs import graphstats as _gs
+    from repro_torch.obs import metrics as _mx
+    dev = x.device if isinstance(x, torch.Tensor) else torch.device(device)
+    with _tr.span("search/tiled") as sp, _ch.span_costs(sp, dev):
+        out = _search_tiled(*args)
+        _gs.sync(out[0])
+        b = int(queries.shape[0])
+        sp.set(b=b, tile_b=int(tile_b), shard=shard, l=cfg.l, k=cfg.k,
+               quant=cfg.quant.mode, mesh=mesh is not None)
+        if with_stats:
+            stats = out[2]
+            work, launched, tiles = (int(stats[k]) for k in ("work", "launched", "tiles"))
+            sp.set(work=work, launched=launched, tiles=tiles,
+                   tile_lanes=int(stats["tile_lanes"]))
+            reg = _mx.REGISTRY
+            reg.counter("search_lane_work_total",
+                        help="beam iterations actually expanded "
+                             "(tiling-invariant lane work)").inc(work)
+            reg.counter("search_lanes_launched_total",
+                        help="iterations executed x lanes launched "
+                             "(includes padded/retired lanes)").inc(launched)
+            reg.counter("search_tiles_total",
+                        help="search tiles dispatched").inc(tiles)
+    return out
+
+
+def _search_tiled(x, g, queries, entry_points, cfg, tile_b, with_stats, lane_valid,
+                  device, qx, valid, mesh, shard):
     if shard not in ("queries", "corpus"):
         raise ValueError(
             f"unknown shard mode {shard!r}: expected \"queries\" (tiles shard, corpus "

@@ -301,19 +301,43 @@ def build_rnn_descent(x, cfg, generator, mesh, qx=None, init: G.Graph | None = N
     coded ``cfg.quant`` x is the decoded corpus). RandomGraph(S) is drawn
     from ``generator`` on the first rank and broadcast, or ``init`` is the
     initial graph (the same on every rank: checked); the sweeps run
-    row-sharded. Returns the whole graph on every rank."""
+    row-sharded. Returns the whole graph on every rank.
+
+    Observability: the spans of ``rnn_descent.build`` on every rank, their
+    graph readouts taken over the rank's own rows (no collective is added),
+    with the ring exchange's hop count and closed-form wire bytes
+    (:func:`_exchange_attrs`)."""
     from repro_torch.core import rnn_descent as rd
+    from repro_torch.obs import cudahooks as _ch
+    from repro_torch.obs import graphstats as _gs
+    from repro_torch.obs import trace as _tr
     _check_mesh(mesh, cfg.merge)
     n = x.shape[0]
     g = _initial_graph(lambda: rd.random_init(x, cfg, generator), init, n, cfg.capacity,
                        x.device, mesh)
     g = local_rows(g, mesh)
     xg = rd.gram_input(x, cfg)
+    prev_live, sweep = None, 0
     for t1 in range(cfg.t1):
         for _ in range(cfg.t2):
-            g = rnn_update_neighbors(xg, g, cfg, mesh, qx=qx)
+            with _tr.span("rnn_descent/sweep") as sp, _ch.span_costs(sp, x.device):
+                g = rnn_update_neighbors(xg, g, cfg, mesh, qx=qx)
+                if sp:
+                    _gs.sync(g.neighbors)
+                    prev_live = _gs.record_sweep(
+                        sp, g, algo="rnn_descent", phase="sweep", prev_live=prev_live,
+                        sweep=sweep, t1=t1, **_exchange_attrs(
+                            n, mesh, cfg.n_buckets or G.default_buckets(cfg.capacity), 9))
+            sweep += 1
         if t1 != cfg.t1 - 1:
-            g = add_reverse_edges(g, cfg.r, mesh, cfg.n_buckets)
+            with _tr.span("rnn_descent/reverse") as sp, _ch.span_costs(sp, x.device):
+                g = add_reverse_edges(g, cfg.r, mesh, cfg.n_buckets)
+                if sp:
+                    _gs.sync(g.neighbors)
+                    prev_live = _gs.record_sweep(
+                        sp, g, algo="rnn_descent", phase="reverse", t1=t1,
+                        **_exchange_attrs(n, mesh, cfg.n_buckets or G.default_buckets(cfg.r),
+                                          22))
     return gather_rows(g, n, mesh)
 
 
@@ -346,13 +370,23 @@ def build_nn_descent(x, cfg, generator, mesh, init: G.Graph | None = None) -> G.
     """Sharded NN-Descent (``nn_descent.build(mesh=)``); ``init`` as in
     :func:`build_rnn_descent`. Returns the whole graph on every rank."""
     from repro_torch.core import nn_descent as nnd
+    from repro_torch.obs import cudahooks as _ch
+    from repro_torch.obs import graphstats as _gs
+    from repro_torch.obs import trace as _tr
     _check_mesh(mesh, cfg.merge)
     n = x.shape[0]
     g = _initial_graph(lambda: nnd.random_init(x, cfg, generator), init, n, cfg.k,
                        x.device, mesh)
     g = local_rows(g, mesh)
-    for _ in range(cfg.iters):
-        g = nn_join_and_update(x, g, cfg, mesh)
+    prev_live = None
+    for it in range(cfg.iters):
+        with _tr.span("nn_descent/iter") as sp, _ch.span_costs(sp, x.device):
+            g = nn_join_and_update(x, g, cfg, mesh)
+            if sp:
+                _gs.sync(g.neighbors)
+                prev_live = _gs.record_sweep(
+                    sp, g, algo="nn_descent", phase="sweep", prev_live=prev_live, iter=it,
+                    **_exchange_attrs(n, mesh, nnd.default_join_buckets(cfg, g.capacity), 8))
     return gather_rows(g, n, mesh)
 
 
@@ -377,15 +411,36 @@ def build_nsg_style(x, cfg, generator, mesh, entry=None, init: G.Graph | None = 
     merge, with no rank-local form), the single-device computation on
     every rank. ``init``: the K-NN stage's initial graph."""
     from repro_torch.core import nsg_style
+    from repro_torch.obs import cudahooks as _ch
+    from repro_torch.obs import graphstats as _gs
+    from repro_torch.obs import trace as _tr
     _check_mesh(mesh, cfg.merge)
     if cfg.knn.merge != "bucketed":
         raise ValueError(
             f"sharded nsg-style requires knn.merge='bucketed', got {cfg.knn.merge!r}")
-    knn = build_nn_descent(x, cfg.knn, generator, mesh, init=init)
-    capped = _nsg_expand_cap(x, knn, cfg, mesh)
+    with _tr.span("nsg_style/knn") as sp:
+        knn = build_nn_descent(x, cfg.knn, generator, mesh, init=init)
+        if sp:
+            _gs.sync(knn.neighbors)
+    with _tr.span("nsg_style/prune") as sp, _ch.span_costs(sp, x.device):
+        capped = _nsg_expand_cap(x, knn, cfg, mesh)
+        if sp:
+            _gs.sync(capped.neighbors)
+            _gs.record_sweep(sp, capped, algo="nsg_style", phase="sweep")
     del knn
-    g = gather_rows(add_reverse_edges(capped, cfg.r, mesh, cfg.n_buckets), x.shape[0], mesh)
-    if entry is None:
-        from repro_torch.core.search import default_entry_point
-        entry = default_entry_point(x, cfg.metric)
-    return nsg_style.ensure_reachable(x, g, entry, cfg.metric)
+    with _tr.span("nsg_style/reverse") as sp:
+        g = add_reverse_edges(capped, cfg.r, mesh, cfg.n_buckets)
+        if sp:
+            _gs.sync(g.neighbors)
+            _gs.record_sweep(sp, g, algo="nsg_style", phase="reverse", **_exchange_attrs(
+                x.shape[0], mesh, cfg.n_buckets or G.default_buckets(cfg.r), 22))
+    # replicated connectivity repair: the single-device computation on every rank
+    with _tr.span("nsg_style/repair") as sp:
+        g = gather_rows(g, x.shape[0], mesh)
+        if entry is None:
+            from repro_torch.core.search import default_entry_point
+            entry = default_entry_point(x, cfg.metric)
+        g = nsg_style.ensure_reachable(x, g, entry, cfg.metric)
+        if sp:
+            _gs.sync(g.neighbors)
+    return g

@@ -40,10 +40,11 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.obs import trace as T
 
 
 @dataclasses.dataclass
@@ -88,7 +89,7 @@ class _Call:
             self.ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             self.ev[0].record()
         else:
-            self.t0 = time.perf_counter()
+            self.tm = T.timed(f"comm/{self.op}").__enter__()
         return self
 
     def __exit__(self, *exc):
@@ -96,7 +97,8 @@ class _Call:
             self.ev[1].record()
             self.stats.events[self.op].append(self.ev)
         else:
-            self.stats.host_s[self.op] += time.perf_counter() - self.t0
+            self.tm.__exit__(*exc)
+            self.stats.host_s[self.op] += self.tm.seconds
         return False
 
     def out(self, t: torch.Tensor) -> torch.Tensor:

@@ -16,10 +16,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from repro_torch.obs import trace as T
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -28,7 +29,11 @@ KERNELS = ("rng_prune", "rng_prune_wide", "beam_score", "beam_score_pq", "pairwi
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: dict = {}
+_LIBS: dict = {}     # entry name -> typed C function
+_OPEN: dict = {}     # library path -> ctypes.CDLL
+TALLY = {"builds": 0, "loads": 0}
+BUILD_LISTENERS: list = []   # fn(source, start_s, dur_s, rc) after each nvcc run
+LOAD_LISTENERS: list = []    # fn(entry, source) after each library opened
 
 
 def _nvcc() -> str:
@@ -50,32 +55,44 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{tag}.so"
 
 
+def ptxas_path(name: str) -> Path:
+    """Where the ``-Xptxas -v`` report of source ``name``'s library is kept."""
+    return _lib_path(name).with_suffix(".ptxas.txt")
+
+
 def build_all(names=KERNELS) -> dict:
     """Compile every kernel not yet built, in parallel. Returns
-    ``{"seconds": wall, "ptxas": {name: nvcc's -Xptxas -v report}}``."""
+    ``{"seconds": wall, "ptxas": {name: nvcc's -Xptxas -v report}}`` (the
+    reports of the sources built by this call)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    reports, errors = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu (rc={proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
+    with T.timed("kernel/build_all") as tm:
+        procs = {}
+        for name in names:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, out, T.clock())
+        reports, errors = {}, []
+        for name, (proc, tmp, out, start) in procs.items():
+            log, _ = proc.communicate()
+            # the end is when this wait returned: a source finished while an
+            # earlier one was awaited is stamped late
+            TALLY["builds"] += 1
+            for fn in BUILD_LISTENERS:
+                fn(name, start, T.clock() - start, proc.returncode)
+            reports[name] = log
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu (rc={proc.returncode}):\n{log}")
+                continue
+            ptxas_path(name).write_text(log)
+            os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
-    return {"seconds": time.perf_counter() - t0, "ptxas": reports}
+    return {"seconds": tm.seconds, "ptxas": reports}
 
 
 def load(name: str, argtypes: str, source: str | None = None):
@@ -90,11 +107,21 @@ def load(name: str, argtypes: str, source: str | None = None):
         path = _lib_path(source)
         if not path.exists():
             build_all((source,))
-        fn = getattr(ctypes.CDLL(str(path)), name)
+        fn = getattr(_open(path, source), name)
         fn.argtypes = [{"p": ctypes.c_void_p, "i": ctypes.c_int}[c] for c in argtypes]
         fn.restype = ctypes.c_int
         _LIBS[name] = fn
     return fn
+
+
+def _open(path: Path, source: str):
+    lib = _OPEN.get(path)
+    if lib is None:
+        lib = _OPEN[path] = ctypes.CDLL(str(path))
+        TALLY["loads"] += 1
+        for fn in LOAD_LISTENERS:
+            fn(path.name, source)
+    return lib
 
 
 def check(rc: int, name: str) -> None:

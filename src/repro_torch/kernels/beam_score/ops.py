@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, metric_code
+from repro_torch.kernels import spec as K
 from repro_torch.kernels.beam_score.ref import (
     beam_score_int8_ref,
     beam_score_pq_ref,
@@ -139,3 +140,88 @@ def beam_score_pq(codes: torch.Tensor, neighbors: torch.Tensor, u: torch.Tensor,
     _build.check(rc, "beam_score_pq")
     LAUNCHES["beam_score_pq"] += 1
     return ids, dists, keys
+
+
+# ------------------------------------------------------------ launch shapes
+# csrc/beam_score.cu: a block of 4 warps a lane for f32/bf16 rows, 4 lanes (a
+# warp each) a block for int8 and PQ codes; each holds two (4, 128) int
+# windows of compacted ids and slots in static shared memory.
+_WARPS, _WIN = 4, 128
+_STATIC = 2 * _WARPS * _WIN * 4
+# (G, PPT) of the rows instances by index: f32 0-6, bf16 7-12
+_ROWS = ((0, 1), (8, 1), (16, 1), (32, 1), (32, 2), (32, 4), (32, 8))
+_BF16_BASE, _INT8_BASE = 7, 13
+_GROUPS = (0, 1, 2, 4, 8, 16, 32)     # G of the int8 and PQ instances
+
+
+def _rows_index(d: int, bf16: bool, aligned: bool) -> int:
+    e = 8 if bf16 else 4
+    pieces = d // e if d % e == 0 and d <= 1024 and aligned else 0
+    for i, top in enumerate((4, 8, 16, 32, 64)):
+        if pieces <= top:
+            return i
+    return 6 if not bf16 and pieces > 128 else 5
+
+
+def _group_index(pieces: int) -> int:
+    if pieces == 0 or pieces > 32:
+        return 0
+    return next(i for i, g in enumerate(_GROUPS) if g and pieces <= g)
+
+
+def kernel_spec(entry: str, d: int, b: int, dtype: str = "f32", aligned: bool = True,
+                label: str = "") -> K.LaunchSpec:
+    """The launch ``entry`` ("beam_score", "beam_score_int8" or
+    "beam_score_pq") makes for ``b`` lanes over rows of width ``d`` (PQ: ``d``
+    code bytes a row, the subspaces m); ``dtype`` "f32"/"bf16" picks
+    beam_score's row type; ``aligned``: the corpus (codes) 16-byte aligned.
+    No dynamic shared memory, no attributes; the residency claimed is
+    ``__launch_bounds__``' minimum."""
+    lab = label or f"b={b},d={d}"
+    if entry == "beam_score":
+        bf16 = dtype == "bf16"
+        i = _rows_index(d, bf16, aligned)
+        g, ppt = _ROWS[i]
+        t = "__nv_bfloat16" if bf16 else "float"
+        return K.LaunchSpec(
+            name=f"beam_score[{dtype},G={g},PPT={ppt}]@{lab}", entry=entry,
+            source="beam_score", instance=i + (_BF16_BASE if bf16 else 0),
+            instance_name=f"beam_score_kernel<{t}, {g}, {ppt}>",
+            problem=(d, b, int(bf16), int(aligned)), grid=(b, 1, 1), threads=32 * _WARPS,
+            static_smem=_STATIC, blocks_per_sm=8 if ppt == 1 else 2 if ppt >= 8 else 4)
+    if entry == "beam_score_int8":
+        pieces = d // 16 if d % 16 == 0 and aligned else 0
+        j = _group_index(pieces)
+        return K.LaunchSpec(
+            name=f"beam_score_int8[G={_GROUPS[j]}]@{lab}", entry=entry, source="beam_score",
+            instance=_INT8_BASE + j, instance_name=f"beam_score_int8_kernel<{_GROUPS[j]}>",
+            problem=(d, b, int(aligned)), grid=(K.cdiv(b, _WARPS), 1, 1),
+            threads=32 * _WARPS, static_smem=_STATIC, blocks_per_sm=4)
+    if entry == "beam_score_pq":
+        j = _group_index(K.cdiv(d, 8))
+        return K.LaunchSpec(
+            name=f"beam_score_pq[G={_GROUPS[j]}]@{lab}", entry=entry, source="beam_score_pq",
+            instance=j, instance_name=f"beam_score_pq_kernel<{_GROUPS[j]}>",
+            problem=(d, b), grid=(K.cdiv(b, _WARPS), 1, 1), threads=32 * _WARPS,
+            static_smem=_STATIC, blocks_per_sm=4)
+    raise ValueError(f"unknown beam entry {entry!r}")
+
+
+def default_specs() -> list[K.LaunchSpec]:
+    """The search's beams of 10,240 lanes at d = 128 and 960, f32 and bf16,
+    int8 and PQ (m = 32) at 1M; widths that pick every other instance; an
+    unaligned corpus; the lane-count edge."""
+    b = 10_240
+    out = [kernel_spec("beam_score", d, b, dt, label=f"{b} lanes, d={d}")
+           for d in (128, 960) for dt in ("f32", "bf16")]
+    out += [kernel_spec("beam_score", d, b, "f32") for d in (16, 32, 64, 256, 512)]
+    out += [kernel_spec("beam_score", d, b, "bf16") for d in (32, 64, 256, 512)]
+    out.append(kernel_spec("beam_score", 128, b, "f32", aligned=False,
+                           label=f"{b} lanes, d=128, unaligned"))
+    out.append(kernel_spec("beam_score", 128, 2**31 - 1, "f32", label="lanes = 2^31 - 1 edge"))
+    out += [kernel_spec("beam_score_int8", d, b, label=f"{b} lanes, d={d}")
+            for d in (8, 16, 32, 64, 128, 256, 512, 960)]
+    out += [kernel_spec("beam_score_pq", m, b, label=f"{b} lanes, m={m}")
+            for m in (8, 16, 32, 64, 128, 256, 264)]
+    out.append(kernel_spec("beam_score_pq", 32, 2**31 - 1, label="lanes = 2^31 - 1 edge"))
+    return out

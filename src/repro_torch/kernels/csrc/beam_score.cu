@@ -110,6 +110,7 @@
 #include <stdint.h>
 
 #include "beam_prefix.cuh"
+#include "launch_shape.cuh"
 
 namespace {
 
@@ -316,24 +317,48 @@ cudaError_t launch_rows(const void* x, const int* nbrs, const int* u, const floa
   return cudaGetLastError();
 }
 
-// The instance for rows of d elements at x: G = min(32, pow2ceil(pieces))
+// The rows instances by index (launch_shape.cuh's out[6]): f32 (G, PPT) =
+// 0 (0, 1), 1 (8, 1), 2 (16, 1), 3 (32, 1), 4 (32, 2), 5 (32, 4), 6 (32, 8);
+// bf16 7 (0, 1), 8 (8, 1), 9 (16, 1), 10 (32, 1), 11 (32, 2), 12 (32, 4).
+// The int8 instances follow: INT8_BASE + 0..6, G = 0, 1, 2, 4, 8, 16, 32.
+const RowsLaunch ROWS[] = {
+    launch_rows<float, 0, 1>,          launch_rows<float, 8, 1>,
+    launch_rows<float, 16, 1>,         launch_rows<float, 32, 1>,
+    launch_rows<float, 32, 2>,         launch_rows<float, 32, 4>,
+    launch_rows<float, 32, 8>,         launch_rows<__nv_bfloat16, 0, 1>,
+    launch_rows<__nv_bfloat16, 8, 1>,  launch_rows<__nv_bfloat16, 16, 1>,
+    launch_rows<__nv_bfloat16, 32, 1>, launch_rows<__nv_bfloat16, 32, 2>,
+    launch_rows<__nv_bfloat16, 32, 4>};
+constexpr int BF16_BASE = 7;
+constexpr int INT8_BASE = 13;
+
+// The instance for rows of d elements: G = min(32, pow2ceil(pieces))
 // threads a candidate, each owning PPT = pieces / G (rounded up to 1, 2, 4
 // or 8) pieces; the generic instance (G = 0) when a row is not whole 16-byte
 // pieces or at most 4 of them, x is not 16-byte aligned, or d > 1024.
 template <typename T>
-RowsLaunch rows_instance(int d, const void* x) {
+int rows_index(int d, bool aligned) {
   constexpr int E = ELEMS<T>;
-  const int pieces = d % E == 0 && d <= 1024 && reinterpret_cast<uintptr_t>(x) % 16 == 0
-                         ? d / E : 0;
-  if (pieces <= 4) return launch_rows<T, 0, 1>;
-  if (pieces <= 8) return launch_rows<T, 8, 1>;
-  if (pieces <= 16) return launch_rows<T, 16, 1>;
-  if (pieces <= 32) return launch_rows<T, 32, 1>;
-  if (pieces <= 64) return launch_rows<T, 32, 2>;
+  constexpr int base = E == 4 ? 0 : BF16_BASE;
+  const int pieces = d % E == 0 && d <= 1024 && aligned ? d / E : 0;
+  if (pieces <= 4) return base;
+  if (pieces <= 8) return base + 1;
+  if (pieces <= 16) return base + 2;
+  if (pieces <= 32) return base + 3;
+  if (pieces <= 64) return base + 4;
   if constexpr (E == 4) {              // f32: up to 256 pieces
-    if (pieces > 128) return launch_rows<T, 32, 8>;
+    if (pieces > 128) return base + 6;
   }
-  return launch_rows<T, 32, 4>;
+  return base + 5;
+}
+
+// The launch of the rows instance: a block (LANE_WARPS warps) per lane.
+kshape::Shape rows_shape(int d, int b, int x_bf16, bool aligned) {
+  kshape::Shape s;
+  s.grid[0] = b;
+  s.threads = LANE_WARPS * 32;
+  s.instance = x_bf16 ? rows_index<__nv_bfloat16>(d, aligned) : rows_index<float>(d, aligned);
+  return s;
 }
 
 // ------------------------------------------------------------------- int8
@@ -469,13 +494,60 @@ beam_score_int8_kernel(const int8_t* __restrict__ codes, const float* __restrict
 }
 
 template <int G>
-cudaError_t launch_int8(const int8_t* codes, const float* scale, const float* zero,
-                        const int* nbrs, const int* u, const float* q, int n, int d, int m,
-                        int b, int k, int metric, int* ids, float* dists, int* keys,
-                        cudaStream_t stream) {
-  beam_score_int8_kernel<G><<<(b + LANES - 1) / LANES, LANES * 32, 0, stream>>>(
+cudaError_t launch_int8(const kshape::Shape& s, const int8_t* codes, const float* scale,
+                        const float* zero, const int* nbrs, const int* u, const float* q,
+                        int n, int d, int m, int b, int k, int metric, int* ids, float* dists,
+                        int* keys, cudaStream_t stream) {
+  beam_score_int8_kernel<G><<<s.dims(), s.threads, s.smem, stream>>>(
       codes, scale, zero, nbrs, u, q, n, d, m, b, k, metric, ids, dists, keys);
   return cudaGetLastError();
+}
+
+// The launch of the int8 instance: LANES lanes (warps) a block; G threads a
+// candidate for rows of 16-byte pieces (at most 32 of them, 16-byte
+// aligned), the generic instance otherwise.
+kshape::Shape int8_shape(int d, int b, bool aligned) {
+  const int pieces = d % SLICE == 0 && aligned ? d / SLICE : 0;
+  const int g = pieces == 0 || pieces > 32 ? 0
+                : pieces == 1              ? 1
+                : pieces == 2              ? 2
+                : pieces <= 4              ? 3
+                : pieces <= 8              ? 4
+                : pieces <= 16             ? 5
+                                           : 6;
+  kshape::Shape s;
+  s.grid[0] = ((long long)b + LANES - 1) / LANES;
+  s.threads = LANES * 32;
+  s.instance = INT8_BASE + g;
+  return s;
+}
+
+// kshape::attrs of instance i (f32 and bf16 rows, then int8).
+int attrs_of(int i, int* out) {
+  const int t = LANE_WARPS * 32, ti = LANES * 32;
+  switch (i) {
+    case 0: return (int)kshape::attrs(beam_score_kernel<float, 0, 1>, t, 0, out);
+    case 1: return (int)kshape::attrs(beam_score_kernel<float, 8, 1>, t, 0, out);
+    case 2: return (int)kshape::attrs(beam_score_kernel<float, 16, 1>, t, 0, out);
+    case 3: return (int)kshape::attrs(beam_score_kernel<float, 32, 1>, t, 0, out);
+    case 4: return (int)kshape::attrs(beam_score_kernel<float, 32, 2>, t, 0, out);
+    case 5: return (int)kshape::attrs(beam_score_kernel<float, 32, 4>, t, 0, out);
+    case 6: return (int)kshape::attrs(beam_score_kernel<float, 32, 8>, t, 0, out);
+    case 7: return (int)kshape::attrs(beam_score_kernel<__nv_bfloat16, 0, 1>, t, 0, out);
+    case 8: return (int)kshape::attrs(beam_score_kernel<__nv_bfloat16, 8, 1>, t, 0, out);
+    case 9: return (int)kshape::attrs(beam_score_kernel<__nv_bfloat16, 16, 1>, t, 0, out);
+    case 10: return (int)kshape::attrs(beam_score_kernel<__nv_bfloat16, 32, 1>, t, 0, out);
+    case 11: return (int)kshape::attrs(beam_score_kernel<__nv_bfloat16, 32, 2>, t, 0, out);
+    case 12: return (int)kshape::attrs(beam_score_kernel<__nv_bfloat16, 32, 4>, t, 0, out);
+    case 13: return (int)kshape::attrs(beam_score_int8_kernel<0>, ti, 0, out);
+    case 14: return (int)kshape::attrs(beam_score_int8_kernel<1>, ti, 0, out);
+    case 15: return (int)kshape::attrs(beam_score_int8_kernel<2>, ti, 0, out);
+    case 16: return (int)kshape::attrs(beam_score_int8_kernel<4>, ti, 0, out);
+    case 17: return (int)kshape::attrs(beam_score_int8_kernel<8>, ti, 0, out);
+    case 18: return (int)kshape::attrs(beam_score_int8_kernel<16>, ti, 0, out);
+    case 19: return (int)kshape::attrs(beam_score_int8_kernel<32>, ti, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -491,8 +563,9 @@ extern "C" int beam_score(const void* x, const int* nbrs, const int* u,
                           cudaStream_t stream) {
   if (k < 1 || k > m || d < 1 || b < 1 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
-  const RowsLaunch fn = x_bf16 ? rows_instance<__nv_bfloat16>(d, x) : rows_instance<float>(d, x);
-  return (int)fn(x, nbrs, u, queries, n, d, m, b, k, metric, ids, dists, keys, stream);
+  const kshape::Shape s = rows_shape(d, b, x_bf16, reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  return (int)ROWS[s.instance](x, nbrs, u, queries, n, d, m, b, k, metric, ids, dists, keys,
+                               stream);
 }
 
 // The same over an int8 corpus: codes (n, d) int8 decoded with scale/zero
@@ -505,18 +578,31 @@ extern "C" int beam_score_int8(const int8_t* codes, const float* scale, const fl
   if (k < 1 || k > m || d < 1 || b < 1 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
   // 16-byte pieces need 16-byte rows, and a group of at most 32 threads
-  const int pieces = d % SLICE == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0
-                         ? d / SLICE : 0;
-  cudaError_t (*fn)(const int8_t*, const float*, const float*, const int*, const int*,
-                    const float*, int, int, int, int, int, int, int*, float*, int*,
-                    cudaStream_t) =
-      pieces == 0 || pieces > 32 ? launch_int8<0>
-      : pieces == 1              ? launch_int8<1>
-      : pieces == 2              ? launch_int8<2>
-      : pieces <= 4              ? launch_int8<4>
-      : pieces <= 8              ? launch_int8<8>
-      : pieces <= 16             ? launch_int8<16>
-                                 : launch_int8<32>;
-  return (int)fn(codes, scale, zero, nbrs, u, queries, n, d, m, b, k, metric, ids, dists,
-                 keys, stream);
+  const kshape::Shape s = int8_shape(d, b, reinterpret_cast<uintptr_t>(codes) % 16 == 0);
+  cudaError_t (*const fn[])(const kshape::Shape&, const int8_t*, const float*, const float*,
+                            const int*, const int*, const float*, int, int, int, int, int,
+                            int, int*, float*, int*, cudaStream_t) = {
+      launch_int8<0>, launch_int8<1>, launch_int8<2>, launch_int8<4>,
+      launch_int8<8>, launch_int8<16>, launch_int8<32>};
+  return (int)fn[s.instance - INT8_BASE](s, codes, scale, zero, nbrs, u, queries, n, d, m, b,
+                                         k, metric, ids, dists, keys, stream);
+}
+
+// The launch beam_score makes for b lanes over rows of width d, x 16-byte
+// aligned or not (launch_shape.cuh's out[8]).
+extern "C" int beam_score_launch_shape(int d, int b, int x_bf16, int x_aligned, int* out) {
+  if (d < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  return kshape::write(rows_shape(d, b, x_bf16, x_aligned != 0), out);
+}
+
+// The launch beam_score_int8 makes (launch_shape.cuh's out[8]).
+extern "C" int beam_score_int8_launch_shape(int d, int b, int codes_aligned, int* out) {
+  if (d < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  return kshape::write(int8_shape(d, b, codes_aligned != 0), out);
+}
+
+// Instances 0-12 beam_score's (ROWS), 13-19 beam_score_int8's (G = 0, 1, 2,
+// 4, 8, 16, 32).
+extern "C" int beam_score_func_attrs(int instance, int dyn_smem, int* out) {
+  return dyn_smem != 0 ? (int)cudaErrorInvalidValue : attrs_of(instance, out);
 }

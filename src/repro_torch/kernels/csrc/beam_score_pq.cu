@@ -60,6 +60,7 @@
 #include <stdint.h>
 
 #include "beam_prefix.cuh"
+#include "launch_shape.cuh"
 
 namespace {
 
@@ -191,13 +192,32 @@ beam_score_pq_kernel(const uint8_t* __restrict__ codes, const int* __restrict__ 
 }
 
 template <int G>
-cudaError_t launch(const uint8_t* codes, const int* nbrs, const int* u, const float* lut_a,
-                   const float* lut_b, const float* qsq, int n, int mq, int m, int b, int k,
-                   int metric, int vec, int* ids, float* dists, int* keys,
+cudaError_t launch(const kshape::Shape& s, const uint8_t* codes, const int* nbrs, const int* u,
+                   const float* lut_a, const float* lut_b, const float* qsq, int n, int mq,
+                   int m, int b, int k, int metric, int vec, int* ids, float* dists, int* keys,
                    cudaStream_t stream) {
-  beam_score_pq_kernel<G><<<(b + LANES - 1) / LANES, LANES * 32, 0, stream>>>(
+  beam_score_pq_kernel<G><<<s.dims(), s.threads, s.smem, stream>>>(
       codes, nbrs, u, lut_a, lut_b, qsq, n, mq, m, b, k, metric, vec, ids, dists, keys);
   return cudaGetLastError();
+}
+
+// The launch for b lanes over mq code bytes a row: LANES lanes (warps) a
+// block; instance i (launch_shape.cuh's out[6]) has G = 0, 1, 2, 4, 8, 16, 32
+// threads a candidate (i = 0: the generic instance, for rows of more than
+// 32 SUB-byte pieces).
+kshape::Shape pq_shape(int mq, int b) {
+  const int pieces = (mq + SUB - 1) / SUB;   // threads a candidate needs
+  kshape::Shape s;
+  s.grid[0] = ((long long)b + LANES - 1) / LANES;
+  s.threads = LANES * 32;
+  s.instance = pieces > 32   ? 0
+               : pieces == 1 ? 1
+               : pieces == 2 ? 2
+               : pieces <= 4 ? 3
+               : pieces <= 8 ? 4
+               : pieces <= 16 ? 5
+                              : 6;
+  return s;
 }
 
 }  // namespace
@@ -215,17 +235,33 @@ extern "C" int beam_score_pq(const uint8_t* codes, const int* nbrs, const int* u
   if (k < 1 || k > m || mq < 1 || b < 1 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
   const int vec = mq % SUB == 0 && reinterpret_cast<uintptr_t>(codes) % SUB == 0;
-  const int pieces = (mq + SUB - 1) / SUB;   // threads a candidate needs
-  cudaError_t (*fn)(const uint8_t*, const int*, const int*, const float*, const float*,
-                    const float*, int, int, int, int, int, int, int, int*, float*, int*,
-                    cudaStream_t) =
-      pieces > 32    ? launch<0>
-      : pieces == 1  ? launch<1>
-      : pieces == 2  ? launch<2>
-      : pieces <= 4  ? launch<4>
-      : pieces <= 8  ? launch<8>
-      : pieces <= 16 ? launch<16>
-                     : launch<32>;
-  return (int)fn(codes, nbrs, u, lut_a, lut_b, qsq, n, mq, m, b, k, metric, vec, ids, dists,
-                 keys, stream);
+  const kshape::Shape s = pq_shape(mq, b);
+  cudaError_t (*const fn[])(const kshape::Shape&, const uint8_t*, const int*, const int*,
+                            const float*, const float*, const float*, int, int, int, int, int,
+                            int, int, int*, float*, int*, cudaStream_t) = {
+      launch<0>, launch<1>, launch<2>, launch<4>, launch<8>, launch<16>, launch<32>};
+  return (int)fn[s.instance](s, codes, nbrs, u, lut_a, lut_b, qsq, n, mq, m, b, k, metric,
+                             vec, ids, dists, keys, stream);
+}
+
+// The launch beam_score_pq makes (launch_shape.cuh's out[8]).
+extern "C" int beam_score_pq_launch_shape(int mq, int b, int* out) {
+  if (mq < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  return kshape::write(pq_shape(mq, b), out);
+}
+
+// Instances 0-6: G = 0, 1, 2, 4, 8, 16, 32.
+extern "C" int beam_score_pq_func_attrs(int instance, int dyn_smem, int* out) {
+  if (dyn_smem != 0) return (int)cudaErrorInvalidValue;
+  const int t = LANES * 32;
+  switch (instance) {
+    case 0: return (int)kshape::attrs(beam_score_pq_kernel<0>, t, 0, out);
+    case 1: return (int)kshape::attrs(beam_score_pq_kernel<1>, t, 0, out);
+    case 2: return (int)kshape::attrs(beam_score_pq_kernel<2>, t, 0, out);
+    case 3: return (int)kshape::attrs(beam_score_pq_kernel<4>, t, 0, out);
+    case 4: return (int)kshape::attrs(beam_score_pq_kernel<8>, t, 0, out);
+    case 5: return (int)kshape::attrs(beam_score_pq_kernel<16>, t, 0, out);
+    case 6: return (int)kshape::attrs(beam_score_pq_kernel<32>, t, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

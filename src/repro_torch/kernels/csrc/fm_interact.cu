@@ -25,6 +25,8 @@
 #include <cuda_bf16.h>
 #include <limits.h>
 
+#include "launch_shape.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -65,13 +67,24 @@ fm_interact_kernel(const T* __restrict__ emb, int b, int f, int d, int rows, int
   }
 }
 
+// The launch for b rows of f x d: rows = THREADS / d rows a block (1 when
+// d >= THREADS), THREADS / rows threads a row. Instances 0 f32, 1 bf16.
+kshape::Shape rows_shape(int b, int d, int in_bf16, int& rows) {
+  rows = d >= THREADS ? 1 : THREADS / d;
+  kshape::Shape s;
+  s.grid[0] = ((long long)b + rows - 1) / rows;
+  s.threads = THREADS;
+  s.instance = in_bf16 ? 1 : 0;
+  return s;
+}
+
 template <typename T>
 cudaError_t launch(const void* emb, int b, int f, int d, float* out, cudaStream_t stream) {
-  const int rows = d >= THREADS ? 1 : THREADS / d;
+  int rows = 0;
+  const kshape::Shape s = rows_shape(b, d, sizeof(T) == 2, rows);
+  if (!s.fits()) return cudaErrorInvalidValue;
   const int tpr = THREADS / rows;
-  const long long blocks = ((long long)b + rows - 1) / rows;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  fm_interact_kernel<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  fm_interact_kernel<T><<<s.dims(), s.threads, s.smem, stream>>>(
       static_cast<const T*>(emb), b, f, d, rows, tpr, out);
   return cudaGetLastError();
 }
@@ -87,4 +100,21 @@ extern "C" int fm_interact(const void* emb, int b, int f, int d, int in_bf16, fl
   cudaError_t err = in_bf16 ? launch<__nv_bfloat16>(emb, b, f, d, out, stream)
                             : launch<float>(emb, b, f, d, out, stream);
   return (int)err;
+}
+
+// The launch fm_interact makes (launch_shape.cuh's out[8]).
+extern "C" int fm_interact_launch_shape(int b, int f, int d, int in_bf16, int* out) {
+  if (b < 1 || f < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  int rows = 0;
+  return kshape::write(rows_shape(b, d, in_bf16, rows), out);
+}
+
+// Instances 0 f32, 1 bf16.
+extern "C" int fm_interact_func_attrs(int instance, int dyn_smem, int* out) {
+  if (dyn_smem != 0) return (int)cudaErrorInvalidValue;
+  switch (instance) {
+    case 0: return (int)kshape::attrs(fm_interact_kernel<float>, THREADS, 0, out);
+    case 1: return (int)kshape::attrs(fm_interact_kernel<__nv_bfloat16>, THREADS, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

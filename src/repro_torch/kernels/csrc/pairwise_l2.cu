@@ -22,6 +22,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_shape.cuh"
+
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 16, LDS = 132, THREADS = 256;
@@ -105,13 +107,24 @@ pairwise_l2_kernel(const T* __restrict__ a, const T* __restrict__ b, int na, int
   }
 }
 
+// The launch for out (na, nb): a block of THREADS per BM x BN tile of out,
+// nb along x, na along y (so na <= 65535 * BM). Instances 0 f32, 1 bf16.
+kshape::Shape out_shape(int na, int nb, int in_bf16) {
+  kshape::Shape s;
+  s.grid[0] = ((long long)nb + BN - 1) / BN;
+  s.grid[1] = ((long long)na + BM - 1) / BM;
+  s.threads = THREADS;
+  s.instance = in_bf16 ? 1 : 0;
+  return s;
+}
+
 template <typename T>
 cudaError_t launch(const void* a, const void* b, int na, int nb, int d, float* out,
                    cudaStream_t stream) {
-  const dim3 grid((nb + BN - 1) / BN, (na + BM - 1) / BM);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const kshape::Shape s = out_shape(na, nb, sizeof(T) == 2);
+  if (!s.fits()) return cudaErrorInvalidValue;
   const int vec_store = nb % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  pairwise_l2_kernel<T><<<grid, THREADS, 0, stream>>>(
+  pairwise_l2_kernel<T><<<s.dims(), s.threads, s.smem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), na, nb, d, vec_store, out);
   return cudaGetLastError();
 }
@@ -127,4 +140,20 @@ extern "C" int pairwise_l2(const void* a, const void* b, int na, int nb, int d,
   cudaError_t err = in_bf16 ? launch<__nv_bfloat16>(a, b, na, nb, d, out, stream)
                             : launch<float>(a, b, na, nb, d, out, stream);
   return (int)err;
+}
+
+// The launch pairwise_l2 makes (launch_shape.cuh's out[8]).
+extern "C" int pairwise_l2_launch_shape(int na, int nb, int d, int in_bf16, int* out) {
+  if (na < 1 || nb < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  return kshape::write(out_shape(na, nb, in_bf16), out);
+}
+
+// Instances 0 f32, 1 bf16.
+extern "C" int pairwise_l2_func_attrs(int instance, int dyn_smem, int* out) {
+  if (dyn_smem != 0) return (int)cudaErrorInvalidValue;
+  switch (instance) {
+    case 0: return (int)kshape::attrs(pairwise_l2_kernel<float>, THREADS, 0, out);
+    case 1: return (int)kshape::attrs(pairwise_l2_kernel<__nv_bfloat16>, THREADS, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -21,11 +21,11 @@ extern "C" int rng_prune(const void* x, const int* ids, const float* dists,
   if (m < 1 || m > 32 * NB_BUILD || d < 1 || rows < 1 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      x_bf16 ? launch<__nv_bfloat16, NB_BUILD>(x, nullptr, nullptr, ids, dists, flags, n, d,
-                                               rows, m, metric, counter, keep, red_w, red_d,
-                                               stream)
-             : launch<float, NB_BUILD>(x, nullptr, nullptr, ids, dists, flags, n, d, rows, m,
-                                       metric, counter, keep, red_w, red_d, stream);
+      x_bf16 ? launch<__nv_bfloat16, NB_BUILD>(1, x, nullptr, nullptr, ids, dists, flags, n,
+                                               d, rows, m, metric, counter, keep, red_w,
+                                               red_d, stream)
+             : launch<float, NB_BUILD>(0, x, nullptr, nullptr, ids, dists, flags, n, d, rows,
+                                       m, metric, counter, keep, red_w, red_d, stream);
   return (int)err;
 }
 
@@ -38,6 +38,35 @@ extern "C" int rng_prune_int8(const int8_t* codes, const float* scale, const flo
                               uint8_t* keep, int* red_w, float* red_d, cudaStream_t stream) {
   if (m < 1 || m > 32 * NB_BUILD || d < 1 || rows < 1 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
-  return (int)launch<int8_t, NB_BUILD>(codes, scale, zero, ids, dists, flags, n, d, rows, m,
-                                       metric, counter, keep, red_w, red_d, stream);
+  return (int)launch<int8_t, NB_BUILD>(2, codes, scale, zero, ids, dists, flags, n, d, rows,
+                                       m, metric, counter, keep, red_w, red_d, stream);
+}
+
+// The launch rng_prune makes for `rows` rows of m candidates over a corpus
+// of width d (launch_shape.cuh's out[8]).
+extern "C" int rng_prune_launch_shape(int d, int rows, int m, int x_bf16, int* out) {
+  if (m < 1 || m > 32 * NB_BUILD || d < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+  kshape::Shape s;
+  const cudaError_t err = x_bf16 ? shape_of<__nv_bfloat16, NB_BUILD>(d, rows, 1, s)
+                                 : shape_of<float, NB_BUILD>(d, rows, 0, s);
+  return err != cudaSuccess ? (int)err : kshape::write(s, out);
+}
+
+// The launch rng_prune_int8 makes (launch_shape.cuh's out[8]).
+extern "C" int rng_prune_int8_launch_shape(int d, int rows, int m, int* out) {
+  if (m < 1 || m > 32 * NB_BUILD || d < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+  kshape::Shape s;
+  const cudaError_t err = shape_of<int8_t, NB_BUILD>(d, rows, 2, s);
+  return err != cudaSuccess ? (int)err : kshape::write(s, out);
+}
+
+// Instances 0 f32, 1 bf16, 2 int8 (launch_shape.cuh's out[7]).
+extern "C" int rng_prune_func_attrs(int instance, int dyn_smem, int* out) {
+  const size_t smem = (size_t)dyn_smem;
+  switch (instance) {
+    case 0: return (int)attrs_of<float, NB_BUILD>(smem, out);
+    case 1: return (int)attrs_of<__nv_bfloat16, NB_BUILD>(smem, out);
+    case 2: return (int)attrs_of<int8_t, NB_BUILD>(smem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

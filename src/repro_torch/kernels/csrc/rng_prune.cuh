@@ -86,6 +86,8 @@
 #include <mutex>
 #include <type_traits>
 
+#include "launch_shape.cuh"
+
 namespace {
 
 constexpr int WARPS = 4;               // warps per block, a row each at a time
@@ -595,24 +597,25 @@ rng_prune_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-// The launch's block count and the kernel's attributes, worked out once per
+// The kernel's attributes and the card's block count, worked out once per
 // device and dynamic shared size (int8's grows with d) and reused.
-struct LaunchShape {
+struct CardBlocks {
   size_t smem = 0;
   int blocks_per_card = 0;
+  int blocks_per_sm = 0;
 };
 constexpr int MAX_DEVICES = 64;
 
 template <typename T, int NB>
-cudaError_t launch_shape(size_t smem, int& blocks_per_card) {
+cudaError_t card_blocks(size_t smem, int& blocks_per_card, int& blocks_per_sm) {
   static std::mutex mu;
-  static LaunchShape cache[MAX_DEVICES];
+  static CardBlocks cache[MAX_DEVICES];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(mu);
-  LaunchShape& c = cache[dev];
+  CardBlocks& c = cache[dev];
   if (c.smem != smem) {
     err = cudaFuncSetAttribute(rng_prune_kernel<T, NB>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -631,27 +634,51 @@ cudaError_t launch_shape(size_t smem, int& blocks_per_card) {
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     c.smem = smem;
     c.blocks_per_card = sms * per_sm;
+    c.blocks_per_sm = per_sm;
   }
   blocks_per_card = c.blocks_per_card;
+  blocks_per_sm = c.blocks_per_sm;
   return cudaSuccess;
 }
 
+// The launch for `rows` rows over a corpus of width d: persistent blocks, as
+// many as fit the card at once or one per WARPS rows, each opting in to the
+// dynamic shared memory of WARPS warps (and int8's decode table).
 template <typename T, int NB>
-cudaError_t launch(const void* x, const float* scale, const float* zero, const int* ids,
-                   const float* dists, const uint8_t* flags, int n, int d, int rows, int m,
-                   int metric, int* counter, uint8_t* keep, int* red_w, float* red_d,
-                   cudaStream_t stream) {
-  const size_t smem =
-      (size_t)WARPS * WARP_BYTES<T, NB> + (kCoded<T> ? 2 * sizeof(float) * d : 0);
-  // persistent blocks: as many as fit the card at once, or one per WARPS rows
-  int per_card = 0;
-  cudaError_t err = launch_shape<T, NB>(smem, per_card);
+cudaError_t shape_of(int d, int rows, int instance, kshape::Shape& s) {
+  s.smem = (size_t)WARPS * WARP_BYTES<T, NB> + (kCoded<T> ? 2 * sizeof(float) * d : 0);
+  int per_card = 0, per_sm = 0;
+  cudaError_t err = card_blocks<T, NB>(s.smem, per_card, per_sm);
   if (err != cudaSuccess) return err;
-  const int blocks = std::min((rows + WARPS - 1) / WARPS, per_card);
+  s.grid[0] = std::min(((long long)rows + WARPS - 1) / WARPS, (long long)per_card);
+  s.threads = THREADS;
+  s.opt_in = 1;
+  s.instance = instance;
+  s.per_sm = per_sm;
+  return cudaSuccess;
+}
+
+// kshape::attrs of the instance, after the launcher's own opt-in at smem.
+template <typename T, int NB>
+cudaError_t attrs_of(size_t smem, int* out) {
+  int per_card = 0, per_sm = 0;
+  cudaError_t err = card_blocks<T, NB>(smem, per_card, per_sm);
+  if (err != cudaSuccess) return err;
+  return kshape::attrs(rng_prune_kernel<T, NB>, THREADS, smem, out);
+}
+
+template <typename T, int NB>
+cudaError_t launch(int instance, const void* x, const float* scale, const float* zero,
+                   const int* ids, const float* dists, const uint8_t* flags, int n, int d,
+                   int rows, int m, int metric, int* counter, uint8_t* keep, int* red_w,
+                   float* red_d, cudaStream_t stream) {
+  kshape::Shape s;
+  cudaError_t err = shape_of<T, NB>(d, rows, instance, s);
+  if (err != cudaSuccess) return err;
   // 16-byte copies need 16-byte rows
   const int vec = ((size_t)d * sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0;
   if ((err = cudaMemsetAsync(counter, 0, COUNTER_BYTES, stream)) != cudaSuccess) return err;
-  rng_prune_kernel<T, NB><<<blocks, THREADS, smem, stream>>>(
+  rng_prune_kernel<T, NB><<<s.dims(), s.threads, s.smem, stream>>>(
       static_cast<const T*>(x), scale, zero, ids, dists, flags, n, d, rows, m, metric, vec,
       counter, keep, red_w, red_d);
   return cudaGetLastError();

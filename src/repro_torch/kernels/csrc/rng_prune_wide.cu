@@ -15,10 +15,29 @@ extern "C" int rng_prune_wide(const void* x, const int* ids, const float* dists,
   if (m < 1 || m > 32 * NB_WIDE || d < 1 || rows < 1 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      x_bf16 ? launch<__nv_bfloat16, NB_WIDE>(x, nullptr, nullptr, ids, dists, flags, n, d,
-                                              rows, m, metric, counter, keep, red_w, red_d,
+      x_bf16 ? launch<__nv_bfloat16, NB_WIDE>(1, x, nullptr, nullptr, ids, dists, flags, n,
+                                              d, rows, m, metric, counter, keep, red_w, red_d,
                                               stream)
-             : launch<float, NB_WIDE>(x, nullptr, nullptr, ids, dists, flags, n, d, rows, m,
-                                      metric, counter, keep, red_w, red_d, stream);
+             : launch<float, NB_WIDE>(0, x, nullptr, nullptr, ids, dists, flags, n, d, rows,
+                                      m, metric, counter, keep, red_w, red_d, stream);
   return (int)err;
+}
+
+// The launch rng_prune_wide makes (launch_shape.cuh's out[8]).
+extern "C" int rng_prune_wide_launch_shape(int d, int rows, int m, int x_bf16, int* out) {
+  if (m < 1 || m > 32 * NB_WIDE || d < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+  kshape::Shape s;
+  const cudaError_t err = x_bf16 ? shape_of<__nv_bfloat16, NB_WIDE>(d, rows, 1, s)
+                                 : shape_of<float, NB_WIDE>(d, rows, 0, s);
+  return err != cudaSuccess ? (int)err : kshape::write(s, out);
+}
+
+// Instances 0 f32, 1 bf16 (launch_shape.cuh's out[7]).
+extern "C" int rng_prune_wide_func_attrs(int instance, int dyn_smem, int* out) {
+  const size_t smem = (size_t)dyn_smem;
+  switch (instance) {
+    case 0: return (int)attrs_of<float, NB_WIDE>(smem, out);
+    case 1: return (int)attrs_of<__nv_bfloat16, NB_WIDE>(smem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import spec as K
 from repro_torch.kernels.fm_interact.ref import fm_interact_ref
 
 
@@ -36,3 +37,28 @@ def _launch(emb):
     _build.check(rc, "fm_interact")
     LAUNCHES["fm_interact"] += 1
     return out
+
+
+# ------------------------------------------------------------ launch shapes
+_THREADS = 256     # csrc/fm_interact.cu: a block of 256, a 256-float partial sum
+
+
+def kernel_spec(b: int, f: int, d: int, dtype: str = "f32", label: str = "") -> K.LaunchSpec:
+    """The launch :func:`fm_interact` makes for (b, f, d): 256 / d rows a
+    block (1 when d >= 256)."""
+    rows = 1 if d >= _THREADS else _THREADS // d
+    t = "__nv_bfloat16" if dtype == "bf16" else "float"
+    return K.LaunchSpec(
+        name=f"fm_interact[{dtype}]@{label or f'{b}x{f}x{d}'}", entry="fm_interact",
+        source="fm_interact", instance=int(dtype == "bf16"),
+        instance_name=f"fm_interact_kernel<{t}>", problem=(b, f, d, int(dtype == "bf16")),
+        grid=(K.cdiv(b, rows), 1, 1), threads=_THREADS, static_smem=_THREADS * 4)
+
+
+def default_specs() -> list[K.LaunchSpec]:
+    """DeepFM's serve_bulk batch (262,144 x 39 x 10) in f32 and bf16, a
+    width past one block, and the batch edge."""
+    return [kernel_spec(262_144, 39, 10, "f32", "262144 x 39 x 10"),
+            kernel_spec(262_144, 39, 10, "bf16", "262144 x 39 x 10"),
+            kernel_spec(4_096, 39, 300, "f32", "4096 x 39 x 300"),
+            kernel_spec(2**31 - 1, 2, 1, "f32", "b = 2^31 - 1 edge")]

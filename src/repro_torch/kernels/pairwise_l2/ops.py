@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import spec as K
 from repro_torch.kernels.pairwise_l2.ref import pairwise_l2_ref
 
 
@@ -38,3 +39,30 @@ def _launch(a, b):
     _build.check(rc, "pairwise_l2")
     LAUNCHES["pairwise_l2"] += 1
     return out
+
+
+# ------------------------------------------------------------ launch shapes
+# csrc/pairwise_l2.cu: a 256-thread block a 128 x 128 tile of the output,
+# two (16, 132) f32 operand tiles and two 128-float norm vectors in static
+# shared memory; nb along x, na along y.
+_BM = _BN = 128
+_STATIC = 2 * 16 * 132 * 4 + 2 * 128 * 4
+
+
+def kernel_spec(na: int, nb: int, d: int, dtype: str = "f32", label: str = "") -> K.LaunchSpec:
+    """The launch :func:`pairwise_l2` makes for a (na, d) x (nb, d) problem."""
+    t = "__nv_bfloat16" if dtype == "bf16" else "float"
+    return K.LaunchSpec(
+        name=f"pairwise_l2[{dtype}]@{label or f'{na}x{nb}x{d}'}", entry="pairwise_l2",
+        source="pairwise_l2", instance=int(dtype == "bf16"),
+        instance_name=f"pairwise_l2_kernel<{t}>", problem=(na, nb, d, int(dtype == "bf16")),
+        grid=(K.cdiv(nb, _BN), K.cdiv(na, _BM), 1), threads=256, static_smem=_STATIC)
+
+
+def default_specs() -> list[K.LaunchSpec]:
+    """Ground truth's 1,024 queries x 1M x 128 and 1,000 x 1M x 960 (f32,
+    and bf16 at d = 128), and the largest na the launch takes."""
+    return [kernel_spec(1_024, 1_000_000, 128, "f32", "1024 x 1M x 128"),
+            kernel_spec(1_024, 1_000_000, 128, "bf16", "1024 x 1M x 128"),
+            kernel_spec(1_000, 1_000_000, 960, "f32", "1000 x 1M x 960"),
+            kernel_spec(65_535 * _BM, 1_000_000, 128, "f32", "na = 65535 x 128 edge")]

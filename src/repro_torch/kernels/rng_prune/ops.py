@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build, metric_code
+from repro_torch.kernels import spec as K
 from repro_torch.kernels.rng_prune.ref import rng_prune_ref
 
 MAX_M_BUILD = 128    # rows csrc/rng_prune.cu takes (RNN-Descent's capacity)
@@ -160,3 +161,66 @@ def _launch_int8(codes, scale, zero, ids, dists, flags, metric):
     _build.check(rc, "rng_prune_int8")
     LAUNCHES["rng_prune_int8"] += 1
     return keep, red_w, red_d
+
+
+# ------------------------------------------------------------ launch shapes
+# csrc/rng_prune.cuh's layout: WARPS warps a block, a row each at a time;
+# each warp's shared region holds NSLOT slots of 32 candidates x DC
+# elements (f32; bf16 and int8 land raw and widen into two f32 tiles) and
+# five 32 NB-word vectors plus one 32 NB-byte vector of the row.
+_WARPS, _DC, _NSLOT = 4, 32, 4
+_SLOT = 32 * _DC
+_ITEMSIZE = {"f32": 4, "bf16": 2, "int8": 1}
+
+
+def _warp_bytes(dtype: str, nb: int) -> int:
+    fbuf = (_NSLOT if dtype == "f32" else 2) * _SLOT * 4
+    raw = 0 if dtype == "f32" else _NSLOT * _SLOT * _ITEMSIZE[dtype]
+    return fbuf + raw + 5 * 32 * nb * 4 + 32 * nb
+
+
+def kernel_spec(d: int, rows: int, m: int, dtype: str = "f32", sms: int = K.H100_SMS,
+                label: str = "") -> K.LaunchSpec:
+    """The launch :func:`rng_prune` (``dtype`` "f32"/"bf16") or
+    :func:`rng_prune_int8` ("int8") makes for ``rows`` rows of ``m``
+    candidates over a corpus of width ``d``: persistent blocks of 4 warps,
+    as many as ``sms`` SMs hold at the claimed residency (3 blocks an SM for
+    rows of up to 128, 2 for the wide instance), each opting in to its
+    dynamic shared memory."""
+    if dtype not in _ITEMSIZE:
+        raise ValueError(f"unknown dtype {dtype!r}: expected one of {tuple(_ITEMSIZE)}")
+    limit = MAX_M_INT8 if dtype == "int8" else MAX_M
+    if not 1 <= m <= limit:
+        raise ValueError(f"m={m} outside the kernel's 1..{limit}")
+    wide = m > MAX_M_BUILD
+    nb = 8 if wide else 4
+    entry = ("rng_prune_int8" if dtype == "int8" else
+             "rng_prune_wide" if wide else "rng_prune")
+    per_sm = 2 if wide else 3
+    instance = {"f32": 0, "bf16": 1, "int8": 2}[dtype]
+    problem = (d, rows, m) if dtype == "int8" else (d, rows, m, int(dtype == "bf16"))
+    t = {"f32": "float", "bf16": "__nv_bfloat16", "int8": "int8_t"}[dtype]
+    return K.LaunchSpec(
+        name=f"{entry}[{dtype}]@{label or f'{rows}x{m},d={d}'}", entry=entry,
+        source="rng_prune_wide" if wide else "rng_prune", instance=instance,
+        instance_name=f"rng_prune_kernel<{t}, {nb}>", problem=problem,
+        grid=(min(K.cdiv(rows, _WARPS), sms * per_sm), 1, 1), threads=32 * _WARPS,
+        dyn_smem=_WARPS * _warp_bytes(dtype, nb) + (8 * d if dtype == "int8" else 0),
+        opt_in=True, blocks_per_sm=per_sm, persistent=True)
+
+
+def default_specs(sms: int = K.H100_SMS) -> list[K.LaunchSpec]:
+    """The main path's prune launches and their edges: a 1M build's sweeps
+    at d = 128 (SIFT1M) and 960 (GIST1M) and M = 128, NSG-style's rows of
+    C = 132 candidates at 1M, the int8 build at both widths; a one-row
+    launch; every instance (f32, bf16, int8; rows of <= 128 and <= 256)."""
+    out = []
+    for d in (128, 960):
+        for dt in ("f32", "bf16", "int8"):
+            out.append(kernel_spec(d, 1_000_000, 128, dt, sms, f"1M x 128, d={d}"))
+    for dt in ("f32", "bf16"):
+        out.append(kernel_spec(128, 1_000_000, 132, dt, sms, "NSG C=132, 1M x 128"))
+        out.append(kernel_spec(960, 1_000_000, 256, dt, sms, "M=256 edge, 1M x 960"))
+    out.append(kernel_spec(128, 1, 1, "f32", sms, "one row"))
+    out.append(kernel_spec(960, 2**31 - 1, 128, "int8", sms, "rows = 2^31 - 1 edge"))
+    return out

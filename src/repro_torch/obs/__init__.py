@@ -9,12 +9,22 @@ instrumented path of the port:
   sentinel, no allocation) while disabled.
 * ``obs.metrics`` — process-wide counters / gauges / explicit-bucket
   histograms with Prometheus text exposition and a JSON snapshot.
+* ``obs.cudahooks`` — the counterpart of the reference's ``obs.jaxhooks``:
+  kernel builds and library loads (the port's compiles), allocator
+  watermarks, and the launches and device time of a span.
+* ``obs.graphstats`` — the per-sweep graph readouts of the build spans.
 
-The reference's ``obs.jaxhooks`` (compile events, device-memory watermarks,
-cost attributes of build spans) has no counterpart here yet, so
-:func:`enable` takes no ``install_jax_hooks``. Enabling observability never
-changes a result bit: instrumentation is host-side only and may only read
-device values.
+Instrumented paths: every sweep and reverse pass of the three index builds
+(``rnn_descent/*``, ``nn_descent/iter``, ``nsg_style/*``, on every rank of
+a mesh), ``search/tiled``, ``eval/timed``, the serving front end
+(``serving/*``, ``request/*``) and the kernel builds (``kernel/*``).
+
+Enabling observability never changes a result bit: instrumentation is
+host-side only (a traced span adds a device synchronisation and small
+reductions read to the host, never a different launch) and may only read
+device values. ``python -m repro_torch.obs`` runs a scripted build +
+search + serve session, checks that contract, and writes ``trace.json``
+and ``metrics.prom``.
 """
 from __future__ import annotations
 
@@ -24,8 +34,12 @@ enabled = trace.enabled
 enabled_scope = trace.enabled_scope
 
 
-def enable() -> None:
-    """Turn on span tracing + metrics recording across the port."""
+def enable(install_hooks: bool = True) -> None:
+    """Turn on span tracing + metrics recording across the port; by
+    default also install the kernel-build listeners (idempotent)."""
+    if install_hooks:
+        from repro_torch.obs import cudahooks
+        cudahooks.install()
     trace.enable()
 
 

@@ -78,6 +78,23 @@ def builds(rank, world, cases, extra, out_dir):
         mesh2 = _mesh(world, (2, 2), ("data", "model"))
         res["mesh_2x2"] = _graph(rd.build(x, cfg, torch.Generator().manual_seed(5), mesh=mesh2))
     res["stats"] = mesh.stats.summary()
+
+    # a traced build, and the collectives pass's counts, on a mesh of their
+    # own (the counters above stay the untraced builds')
+    from repro_torch import obs
+    from repro_torch.analysis import collectives
+    from repro_torch.obs import trace
+    mesh_obs = _mesh(world)
+    _, x, cfg, init, qx, _ = cases["rnn_l2"]
+    obs.reset()
+    obs.enable(install_hooks=False)
+    try:
+        g = shard.build_rnn_descent(x, cfg, None, mesh_obs, qx=qx, init=init)
+        res["traced"] = (_graph(g), [(e["name"], e["attrs"]) for e in trace.events()
+                                     if e["name"].startswith("rnn_descent/")])
+    finally:
+        obs.disable()
+    res["collectives"] = collectives.measure(mesh_obs)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
 
 

@@ -1139,3 +1139,70 @@ def test_sharded_streaming_on_the_card_equals_single_device(dev, monkeypatch):
     for r in ranks:
         assert all(r["insert"]) and all(r["delete"])
         assert r["launches"]["rng_prune"] == 2 + 1 and r["ring"] > 0
+
+
+# ------------------------------------------------------- launch shapes, obs
+def _spec_names():
+    from repro_torch.analysis import kernel_check as KC
+    return [s.name for s in KC.all_specs()]
+
+
+def _card_specs(dev):
+    from repro_torch.analysis import kernel_check as KC
+    return KC.all_specs(torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+@pytest.mark.parametrize("name", _spec_names())
+def test_launch_shape_export_equals_the_spec(dev, name):
+    """Each source's ``<entry>_launch_shape`` (the function its launcher
+    takes the launch from) writes the Python spec's shape."""
+    from repro_torch.analysis import kernel_check as KC
+    spec = {s.name: s for s in _card_specs(dev)}[name]
+    rc, got = KC.launch_export(spec)
+    assert rc == 0 and got == spec.export()
+
+
+def test_card_rules_clean_on_every_instance(dev):
+    """Registers, spills, occupancy and static shared memory of every
+    template instance, read from the card and the -Xptxas -v report."""
+    from repro_torch.analysis import kernel_check as KC
+    findings, rows = KC.check_card(_card_specs(dev), log=lambda *a, **k: None)
+    assert findings == []
+    assert len({(r["source"], r["instance"]) for r in rows}) == 36
+    assert all(r["ptxas"] is None or "registers" in r["ptxas"] for r in rows)
+
+
+def test_traced_medium_build_equals_untraced_on_the_card(dev):
+    """A traced build and search on the card: bit for bit the untraced ones,
+    one prune launch a sweep span, the spans' device time recorded."""
+    from repro_torch import obs
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.core import search as S
+    from repro_torch.obs import trace
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(20_000, 64, generator=gen, device=dev)
+    q = torch.randn(500, 64, generator=gen, device=dev)
+    cfg = rd.RNNDescentConfig(s=16, r=48, t1=3, t2=4, capacity=64)
+    scfg = S.SearchConfig(l=32, k=32, max_iters=128, topk=10)
+
+    def run():
+        g = rd.build(x, cfg, torch.Generator(device=dev).manual_seed(1))
+        return g, S.search_tiled(x, g, q, 0, scfg, tile_b=256, with_stats=True)
+
+    g0, (i0, d0, st0) = run()
+    obs.reset()
+    try:
+        with trace.enabled_scope():
+            g1, (i1, d1, st1) = run()
+        evs = trace.events()
+    finally:
+        obs.disable()
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert torch.equal(i0, i1) and torch.equal(d0, d1) and st0 == st1
+    sweeps = [e for e in evs if e["name"] == "rnn_descent/sweep"]
+    assert len(sweeps) == cfg.t1 * cfg.t2
+    assert len([e for e in evs if e["name"] == "rnn_descent/reverse"]) == cfg.t1 - 1
+    assert all(e["attrs"]["launches_rng_prune"] == 1 and e["attrs"]["device_ms"] > 0
+               for e in sweeps)
+    (tiled,) = [e for e in evs if e["name"] == "search/tiled"]
+    assert tiled["attrs"]["work"] == st0["work"] and tiled["attrs"]["launches_beam_score"] > 0

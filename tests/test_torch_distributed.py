@@ -214,3 +214,42 @@ def test_sweep_wire_bytes_follow_the_closed_form(ranks, reference):
     for res in ranks:
         assert res["stats"]["ppermute"]["sent_bytes"] == want
         assert res["stats"]["ppermute"]["staged_bytes"] == 0      # CPU tensors
+
+
+def test_traced_sharded_build_equals_untraced_with_the_reference_spans(ranks, reference):
+    """Traced on every rank: the untraced graph, the reference's span names in
+    its order, and readouts over each rank's rows that sum to the
+    reference's whole-graph readouts."""
+    from repro import obs as robs
+    from repro.obs import trace as rtrace
+    cases, _, ref = reference
+    robs.reset()
+    robs.enable(install_jax_hooks=False)
+    try:
+        RRD.build(jnp.asarray(cases["rnn_l2"][1].numpy()), RRD.RNNDescentConfig(**RNN),
+                  jax.random.PRNGKey(1))
+        want = [(e["name"], e["attrs"]) for e in rtrace.events()]
+    finally:
+        robs.disable()
+        robs.reset()
+    for res in ranks:
+        _equal(res["traced"][0], ref["rnn_l2"])
+        assert [n for n, _ in res["traced"][1]] == [n for n, _ in want]
+    for i, (_, attrs) in enumerate(want):
+        spans = [res["traced"][1][i][1] for res in ranks]
+        for key in ("edges_live", "edges_new"):
+            assert sum(a[key] for a in spans) == attrs[key], (i, key)
+        assert all(a["exchange_hops"] == len(ranks) - 1 for a in spans)
+
+
+def test_collectives_pass_within_budget(ranks):
+    """The collectives pass's counts from every rank: the build's ring bytes
+    at the closed form exactly (within the budget), the corpus-sharded
+    search under one corpus broadcast."""
+    from repro_torch.analysis import collectives as CL
+    world = len(ranks)
+    results = [res["collectives"] for res in ranks]
+    assert CL.findings_of(results, world, log=lambda *a, **k: None) == []
+    exact = CL.budget_bytes(CL.BUILD_N, world, CL._build_cfg(), factor=1.0)
+    assert all(r["build_ring_bytes"] == exact for r in results)
+    assert CL.findings_of(results, world, factor=0.5, log=lambda *a, **k: None) != []

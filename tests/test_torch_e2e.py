@@ -71,7 +71,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.distributed.comm', 'repro_torch.distributed.ann',\n"
         "        'repro_torch.distributed.fault', 'repro_torch.core.shard',\n"
         "        'repro_torch.core.search_sharded', 'repro_torch.configs.rnnd_ann',\n"
-        "        'repro_torch.launch.steps'}\n"
+        "        'repro_torch.launch.steps', 'repro_torch.obs.graphstats',\n"
+        "        'repro_torch.obs.cudahooks', 'repro_torch.obs.__main__',\n"
+        "        'repro_torch.kernels.spec', 'repro_torch.analysis.baseline',\n"
+        "        'repro_torch.analysis.repo_lint', 'repro_torch.analysis.kernel_check',\n"
+        "        'repro_torch.analysis.registry', 'repro_torch.analysis.dispatch_audit',\n"
+        "        'repro_torch.analysis.recompile_guard', 'repro_torch.analysis.collectives',\n"
+        "        'repro_torch.analysis.__main__'}\n"
         "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )
