@@ -90,7 +90,7 @@ Phases (any failure raises and exits non-zero):
      recall@10 and QPS of the hashed search against pairwise_l2's ground
      truth; rng_prune on the built graph's rows;
   5b. the streaming index over the main path's corpus and graph (capacity
-     2^20, StreamingConfig() with the FULL build): 32 rounds of two insert
+     2^20, StreamingConfig() with the FULL build): 24 rounds of two insert
      batches of 1,024 points (the corpus's mixture) and one delete batch of
      1,024 original rows, so the store grows to 2^21 once, then one traced
      insert batch (device idle share); per-batch p50/p99, inserts/s and
@@ -104,7 +104,7 @@ Phases (any failure raises and exits non-zero):
      sentinel ones empty), held and timed as in phase 5, and timed on its
      live rows alone;
   5c. the serving front end over the main path's corpus and graph (capacity
-     2^20, StreamingConfig() with the FULL build, the knobs of 3c): 4,096
+     2^20, StreamingConfig() with the FULL build, the knobs of 3c): 2,048
      requests from the first 1,000 queries with 16 churn events (512
      points of the corpus's mixture in, 512 original rows out), launch
      counts zeroed just before and read just after, peak memory and the
@@ -176,10 +176,27 @@ Phases (any failure raises and exits non-zero):
      path's store, 8 insert and 4 delete batches of 1,024, the final store
      equal to the single device's, with inserts/s, deletes/s, the
      exchange's seconds and bytes and each rank's peak memory.
-Cut to fit the script's time (about 770 s): the sort-oracle witness and the
+  9c. training (after 8): the four recsys configs FULL through
+     bind(arch, "train_batch") at 65,536 rows, 20 steps each (the first also
+     through the plain versions from the same state: loss, every gradient
+     leaf and every updated leaf held; fm_interact once a step for FM and
+     DeepFM, never for the others; a fixed batch's loss falls; step ms,
+     rows/s, peak, the FM backward's ms inside a DeepFM step and alone);
+     minitron-4b FULL (prefill-then-decode against forward at 2,048 tokens
+     in f32; prefill_32k at batch 1, decode_32k at batch 8 for 32 steps,
+     long_500k at batch 1 and 16 layers for 8 steps, train_4k at the
+     largest depth that fits at 2 x 4096 for 5 steps, its loss falling;
+     tokens/s, mfu against 989 TFLOP/s, peak); deepseek-moe-16b at full
+     width and the depth that fits (train steps at 1 x 4096, prefill of
+     4,096 and 8 decode steps, dropping against dense in f32); every SMOKE
+     config on the card against the CPU; launch.train's main (minitron-4b
+     SMOKE, 60 steps) and the same run with a failure injected at step 45,
+     which must end at the uninterrupted run's loss and state.
+Cut to fit the script's time (about 900 s): the sort-oracle witness and the
 PQ path run over the first 500k rows of the 1M corpus (CUT_N), the sharded
 phase's ShardedANN build over the first 125k (SHARD_BUILD_N; 250k before
-the obs phase was added);
+the obs phase was added); streaming_1m runs 24 rounds (32) and serving_1m
+2,048 requests (4,096) since the train phase came;
 scripts/sharded_build.py runs the sharded build at 1M. "clock" lines
 give the seconds since start after each phase. The last lines are the
 kernels' JSON, the card's name and power limit, and
@@ -190,7 +207,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1251,7 +1270,9 @@ def medium_serving():
 
 
 STREAM_BATCH = 1024     # rows a writer batch inserts or deletes at 1M
-STREAM_ROUNDS = 32      # rounds of (insert, insert, delete) batches at 1M
+# rounds of (insert, insert, delete) batches at 1M: 24 (32 until the train
+# phase came; cut for the script's time) still grow the store once
+STREAM_ROUNDS = 24
 
 
 def _ms_stats(ms: list) -> dict:
@@ -1438,7 +1459,8 @@ def streaming_1m(x, q, g):
     del g_r, surv, ids_r
     emit({"phase": "streaming_1m", "n": n, "d": x.shape[1], "queries": q.shape[0],
           "batch": b, "rounds": STREAM_ROUNDS, "config": "StreamingConfig(build=FULL)",
-          "search": "L=64 K=64 topk=10 hashed", "reduced": None, **res})
+          "search": "L=64 K=64 topk=10 hashed",
+          "reduced": "24 rounds (32 before the train phase): the script's time", **res})
     check(res["recall_after_compact"] >= res["recall_rebuild"] - 0.02,
           f"streaming 1M: recall after compact {res['recall_after_compact']} against the "
           f"rebuild's {res['recall_rebuild']}")
@@ -1456,7 +1478,8 @@ def streaming_1m(x, q, g):
     return report
 
 
-SERVE_REQ_1M, SERVE_EVENTS_1M, SERVE_TRACED_1M = 4096, 16, 512
+# 2,048 requests (4,096 until the train phase came; cut for the script's time)
+SERVE_REQ_1M, SERVE_EVENTS_1M, SERVE_TRACED_1M = 2048, 16, 512
 SERVE_QUERIES_1M = 1000   # the path's queries the 1M sessions draw from (and score)
 
 
@@ -1489,8 +1512,8 @@ def serving_1m(x, q, g):
     emit({"phase": "serving_1m", "n": n, "d": x.shape[1], "queries": SERVE_QUERIES_1M,
           "capacity": ann.capacity, "tile_lanes": SERVE_TILE, "write_batch": SERVE_WB,
           "requests": SERVE_REQ_1M, "events": SERVE_EVENTS_1M, "deadline_s": SERVE_DEADLINE,
-          "config": "StreamingConfig(build=FULL)", "search": CHURN_SEARCH, "reduced": None,
-          **res})
+          "config": "StreamingConfig(build=FULL)", "search": CHURN_SEARCH,
+          "reduced": "2,048 requests (4,096 before the train phase): the script's time", **res})
     return res
 
 
@@ -2821,6 +2844,579 @@ def recsys_phase() -> list:
     return report
 
 
+# ------------------------------------------------------------ the train phase
+TRAIN_SEED = SEED + 40
+TRAIN_STEPS = 20                     # recsys train steps a config
+BF16_PEAK = 989e12                   # H100 SXM dense bf16 tensor-core FLOP/s (700 W)
+LM_DEPTHS = (28, 26, 24, 20, 16)     # minitron-4b train_4k: the first that fits is run
+MOE_DEPTHS = (4, 2)                  # deepseek-moe-16b: the first that fits is run
+
+
+def _tree_map(fn, tree):
+    from repro_torch.checkpoint.checkpoint import flatten, unflatten
+    return unflatten(tree, (fn(x) for _, x in flatten(tree)))
+
+
+def _tree_pairs(a, b):
+    from repro_torch.checkpoint.checkpoint import flatten
+    return [(n, x, y) for (n, x), (_, y) in zip(flatten(a), flatten(b))]
+
+
+def _ms_summary(ms: list) -> dict:
+    return {"ms": statistics.median(ms), "ms_min": min(ms), "ms_max": max(ms), "n": len(ms)}
+
+
+def _free() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _hold_route_step(bound, state, batch, label: str) -> dict:
+    """The first train step through the kernels and through their plain
+    versions (``plain_versions()``), from the same state and batch: loss
+    within 1e-5 relative; each gradient leaf and each updated leaf within
+    2^-7 of the leaf's largest magnitude (one bf16 rounding: the embeddings
+    and the deep tower are bf16) and each updated weight within 2.05 lr of
+    the other route's (Adam's first step normalises a gradient to +-lr, so
+    a rounding-noise gradient may flip its sign). A missing FM term in the
+    backward moves the table's gradient by O(1) of its largest. Returns
+    the kernel route's state after the step."""
+    from repro_torch.models import recsys as rs
+    from repro_torch.train import value_and_grad
+    cfg = bound.cfg
+    loss_fn = lambda p, b: rs.loss_fn(p, b, cfg)
+    lk, gk = value_and_grad(loss_fn, state.params, batch)
+    with plain_versions():
+        lp, gp = value_and_grad(loss_fn, state.params, batch)
+    check(abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp)),
+          f"{label}: kernel and plain losses {float(lk)} / {float(lp)}")
+    g_over = {}
+    for name, a, b in _tree_pairs(gk, gp):
+        top = float(b.abs().max()) + 1e-30
+        g_over[name] = float((a.float() - b.float()).abs().max()) / top
+        check(g_over[name] <= 2**-7, f"{label}: gradient {name} {g_over[name]} of its largest")
+    del gk, gp
+    plain_state = _tree_map(lambda x: x.clone(), state)
+    state, mk = bound.step_fn(state, batch)
+    with plain_versions():
+        plain_state, mp = bound.step_fn(plain_state, batch)
+    lr = float(mk["lr"])
+    u_over = {}
+    for name, a, b in _tree_pairs(state, plain_state):
+        if name == ".opt.step":
+            continue
+        err = (a.float() - b.float()).abs()
+        if name.startswith(".params"):
+            over = float((err / (2.05 * lr + 2**-22 * b.abs())).max())
+        else:
+            over = float(err.max()) / (2**-7 * (float(b.abs().max()) + 1e-30))
+        u_over[name] = over
+        check(over <= 1.0, f"{label}: updated leaf {name} at {over} of its bound")
+    del plain_state
+    return {"state": state, "loss_kernel": float(lk), "loss_plain": float(lp),
+            "grad_worst": max(g_over.values()), "update_worst_of_bound": max(u_over.values()),
+            "leaves": len(g_over)}
+
+
+def recsys_train_cell(arch_id: str, rows: int | None = None) -> dict:
+    """One recsys train cell through ``bind(arch, "train_batch")`` (FULL,
+    65,536 rows unless ``rows``): seeded init, seeded ``recsys_batch``
+    batches, the first step held route against route, then TRAIN_STEPS - 1
+    more; every loss and grad norm finite, fm_interact exactly once a step
+    (FM, DeepFM) or never; a fixed batch's loss lower after the steps."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.fm_interact import ops as FM
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as rs
+    from repro_torch.data.synthetic import recsys_batch
+    bound = steps.bind(arch_id, "train_batch", device="cuda")
+    cfg = bound.cfg
+    b = rows or bound.input_specs["labels"][0][0]
+    uses_fm = cfg.interaction in ("fm", "fm-2way")
+
+    def batch(seed):
+        return recsys_batch(torch.Generator(device="cuda").manual_seed(seed), b, cfg.n_fields,
+                            cfg.vocab_sizes, cfg.n_dense, cfg.multi_hot, "cuda")
+
+    seed = TRAIN_SEED + 100 * len(arch_id)
+    state = bound.init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    fixed = batch(seed + 1)
+    with torch.no_grad():
+        before = float(rs.loss_fn(state.params, fixed, cfg))
+    held = _hold_route_step(bound, state, batch(seed + 2), f"{arch_id} train")
+    state = held.pop("state")
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, norms, per_step = [], [], [], []
+    bwd = []
+    for i in range(1, TRAIN_STEPS):
+        bt = batch(seed + 2 + i)
+        torch.cuda.synchronize()
+        reset_launches()
+        with event_timed(FM, ["fm_backward"]) as ev:
+            t0 = time.perf_counter()
+            state, m = bound.step_fn(state, bt)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        bwd.extend(ev["fm_backward"])
+        per_step.append(LAUNCHES["fm_interact"])
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        check(sum(LAUNCHES.values()) == LAUNCHES["fm_interact"],
+              f"{arch_id} train: a step launched {dict(LAUNCHES)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in losses + norms), f"{arch_id} train: a loss or norm not finite")
+    check(per_step == [int(uses_fm)] * (TRAIN_STEPS - 1),
+          f"{arch_id} train: fm_interact launches a step {per_step}")
+    with torch.no_grad():
+        after = float(rs.loss_fn(state.params, fixed, cfg))
+    check(after < before, f"{arch_id} train: the fixed batch's loss {before} -> {after}")
+    t = _ms_summary(ms[1:])                  # the first timed step warms the allocator
+    out = {"arch": arch_id, "rows": b, "steps": TRAIN_STEPS, "step_ms": t["ms"],
+           "step_ms_spread": [t["ms_min"], t["ms_max"], t["n"]],
+           "rows_per_s": b / (t["ms"] / 1e3), "peak_memory_gib": peak,
+           "fm_launches_per_step": int(uses_fm), "fixed_batch_loss": [before, after],
+           "loss_first_last": [losses[0], losses[-1]], "grad_norm_last": norms[-1],
+           "route_check": held}
+    if uses_fm:
+        out["fm_backward_in_step_ms"] = statistics.median(bwd)
+    del state, fixed
+    _free()
+    return out
+
+
+def fm_backward_timing(launches_per_step: int, in_step_ms: float) -> dict:
+    """The FM backward (plain tensor ops; no kernel: the reference has
+    none) alone on DeepFM's train_batch embeddings (65,536 x 39 x 10 bf16),
+    CUDA events, beside its bytes bound: emb read once, g read, grad
+    written."""
+    from repro_torch.kernels.fm_interact import ops as FM
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 9)
+    emb = torch.randn(65_536, 39, 10, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(65_536, generator=gen, device="cuda")
+    t = time_ms(lambda i: FM.fm_backward(emb, g), inner=20)
+    byts = 2 * emb.numel() * emb.element_size() + g.numel() * 4
+    return {"train_launches_per_step": launches_per_step,
+            "fm_backward_ms": t["ms"], "fm_backward_ms_spread": [t["ms_min"], t["ms_max"]],
+            "fm_backward_bound_ms": 1e3 * byts / HBM_RATE,
+            "fm_backward_in_deepfm_step_ms": in_step_ms,
+            "fm_backward_route": "plain tensor ops (closed form), no kernel"}
+
+
+def lm_flops(cfg, tokens: int, seq: int, train: bool) -> float:
+    """Model FLOPs (PaLM's count): per token 2 N_mm forward, with N_mm the
+    active matmul parameters (layers and head; the embedding is a gather),
+    plus 4 L H dh S for the attention's two products over the whole
+    sequence (the blocked softmax computes every block, masked or not);
+    training is 3x the forward. Recomputation is not counted."""
+    n_mm = cfg.n_active_params - cfg.vocab * cfg.d_model - cfg.d_model
+    per_tok = 2 * n_mm + 4 * cfg.n_layers * cfg.n_heads * cfg.d_head * seq
+    return (3 if train else 1) * per_tok * tokens
+
+
+def _random_cache(cfg, batch: int, seq: int, pos: int, gen) -> dict:
+    from repro_torch.models import transformer as tf
+    cache = tf.init_cache(cfg, batch, seq, device="cuda")
+    for name in ("k", "v"):
+        for li in range(cfg.n_layers):
+            cache[name][li] = (torch.randn(cache[name][li].shape, generator=gen,
+                                           device="cuda") * 0.02).to(cache[name].dtype)
+    cache["pos"] = torch.full((batch,), pos, dtype=torch.int32, device="cuda")
+    return cache
+
+
+def _decode_steps(bound, params, cache, n: int, gen) -> dict:
+    b = cache["pos"].shape[0]
+    ms, finite = [], True
+    for _ in range(n):
+        tok = torch.randint(0, bound.cfg.vocab, (b,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = bound.step_fn(params, {"tokens": tok, "cache": cache})
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        finite &= bool(torch.isfinite(logits).all())
+    check(finite, "decode: logits not finite")
+    t = _ms_summary(ms[1:])
+    return {"steps": n, "ms_per_step": t["ms"], "ms_spread": [t["ms_min"], t["ms_max"], t["n"]],
+            "first_step_ms": ms[0], "tokens_per_s": b / (t["ms"] / 1e3),
+            "final_pos": int(cache["pos"][0])}
+
+
+def _largest_fitting(depths, build):
+    """``build(depth)`` for the first depth of ``depths`` that does not run
+    out of device memory; returns (depth, its result, the depths tried)."""
+    tried = []
+    for depth in depths:
+        tried.append(depth)
+        try:
+            return depth, build(depth), tried
+        except torch.cuda.OutOfMemoryError:
+            pass
+        _free()              # outside the handler: its traceback holds the tensors
+    raise RuntimeError(f"no depth of {depths} fits")
+
+
+def lm_train_steps(arch_id: str, cfg, batch: int, seq: int, n: int,
+                   must_fall: bool = True) -> dict:
+    """``n`` bound train steps of ``cfg`` on one fixed token_batch (with
+    ``must_fall``, the loss on it must fall), step ms (after the first),
+    tokens/s, mfu, peak."""
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import steps
+    bound = steps.bind_with_cfg(arch_id, "train_4k", cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 3)
+    torch.cuda.reset_peak_memory_stats()
+    state = bound.init_fn(gen)
+    tb = token_batch(gen, batch, seq, cfg.vocab, "cuda")
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = bound.step_fn(state, tb)
+        losses.append(float(m["loss"]))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    check(all(math.isfinite(x) for x in losses), f"{arch_id} train: loss not finite {losses}")
+    check(losses[-1] < losses[0] or not must_fall,
+          f"{arch_id} train: loss on the step's batch {losses}")
+    t = _ms_summary(ms[1:])
+    flops = lm_flops(cfg, batch * seq, seq, train=True)
+    return {"layers": cfg.n_layers, "batch": batch, "seq": seq, "steps": n, "losses": losses,
+            "step_ms": t["ms"], "step_ms_spread": [t["ms_min"], t["ms_max"], t["n"]],
+            "first_step_ms": ms[0], "tokens_per_s": batch * seq / (t["ms"] / 1e3),
+            "model_tflop_per_step": flops / 1e12,
+            "mfu": flops / (t["ms"] / 1e3) / BF16_PEAK, "peak_memory_gib": peak}
+
+
+def minitron_phase() -> dict:
+    """minitron-4b FULL (5.10B parameters) on the port's seeded init:
+    prefill_32k at batch 1, decode_32k at batch 8 (32 steps to the cache's
+    end), long_500k at batch 1 and 16 layers (8 steps), prefill-then-decode
+    against forward at 2,048 tokens in f32, then train_4k at the largest
+    depth that fits (batch 2 x 4096, 5 steps)."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.configs import minitron_4b
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import nn
+    from repro_torch.models import transformer as tf
+    full = minitron_4b.FULL
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 1)
+    out = {"config": "minitron-4b FULL", "n_params": full.n_params,
+           "reduced": {"prefill_32k": "batch 1 (of 32): a sequence's cache is 4.3 GB",
+                       "decode_32k": "batch 8 (of 128): 34 GB of cache",
+                       "long_500k": "16 of 32 layers: 69 GB of cache at 32"}}
+    pre = steps.bind("minitron-4b", "prefill_32k", device="cuda")
+    params = pre.init_fn(gen)
+    out["params_gib"] = sum(x.numel() * x.element_size() for _, x in flatten(params)) / 2**30
+    # prefill-then-decode against forward on the full-width model, f32
+    f32 = dataclasses.replace(full, compute_dtype=torch.float32)
+    toks = token_batch(gen, 1, 2048, full.vocab, "cuda")["tokens"]
+    nxt = torch.randint(0, full.vocab, (1, 1), generator=gen, device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        cache = tf.init_cache(f32, 1, 2048 + 8, dtype=torch.float32, device="cuda")
+        _, cache = tf.prefill(params, toks, cache, f32)
+        dec, _ = tf.decode_step(params, nxt[:, 0], cache, f32)
+        del cache
+        x, _ = tf.forward(params, torch.cat([toks, nxt], dim=1), f32)
+        ref = nn.rmsnorm({"scale": params["ln_f"]}, x[:, -1:]) @ params["head"]["w"]
+        del x
+    ok = torch.allclose(dec, ref, rtol=5e-3, atol=5e-4)
+    out["prefill_then_decode"] = {"tokens": 2048, "max_abs_diff": float((dec - ref).abs().max()),
+                                  "max_abs_logit": float(ref.abs().max()),
+                                  "tolerance": "rtol 5e-3, atol 5e-4 (the reference's test)"}
+    check(ok, f"minitron prefill-then-decode vs forward: {out['prefill_then_decode']}")
+    del dec, ref
+    _free()
+    # prefill_32k, batch 1
+    seq = pre.shape.dims["seq"]
+    toks = token_batch(gen, 1, seq, full.vocab, "cuda")["tokens"]
+    pre.step_fn(params, {"tokens": toks[:, :1024]})             # warm (cuBLAS plans)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = pre.step_fn(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    check(logits.shape == (1, 1, full.vocab) and bool(torch.isfinite(logits).all()),
+          "prefill_32k: logits")
+    check(int(cache["pos"][0]) == seq, "prefill_32k: cache pos")
+    flops = lm_flops(full, seq, seq, train=False)
+    out["prefill_32k"] = {"batch": 1, "seq": seq, "seconds": s, "tokens_per_s": seq / s,
+                          "mfu": flops / s / BF16_PEAK, "model_tflop": flops / 1e12,
+                          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del logits, cache
+    _free()
+    # decode_32k, batch 8, the last 32 positions of a 32,768 cache
+    dec_b = steps.bind("minitron-4b", "decode_32k", device="cuda")
+    seq = dec_b.shape.dims["seq"]
+    cache = _random_cache(full, 8, seq, seq - 32, gen)
+    torch.cuda.reset_peak_memory_stats()
+    out["decode_32k"] = {"batch": 8, "cache": seq, **_decode_steps(dec_b, params, cache, 32, gen),
+                         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    check(out["decode_32k"]["final_pos"] == seq, "decode_32k: pos")
+    del cache
+    _free()
+    # long_500k, batch 1, 16 layers (the first 16 of the stack: views)
+    c16 = dataclasses.replace(full, n_layers=16)
+    p16 = dict(params, layers={k: w[:16] for k, w in params["layers"].items()})
+    long_b = steps.bind_with_cfg("minitron-4b", "long_500k", c16, device="cuda")
+    seq = long_b.shape.dims["seq"]
+    cache = _random_cache(c16, 1, seq, seq - 8, gen)
+    torch.cuda.reset_peak_memory_stats()
+    out["long_500k"] = {"batch": 1, "cache": seq, "layers": 16,
+                        **_decode_steps(long_b, p16, cache, 8, gen),
+                        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del cache, p16, params
+    _free()
+    # train_4k at the largest depth that fits, batch 2 x 4096
+    depth, res, tried = _largest_fitting(
+        LM_DEPTHS, lambda L: lm_train_steps("minitron-4b", dataclasses.replace(full, n_layers=L),
+                                            2, 4096, 5))
+    out["train_4k"] = {**res, "depths_tried": tried}
+    out["reduced"]["train_4k"] = (f"{depth} of 32 layers, batch 2 (of 256): the train state "
+                                  "at 32 layers is 88 GB before activations")
+    _free()
+    return out
+
+
+def deepseek_phase() -> dict:
+    """deepseek-moe-16b at full width (64 routed experts, top-6, 2 shared)
+    with its depth cut to fit: train steps at 1 x 4096, prefill of 4,096
+    tokens and 8 decode steps, and impl="dropping" against impl="dense" at
+    compute_dtype=float32 over 512 tokens: the loss within rtol 1e-4 (the
+    reference's test) wherever no expert overflowed its capacity. At
+    factor 4 the random router at full width sends up to 1.4x that many
+    slots to one expert (measured on the CPU at one layer: 228-274 of 192),
+    so the check also runs at ceil(E / k) = 11, where nothing can drop."""
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    full = deepseek_moe_16b.FULL
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 2)
+    depth, train, tried = _largest_fitting(
+        MOE_DEPTHS, lambda L: lm_train_steps("deepseek-moe-16b",
+                                             dataclasses.replace(full, n_layers=L), 1, 4096, 2,
+                                             must_fall=False))
+    _free()
+    cfg = dataclasses.replace(full, n_layers=depth)
+    params = tf.init(gen, cfg, "cuda")
+    out = {"config": "deepseek-moe-16b FULL widths", "layers": depth, "depths_tried": tried,
+           "train_1x4096": train,
+           "reduced": f"{depth} of 28 layers (the train state at 28 is 300 GB); train batch 1"}
+    pre = steps.bind_with_cfg("deepseek-moe-16b", "prefill_32k", cfg, device="cuda")
+    toks = token_batch(gen, 1, 4096, cfg.vocab, "cuda")["tokens"]
+    pre.step_fn(params, {"tokens": toks[:, :512]})             # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = pre.step_fn(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), "deepseek prefill: logits")
+    out["prefill_4096"] = {"seconds": s, "tokens_per_s": 4096 / s,
+                           "mfu": lm_flops(cfg, 4096, 4096, False) / s / BF16_PEAK}
+    dec_b = steps.bind_with_cfg("deepseek-moe-16b", "decode_32k", cfg, device="cuda")
+    cache = tf.init_cache(cfg, 1, 4096 + 8, device="cuda")
+    with torch.no_grad():
+        _, cache = tf.prefill(params, toks, cache, cfg)
+    out["decode_after_prefill"] = _decode_steps(dec_b, params, cache, 8, gen)
+    del cache, logits
+    # dropping against dense over 512 tokens in f32: at capacity factor 4
+    # (the reference's test) and at one where no expert can overflow
+    # (cap >= t: factor ceil(E / k)); the losses must agree wherever no
+    # slot was dropped
+    tb = token_batch(gen, 1, 512, cfg.vocab, "cuda")
+    loads, orig = [], tf._moe_dispatch
+
+    def spy(x, router, wg, wu, wd, c, cap):
+        _, _, top_e = tf._route(x, router, c.moe.top_k)
+        loads.append((int(torch.bincount(top_e.reshape(-1), minlength=c.moe.n_experts).max()),
+                      cap))
+        return orig(x, router, wg, wu, wd, c, cap)
+
+    out["dropping_vs_dense"] = []
+    for factor in (4.0, float(-(-cfg.moe.n_experts // cfg.moe.top_k))):
+        losses = {}
+        for impl in ("dense", "dropping"):
+            c = dataclasses.replace(cfg, compute_dtype=torch.float32, moe=dataclasses.replace(
+                cfg.moe, impl=impl, capacity_factor=factor))
+            loads.clear()
+            tf._moe_dispatch = spy
+            try:
+                with torch.no_grad():
+                    losses[impl] = float(tf.loss_fn(params, tb, c))
+            finally:
+                tf._moe_dispatch = orig
+        dropped = any(load > cap for load, cap in loads)
+        rel = abs(losses["dropping"] - losses["dense"]) / abs(losses["dense"])
+        out["dropping_vs_dense"].append({"tokens": 512, "capacity_factor": factor, **losses,
+                                         "rel": rel, "max_expert_load_and_cap": loads[:],
+                                         "dropped": dropped})
+        check(dropped or rel <= 1e-4, f"deepseek dropping vs dense, nothing dropped: {losses}")
+    check(not out["dropping_vs_dense"][-1]["dropped"], "deepseek: the no-drop factor dropped")
+    del params
+    _free()
+    return out
+
+
+def _hold_smoke_step(bound_c, bound_g, batch_c, label: str, f32: bool) -> dict:
+    """One bound train step on the card against the CPU from the same state
+    and batch: loss within 1e-5 (f32) / 1e-2 (bf16) relative, grad norm
+    within 1e-4 / 5e-2, every weight within 2.05 lr (+ a bf16 ulp of a
+    bf16 leaf)."""
+    state_c = bound_c.init_fn(torch.Generator().manual_seed(TRAIN_SEED + 5))
+    state_g = _tree_map(lambda x: x.to("cuda", copy=True), state_c)
+    batch_g = _tree_map(lambda x: x.to("cuda"), batch_c)
+    state_g, mg = bound_g.step_fn(state_g, batch_g)
+    state_c, mc = bound_c.step_fn(state_c, batch_c)
+    lt, nt = (1e-5, 1e-4) if f32 else (1e-2, 5e-2)
+    dl = abs(float(mg["loss"]) / float(mc["loss"]) - 1)
+    dn = abs(float(mg["grad_norm"]) / float(mc["grad_norm"]) - 1)
+    check(dl <= lt and dn <= nt, f"{label}: card vs CPU loss {dl}, grad norm {dn}")
+    lr = float(mc["lr"])
+    worst = 0.0
+    for name, a, b in _tree_pairs(state_g.params, state_c.params):
+        a, b = a.cpu().float(), b.float()
+        lim = 2.05 * lr + 2**-22 * b.abs() + (2**-7 * b.abs() if not f32 else 0)
+        worst = max(worst, float(((a - b).abs() / lim).max()))
+    check(worst <= 1.0, f"{label}: card vs CPU weights at {worst} of the bound")
+    return {"loss_rel": dl, "grad_norm_rel": dn, "weights_worst_of_bound": worst}
+
+
+def smoke_card_vs_cpu() -> list:
+    """Every SMOKE config on the card against the port on the CPU from the
+    same weights and batch: the five LM configs (a train step as bound and
+    at compute_dtype=float32; prefill and decode logits and caches at f32,
+    within 1e-4 of the largest magnitude) and the four recsys ones (a train
+    step as bound)."""
+    from repro_torch import configs
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    out = []
+    for arch_id in [a for a in configs.ASSIGNED]:
+        arch = configs.get(arch_id)
+        lm = arch.family == "lm"
+        shape = "train_4k" if lm else "train_batch"
+        res = {"arch": arch_id}
+        for f32 in (False, True):
+            cfg = arch.make_config(shape, True)
+            if f32:
+                cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+            bc = steps.bind_with_cfg(arch_id, shape, cfg, device="cpu")
+            bg = steps.bind_with_cfg(arch_id, shape, cfg, device="cuda")
+            smoke = cb.lm_smoke_batch if lm else cb.recsys_smoke_batch
+            batch_c = smoke(torch.Generator().manual_seed(TRAIN_SEED + 6), cfg, bc.shape, "cpu")
+            res["train_f32" if f32 else "train_bf16"] = _hold_smoke_step(
+                bc, bg, batch_c, f"{arch_id} SMOKE train", f32)
+        if lm:
+            cfg = dataclasses.replace(arch.make_config(shape, True), compute_dtype=torch.float32)
+            p_c = tf.init(torch.Generator().manual_seed(TRAIN_SEED + 7), cfg, "cpu")
+            p_g = _tree_map(lambda x: x.to("cuda"), p_c)
+            b, s, c = cb.LM_SMOKE["batch"], cb.LM_SMOKE["seq"], cb.LM_SMOKE["cache"]
+            toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=torch.Generator().manual_seed(8),
+                                 dtype=torch.int32)
+            worst = 0.0
+            caches = [tf.init_cache(cfg, b, c, device=d) for d in ("cpu", "cuda")]
+            for dev, p, ci in (("cpu", p_c, 0), ("cuda", p_g, 1)):
+                lg, caches[ci] = tf.prefill(p, toks[:, :s].to(dev), caches[ci], cfg)
+                ld, caches[ci] = tf.decode_step(p, toks[:, s].to(dev), caches[ci], cfg)
+                if dev == "cpu":
+                    want = (lg, ld, caches[0]["k"].clone(), caches[0]["v"].clone())
+                else:
+                    for a, w in zip((lg, ld, caches[1]["k"], caches[1]["v"]), want):
+                        worst = max(worst, float((a.cpu().float() - w.float()).abs().max())
+                                    / (float(w.abs().max()) + 1e-30))
+            check(worst <= 1e-4, f"{arch_id} SMOKE prefill/decode card vs CPU: {worst}")
+            res["prefill_decode_f32_worst"] = worst
+        out.append(res)
+    return out
+
+
+def entry_point_phase() -> dict:
+    """``python -m repro_torch.launch.train`` on the card: minitron-4b
+    train_4k --reduced for 60 steps returns 0; the same run with
+    --ckpt-dir and a failure injected at step 45 (restore of the step-39
+    commit: bf16 leaves) ends at the uninterrupted run's final loss and
+    state, bit for bit."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", "minitron-4b", "--shape", "train_4k", "--steps", "60", "--reduced",
+            "--log-every", "1000"]
+    rc = launch_train.main(argv)
+    clean = launch_train.run(argv)
+    check(rc == 0, f"launch.train main returned {rc}: loss {clean['losses'][0]} -> "
+                   f"{clean['losses'][-1]}")
+    orig_bind, calls = steps.bind, {"n": 0}
+
+    def failing_bind(*a, **kw):
+        bound = orig_bind(*a, **kw)
+        inner = bound.step_fn
+
+        def step_fn(state, batch):
+            calls["n"] += 1
+            if calls["n"] == 46:
+                raise RuntimeError("injected failure")
+            return inner(state, batch)
+        return dataclasses.replace(bound, step_fn=step_fn)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT, "build"))
+    steps.bind = failing_bind
+    try:
+        res = launch_train.run(argv + ["--ckpt-dir", ckpt_dir, "--ckpt-every", "20"])
+    finally:
+        steps.bind = orig_bind
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(flatten(res["state"]),
+                                                           flatten(clean["state"])))
+    bf16 = sum(1 for _, a in flatten(res["state"]) if a.dtype == torch.bfloat16)
+    out = {"main_rc": rc, "losses_first_last": [clean["losses"][0], clean["losses"][-1]],
+           "restart": {"calls": calls["n"], "final_loss": res["losses"][-1],
+                       "uninterrupted_final_loss": clean["losses"][-1],
+                       "state_bit_for_bit": same, "bf16_leaves": bf16}}
+    check(calls["n"] == 60 + 1 + 5, f"restart: {calls['n']} step calls")
+    check(res["losses"][-1] == clean["losses"][-1] and same,
+          f"restart: {out['restart']}")
+    return out
+
+
+def train_phase() -> dict:
+    """Phase 9c: training (recsys through the FM kernel's gradient, the LM
+    family's train, prefill and decode), returning the keys the
+    fm_interact ``kernels`` entry gains."""
+    cells = []
+    for arch_id in ("deepfm", "fm", "wide-deep", "xdeepfm"):
+        try:
+            cells.append(recsys_train_cell(arch_id))
+        except torch.cuda.OutOfMemoryError:
+            cells.append(None)
+        if cells[-1] is None:     # outside the handler: its traceback holds the tensors
+            _free()
+            cells[-1] = {**recsys_train_cell(arch_id, 32_768), "reduced": "batch 32,768 "
+                         "(of 65,536): the CIN's (B, 200, 39, 10) products did not fit"}
+        emit({"phase": "train_recsys", "config": f"{arch_id} FULL",
+              "reduced": cells[-1].get("reduced"), **cells[-1]})
+    clock("train_recsys")
+    deepfm = cells[0]
+    fm_keys = fm_backward_timing(deepfm["fm_launches_per_step"], deepfm["fm_backward_in_step_ms"])
+    emit({"phase": "train_fm_backward", **fm_keys})
+    emit({"phase": "train_lm", **minitron_phase()})
+    clock("train_minitron")
+    emit({"phase": "train_moe", **deepseek_phase()})
+    clock("train_deepseek")
+    emit({"phase": "train_smoke_card_vs_cpu", "configs": smoke_card_vs_cpu()})
+    emit({"phase": "train_entry_point", **entry_point_phase()})
+    return fm_keys
+
+
 # ------------------------------------------------------------ the sharded phase
 SHARD_Q = 1000                       # queries of the 1M sharded searches
 SHARD_DENSE = {"l": 64, "k": 64, "max_iters": 256, "topk": 10, "visited": "dense"}
@@ -3538,6 +4134,9 @@ def main() -> int:
     clock("pq")
     report += recsys_phase()
     clock("recsys")
+    fm_entry = next(k for k in report if k["name"] == "fm_interact")
+    fm_entry.update(train_phase())
+    clock("train")
     emit({"phase": "done", "seconds": time.perf_counter() - T0,
           "kernel_build_s": built["seconds"]})
     emit({"kernels": report})

@@ -131,6 +131,28 @@ def _bound(shape_name: str):
     return setup
 
 
+# ------------------------------------------------------- training and the LM
+def _cell(arch_id: str, shape_name: str):
+    """A bound step of ``arch_id``'s SMOKE config at ``compute_dtype=float32``
+    (so a bf16 product anywhere is a finding) on its smoke batch; train
+    steps update their state in place, call after call."""
+    def setup():
+        import dataclasses
+
+        from repro_torch import configs
+        from repro_torch.configs import base as cb
+        from repro_torch.launch import steps
+        arch = configs.get(arch_id)
+        cfg = dataclasses.replace(arch.make_config(shape_name, True),
+                                  compute_dtype=torch.float32)
+        b = steps.bind_with_cfg(arch_id, shape_name, cfg, device="cpu")
+        smoke = cb.lm_smoke_batch if arch.family == "lm" else cb.recsys_smoke_batch
+        batch = smoke(_gen(), cfg, b.shape, "cpu")
+        state = b.init_fn(_gen())
+        return lambda: b.step_fn(state, batch)
+    return setup
+
+
 _REGISTRY = {
     "core/rnn_descent.build": _rnn_build(),
     "core/rnn_descent.build@int8": _rnn_build("int8"),
@@ -151,6 +173,12 @@ _REGISTRY = {
     "launch/steps.rnnd-ann.build_1m": _bound("build_1m"),
     "launch/steps.rnnd-ann.build_gist": _bound("build_gist"),
     "launch/steps.rnnd-ann.search_1m": _bound("search_1m"),
+    # FM: DeepFM's deep tower is bf16 whatever compute_dtype says (nn.mlp's
+    # default, as in the reference), which the f32 rule would flag
+    "launch/steps.fm.train_batch": _cell("fm", "train_batch"),
+    "launch/steps.minitron-4b.train_4k": _cell("minitron-4b", "train_4k"),
+    "launch/steps.minitron-4b.prefill_32k": _cell("minitron-4b", "prefill_32k"),
+    "launch/steps.minitron-4b.decode_32k": _cell("minitron-4b", "decode_32k"),
 }
 
 

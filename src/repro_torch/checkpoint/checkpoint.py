@@ -13,7 +13,10 @@ and GC removes. Leaves are named as ``jax.tree_util.keystr`` names them
 (``".x"``, ``".graph.neighbors"``, ``".qx.codes"``, ``"['key']"``,
 ``"[0]"``) by a flattener over NamedTuples (field order), dicts (sorted
 keys), lists and tuples, in which ``None`` has no leaf, as in JAX. Leaves
-cross as host numpy arrays; restore places them on ``device``.
+cross as host numpy arrays; restore places them on ``device``. A bfloat16
+leaf is stored as the reference stores one (its 2-byte payload as a
+``|V2`` array, manifest dtype ``"bfloat16"``) and restored as bfloat16 by
+that dtype.
 """
 from __future__ import annotations
 
@@ -45,8 +48,13 @@ def flatten(tree, path: str = "") -> list[tuple[str, object]]:
     return [(path, tree)]
 
 
+def unflatten(like, leaves):
+    """``like``'s structure with its leaves taken in order from ``leaves``
+    (an iterator, or an iterable of the leaves in flatten order)."""
+    return _rebuild(like, iter(leaves))
+
+
 def _rebuild(like, leaves):
-    """``like``'s structure with its leaves taken in order from ``leaves``."""
     if like is None:
         return None
     if _is_namedtuple(like):
@@ -58,14 +66,32 @@ def _rebuild(like, leaves):
     return next(leaves)
 
 
-def _to_host(leaf) -> np.ndarray:
+# numpy has no bfloat16: such a leaf crosses as its 2-byte payload in a
+# void array (``|V2``) with manifest dtype "bfloat16", the layout numpy
+# gives the reference's bfloat16 arrays
+_BF16 = "bfloat16"
+
+
+def _to_host(leaf) -> tuple[np.ndarray, str]:
     """A copy of the leaf as a numpy array (taken now, so a later flush
-    thread never reads memory the caller may reuse)."""
+    thread never reads memory the caller may reuse) and its manifest
+    dtype."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise TypeError("a bfloat16 leaf has no numpy dtype: cast it before saving")
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.array(leaf)
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2")), _BF16
+        a = t.numpy()
+        return a, str(a.dtype)
+    a = np.array(leaf)
+    return a, str(a.dtype)
+
+
+def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """A stored leaf as a CPU tensor, bfloat16 by the manifest's dtype."""
+    if dtype == _BF16:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
@@ -74,7 +100,8 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
     os.makedirs(ckpt_dir, exist_ok=True)
     pairs = flatten(tree)
     names = [name for name, _ in pairs]
-    host_leaves = [_to_host(leaf) for _, leaf in pairs]      # device -> host copy
+    hosted = [_to_host(leaf) for _, leaf in pairs]            # device -> host copy
+    host_leaves = [a for a, _ in hosted]
 
     def _flush():
         tmp = os.path.join(ckpt_dir, f"step_{step:09d}.tmp")
@@ -86,7 +113,7 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
             "step": step,
             "names": names,
             "shapes": [list(a.shape) for a in host_leaves],
-            "dtypes": [str(a.dtype) for a in host_leaves],
+            "dtypes": [dt for _, dt in hosted],
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -151,5 +178,6 @@ def restore(ckpt_dir: str, step: int, like_tree, device: str | torch.device = "c
             f"like_tree has {n_like} leaves but step {step} holds "
             f"{len(manifest['names'])}: {manifest['names']}")
     with np.load(os.path.join(path, "shard_00000.npz")) as data:
-        leaves = [torch.from_numpy(data[f"leaf_{i}"]).to(dev) for i in range(n_like)]
-    return _rebuild(like_tree, iter(leaves))
+        leaves = [_from_host(data[f"leaf_{i}"], dt).to(dev)
+                  for i, dt in zip(range(n_like), manifest["dtypes"])]
+    return unflatten(like_tree, leaves)

@@ -1,14 +1,18 @@
-"""Architecture registry of the port: ``get(arch_id)`` for the four recsys
-architectures and the paper's own ``rnnd-ann``; the reference's LM and GNN
-ids are not ported yet."""
-from repro_torch.configs import deepfm, fm, rnnd_ann, wide_deep, xdeepfm
+"""Architecture registry of the port: ``get(arch_id)`` for the five LM
+architectures, the four recsys ones and the paper's own ``rnnd-ann``, in
+the reference's order; ``dimenet`` (the GNN family) is the next slice of
+the port."""
+from repro_torch.configs import (
+    dbrx_132b, deepfm, deepseek_moe_16b, fm, granite_20b, minitron_4b, rnnd_ann, wide_deep,
+    xdeepfm, yi_34b,
+)
 from repro_torch.configs.base import Arch, ShapeSpec
 
-REGISTRY: dict[str, Arch] = {m.ARCH.arch_id: m.ARCH
-                             for m in (wide_deep, deepfm, fm, xdeepfm, rnnd_ann)}
-# ids of the reference's registry that later slices port
-NOT_PORTED = ("dbrx-132b", "deepseek-moe-16b", "yi-34b", "granite-20b", "minitron-4b",
-              "dimenet")
+REGISTRY: dict[str, Arch] = {m.ARCH.arch_id: m.ARCH for m in (
+    dbrx_132b, deepseek_moe_16b, yi_34b, granite_20b, minitron_4b,
+    wide_deep, deepfm, fm, xdeepfm, rnnd_ann)}
+# ids of the reference's registry that a later slice ports
+NOT_PORTED = ("dimenet",)
 
 # the assigned architectures the port has (rnnd-ann is the paper's own,
 # supplementary, as in the reference)
@@ -17,8 +21,9 @@ ASSIGNED = [a for a in REGISTRY if a != "rnnd-ann"]
 
 def get(arch_id: str) -> Arch:
     if arch_id in NOT_PORTED:
-        raise NotImplementedError(f"arch {arch_id!r} is not ported yet; the port has "
-                                  f"{sorted(REGISTRY)}")
+        raise NotImplementedError(
+            f"arch {arch_id!r} (the GNN family: DimeNet, its sampler and glue) is the next "
+            f"slice of the port; the port has {sorted(REGISTRY)}")
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(REGISTRY)}")
     return REGISTRY[arch_id]

@@ -1,13 +1,15 @@
-"""Recsys and ANN glue of ``repro.configs.base``: shapes, input specs, smoke
-batches and the Criteo-like vocabulary mix (the LM and GNN glue is not
-ported yet).
+"""LM, recsys and ANN glue of ``repro.configs.base``: shapes, input specs,
+smoke batches and the Criteo-like vocabulary mix (the GNN glue is the next
+slice of the port).
 
 Step kinds per cell:
+  train     -> gradients + AdamW update (``train.step``)
+  prefill   -> LM full-sequence prefill, fills the KV cache
+  decode    -> LM one new token against a seq-long KV cache
   serve     -> recsys forward (sigmoid scores)
   retrieval -> recsys candidate scoring (1 query x n_candidates)
   ann_build -> RNN-Descent index construction (the paper)
   ann_search-> beam search over a built graph
-  train     -> a later slice of the port
 """
 from __future__ import annotations
 
@@ -22,14 +24,14 @@ from repro_torch import resolve_device
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str                 # train | serve | retrieval | ann_build | ann_search
+    kind: str                 # train | prefill | decode | serve | retrieval | ann_build | ann_search
     dims: dict
 
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
     arch_id: str
-    family: str               # recsys | ann (the reference's lm and gnn: not ported)
+    family: str               # lm | recsys | ann (the reference's gnn: not ported)
     shapes: tuple[ShapeSpec, ...]
     make_config: Callable[[str | None, bool], Any]   # (shape_name, reduced) -> cfg
 
@@ -46,6 +48,73 @@ def pad_to(n: int, mult: int = 4096) -> int:
     return -(-n // mult) * mult
 
 
+# ------------------------------------------------------------------ LM glue
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", dict(seq=4096, batch=256)),
+    ShapeSpec("prefill_32k", "prefill", dict(seq=32768, batch=32)),
+    ShapeSpec("decode_32k", "decode", dict(seq=32768, batch=128)),
+    # decode against a 512k cache is O(seq), not O(seq^2)
+    ShapeSpec("long_500k", "decode", dict(seq=524288, batch=1)),
+)
+
+LM_SMOKE = dict(seq=32, batch=2, cache=48)
+
+
+def lm_input_specs(cfg, shape: ShapeSpec, reduced: bool = False) -> dict:
+    """``{name: (shape, dtype)}`` of every input of the cell's step (the
+    decode cache as a nested dict)."""
+    if reduced:
+        b, s, cache_len = LM_SMOKE["batch"], LM_SMOKE["seq"], LM_SMOKE["cache"]
+    else:
+        b, s = shape.dims["batch"], shape.dims["seq"]
+        cache_len = shape.dims["seq"]
+    tok = ((b, s), torch.int32)
+    if shape.kind == "train":
+        return {"tokens": tok, "labels": tok}
+    if shape.kind == "prefill":
+        return {"tokens": tok}
+    if shape.kind == "decode":
+        cache_shape = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.d_head)
+        return {"tokens": ((b,), torch.int32),
+                "cache": {"k": (cache_shape, cfg.compute_dtype),
+                          "v": (cache_shape, cfg.compute_dtype),
+                          "pos": ((b,), torch.int32)}}
+    raise ValueError(shape.kind)
+
+
+def lm_smoke_batch(generator: torch.Generator, cfg, shape: ShapeSpec,
+                   device: str | torch.device = "cuda") -> dict:
+    """A reduced batch of the cell's inputs from ``generator`` (on
+    ``device``): train tokens and next-token labels of one (B, S + 1) draw;
+    prefill tokens; decode a cache half full (``pos`` = cache / 2) of
+    N(0, 1) * 0.02 keys, then values, then the tokens."""
+    from repro_torch.models import transformer as tf
+    dev = resolve_device(device)
+    b, s = LM_SMOKE["batch"], LM_SMOKE["seq"]
+    if shape.kind == "train":
+        t = torch.randint(0, cfg.vocab, (b, s + 1), generator=generator, device=dev,
+                          dtype=torch.int32)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    if shape.kind == "prefill":
+        return {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=generator, device=dev,
+                                        dtype=torch.int32)}
+    cache = tf.init_cache(cfg, b, LM_SMOKE["cache"], device=dev)
+    cache["pos"] = torch.full((b,), LM_SMOKE["cache"] // 2, dtype=torch.int32, device=dev)
+    for name in ("k", "v"):
+        cache[name] = (torch.randn(cache[name].shape, generator=generator, device=dev)
+                       * 0.02).to(cfg.compute_dtype)
+    return {"tokens": torch.randint(0, cfg.vocab, (b,), generator=generator, device=dev,
+                                    dtype=torch.int32),
+            "cache": cache}
+
+
+def make_lm_arch(arch_id: str, full, smoke) -> Arch:
+    def make_config(shape_name, reduced):
+        return smoke if reduced else full
+    return Arch(arch_id, "lm", LM_SHAPES, make_config)
+
+
+# -------------------------------------------------------------- recsys glue
 RECSYS_SHAPES = (
     ShapeSpec("train_batch", "train", dict(batch=65536)),
     ShapeSpec("serve_p99", "serve", dict(batch=512)),

@@ -3,7 +3,11 @@
 The reference's arrays come across with ``np.asarray``; nothing here imports
 the reference. Distance keys: the port's int32 key ``k`` and the reference's
 uint32 ``dist_key`` ``u`` satisfy ``u == k ^ 0x80000000`` bit for bit.
-Recsys parameters cross as the reference's nested dicts of arrays.
+Recsys and transformer parameters and train states cross as the
+reference's nested dicts of arrays; a bfloat16 leaf crosses as its bits
+(the reference's ``ml_dtypes`` array, or a ``|V2`` payload, to a
+``torch.bfloat16`` tensor; back as a ``|V2`` array, which
+``a.view(jnp.bfloat16)`` reads).
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.graph import Graph
 from repro_torch.models import recsys as rs
+from repro_torch.models import transformer as tf
+from repro_torch.optim.adamw import OptState
 from repro_torch.quant import QuantizedCorpus
 
 
@@ -102,3 +108,89 @@ def recsys_params_to_numpy(params: dict) -> dict:
     return {k: recsys_params_to_numpy(v) if isinstance(v, dict) else v.float().cpu().numpy()
             for k, v in params.items()}
 
+
+
+def _leaf_from_numpy(a, dev: torch.device) -> torch.Tensor:
+    """An array as a tensor of its own dtype on ``dev``; a 2-byte bfloat16
+    (``ml_dtypes``' or a ``|V2`` payload) as ``torch.bfloat16`` bits."""
+    a = np.asarray(a)
+    if a.dtype.itemsize == 2 and (a.dtype.name == "bfloat16" or a.dtype.kind == "V"):
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(dev)
+    return torch.tensor(a, device=dev)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def _tree_from_numpy(tree, want: dict, dev: torch.device, path: str = ""):
+    """A nested dict of arrays -> tensors, every leaf of the shape ``want``
+    (a tree of meta tensors) gives it, no key missing or extra."""
+    if isinstance(want, dict):
+        if not isinstance(tree, dict) or set(tree) != set(want):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{path or 'params'}: keys {got}, expected {sorted(want)}")
+        return {k: _tree_from_numpy(tree[k], want[k], dev, f"{path}.{k}".lstrip("."))
+                for k in want}
+    t = _leaf_from_numpy(tree, dev)
+    if tuple(t.shape) != tuple(want.shape):
+        raise ValueError(f"{path}: shape {tuple(t.shape)}, expected {tuple(want.shape)}")
+    return t
+
+
+def _tree_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    return _leaf_to_numpy(tree)
+
+
+def transformer_params_from_numpy(params, cfg: tf.TransformerConfig,
+                                  device: str | torch.device = "cuda") -> dict:
+    """The reference's transformer ``init`` tree (``embed.table``,
+    ``head.w``, ``layers.*`` stacked (L, ...), ``ln_f``) -> the port's
+    parameters on ``device``, each leaf in its own dtype (f32, or bfloat16
+    bits), every shape checked against ``param_table(cfg)``."""
+    return _tree_from_numpy(params, tf.init(None, cfg, device="meta"), resolve_device(device))
+
+
+def transformer_params_to_numpy(params: dict) -> dict:
+    """The port's transformer parameters -> the same tree of numpy arrays
+    (bfloat16 leaves as ``|V2`` bits)."""
+    return _tree_to_numpy(params)
+
+
+def _model_shapes(cfg) -> dict:
+    if isinstance(cfg, tf.TransformerConfig):
+        return tf.init(None, cfg, device="meta")
+    return rs.init(None, cfg, device="meta")
+
+
+def train_state_from_numpy(state, cfg, device: str | torch.device = "cuda"):
+    """The reference's ``TrainState(params, OptState(step, m, v, master),
+    residual)`` of a transformer or recsys model (``cfg`` says which) -> the
+    port's ``train.step.TrainState`` on ``device``; ``None`` subtrees stay
+    ``None``, bfloat16 leaves cross as their bits."""
+    from repro_torch.train.step import TrainState
+    dev = resolve_device(device)
+    want = _model_shapes(cfg)
+    conv = lambda t: None if t is None else _tree_from_numpy(t, want, dev)
+    opt = state.opt
+    return TrainState(conv(state.params),
+                      OptState(_leaf_from_numpy(opt.step, dev), conv(opt.m), conv(opt.v),
+                               conv(opt.master)),
+                      conv(state.residual))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` -> the same NamedTuples of numpy trees."""
+    from repro_torch.train.step import TrainState
+    conv = lambda t: None if t is None else _tree_to_numpy(t)
+    opt = state.opt
+    return TrainState(conv(state.params),
+                      OptState(_leaf_to_numpy(opt.step), conv(opt.m), conv(opt.v),
+                               conv(opt.master)),
+                      conv(state.residual))

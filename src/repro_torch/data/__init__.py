@@ -1,1 +1,2 @@
-"""Synthetic datasets of the port."""
+"""Synthetic datasets of the port and the training data pipeline (batches as a
+function of (seed, step), device prefetch)."""

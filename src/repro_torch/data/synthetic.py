@@ -1,4 +1,5 @@
-"""Synthetic data (port of ``repro.data.synthetic``'s ANN and recsys parts).
+"""Synthetic data (port of ``repro.data.synthetic``'s ANN, LM and recsys
+parts).
 
 SIFT/GIST/Deep are not in the repository; these Gaussian mixtures match
 their dimensionalities and clustered structure. Same mixture as the
@@ -67,6 +68,18 @@ def clustered_vectors(spec: VectorDatasetSpec, generator: torch.Generator | None
     centers = mixture_centers(spec, gen, dev)
     return (mixture_rows(centers, spec.n, gen, spec.cluster_std),
             mixture_rows(centers, spec.n_queries, gen, spec.cluster_std))
+
+
+def token_batch(generator: torch.Generator, batch: int, seq: int, vocab: int,
+                device: str | torch.device = "cuda") -> dict:
+    """Synthetic LM batch made on ``device`` from ``generator``: a Zipf-like
+    token stream ``clip(int(vocab * u^3), 0, vocab - 1)``, u uniform in
+    [1e-6, 1), and next-token labels (the stream shifted by one); both
+    (batch, seq) int32."""
+    dev = resolve_device(device)
+    u = 1e-6 + (1.0 - 1e-6) * torch.rand(batch, seq + 1, generator=generator, device=dev)
+    toks = torch.clamp((vocab * u ** 3.0).to(torch.int32), 0, vocab - 1)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 def recsys_batch(generator: torch.Generator, batch: int, n_fields: int,

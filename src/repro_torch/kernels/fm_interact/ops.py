@@ -1,5 +1,11 @@
 """FM second-order interaction: wrapper of ``csrc/fm_interact.cu``; its
-plain version is :func:`fm_interact_ref`."""
+plain version is :func:`fm_interact_ref`.
+
+The gradient is the closed form ``dL/de[b, f, d] = g[b] * (sum_f' e[b, f', d]
+- e[b, f, d])`` in plain tensor ops, computed in f32 and cast to the
+embeddings' dtype (what ``jax.grad`` of the reference's ``fm_interact_ref``
+gives): the reference has no backward kernel (its Pallas kernel does not
+differentiate), so neither does the port."""
 from __future__ import annotations
 
 import torch
@@ -18,9 +24,41 @@ def fm_interact(emb: torch.Tensor) -> torch.Tensor:
                          f"{tuple(emb.shape)} {emb.dtype}")
     if emb.shape[1] == 0 or emb.shape[2] == 0:
         raise ValueError(f"emb needs F >= 1 and D >= 1, got {tuple(emb.shape)}")
+    if emb.requires_grad and torch.is_grad_enabled():
+        return _FMInteract.apply(emb)
+    return _forward(emb)
+
+
+def _forward(emb):
+    """The forward route: the plain version for a CPU tensor, the kernel for
+    a CUDA tensor."""
     if emb.device.type == "cpu":
         return fm_interact_ref(emb)
     return _launch(emb)
+
+
+def fm_backward(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The FM term's gradient: ``g[:, None, None] * (sum_f e - e)`` in f32,
+    cast to ``emb.dtype``."""
+    e = emb.float()
+    return (g[:, None, None] * (e.sum(dim=1, keepdim=True) - e)).to(emb.dtype)
+
+
+class _FMInteract(torch.autograd.Function):
+    """:func:`fm_interact` with a gradient: the forward is the route of
+    :func:`_forward` (one kernel launch on the card), the backward
+    :func:`fm_backward` (a module global, looked up at call time, so a
+    profiler range can wrap it)."""
+
+    @staticmethod
+    def forward(ctx, emb):
+        ctx.save_for_backward(emb)
+        return _forward(emb)
+
+    @staticmethod
+    def backward(ctx, g):
+        (emb,) = ctx.saved_tensors
+        return fm_backward(emb, g)
 
 
 def _launch(emb):

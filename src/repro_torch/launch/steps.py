@@ -1,10 +1,13 @@
-"""Bind (arch, shape) -> the step the cell runs (recsys and ann branches of
-``repro.launch.steps``).
+"""Bind (arch, shape) -> the step the cell runs (the lm, recsys and ann
+branches of ``repro.launch.steps``; the gnn family is the next slice).
 
-``bind`` returns, for a recsys cell of kind ``serve`` or ``retrieval`` and
-for the paper's ``ann_build`` and ``ann_search`` cells, the config, an init
-function, the input shapes and the step function, all on one device.
-Training cells belong to a later slice of the port.
+``bind`` returns, for every cell of those families, the config, an init
+function, the input shapes and the step function, all on one device:
+``train`` cells (LM and recsys) a ``train.step`` train step over
+``OPT_CFG`` whose init gives a ``TrainState`` (LM: layers in the compute
+dtype with an f32 master), LM ``prefill`` and ``decode`` cells the
+serving steps, recsys ``serve`` and ``retrieval`` and the paper's
+``ann_build`` and ``ann_search``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ from repro_torch import configs, resolve_device
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.models import recsys as rs
+from repro_torch.models import transformer as tf
+from repro_torch.optim import adamw
+from repro_torch.train import step as tstep
 
 
 @dataclasses.dataclass
@@ -24,21 +30,36 @@ class BoundStep:
     arch_id: str
     shape: ShapeSpec
     cfg: Any
-    step_fn: Callable            # (params, batch) -> scores | (top, idx) | graph | (ids, dists)
-    init_fn: Callable            # (torch.Generator) -> params on the step's device
+    step_fn: Callable            # (state | params, batch) -> (state, metrics) | logits and
+                                 # cache | scores | (top, idx) | graph | (ids, dists)
+    init_fn: Callable            # (torch.Generator) -> state or params on the step's device
     input_specs: dict            # {name: (shape, dtype)}
     device: torch.device
     kind: str
 
 
+OPT_CFG = adamw.AdamWConfig(lr=3e-4, warmup_steps=100, total_steps=10_000)
+
+
+def bind_with_cfg(arch_id: str, shape_name: str, cfg,
+                  device: str | torch.device = "cuda") -> BoundStep:
+    """``bind`` with an explicit (overridden) model config, e.g. a depth
+    cut to fit one card."""
+    return bind(arch_id, shape_name, reduced=False, device=device, _cfg=cfg)
+
+
 def bind(arch_id: str, shape_name: str, reduced: bool = False,
-         device: str | torch.device = "cuda") -> BoundStep:
+         device: str | torch.device = "cuda", _cfg=None) -> BoundStep:
     arch = configs.get(arch_id)
     shape = arch.shape(shape_name)
-    cfg = arch.make_config(shape_name, reduced)
+    cfg = _cfg if _cfg is not None else arch.make_config(shape_name, reduced)
     dev = resolve_device(device)
     if arch.family == "ann":
         return _bind_ann(arch, shape, cfg, reduced, dev)
+    if arch.family == "lm":
+        return _bind_lm(arch_id, shape, cfg, reduced, dev)
+    if arch.family != "recsys":
+        raise NotImplementedError(f"{arch_id}: the {arch.family} family is the next slice")
     specs = cb.recsys_input_specs(cfg, shape, reduced)
 
     if shape.kind == "retrieval":
@@ -48,15 +69,46 @@ def bind(arch_id: str, shape_name: str, reduced: bool = False,
         return BoundStep(arch_id, shape, cfg, retrieve_fn, lambda gen: {}, specs, dev,
                          "retrieval")
     if shape.kind == "train":
-        raise NotImplementedError(
-            f"{arch_id}/{shape_name}: recsys training (loss, optimizer, the fm_interact "
-            "backward) is a later slice of the port")
+        train = tstep.make_train_step(lambda p, b: rs.loss_fn(p, b, cfg), OPT_CFG)
+        return BoundStep(arch_id, shape, cfg, train,
+                         lambda gen: tstep.init_state(rs.init(gen, cfg, dev)), specs, dev,
+                         "train")
 
     def serve_fn(params, batch):
         return rs.serve(params, batch, cfg)
 
     return BoundStep(arch_id, shape, cfg, serve_fn, lambda gen: rs.init(gen, cfg, dev),
                      specs, dev, "serve")
+
+
+def _bind_lm(arch_id: str, shape: ShapeSpec, cfg, reduced: bool,
+             dev: torch.device) -> BoundStep:
+    """The LM cells: ``train`` (chunked CE + aux, ``OPT_CFG``, the train
+    state's layers in ``cfg.compute_dtype`` with an f32 master),
+    ``prefill`` (a fresh cache of the batch's length a call) and
+    ``decode`` (one token against ``batch["cache"]``, written in place)."""
+    specs = cb.lm_input_specs(cfg, shape, reduced)
+    if shape.kind == "train":
+        train = tstep.make_train_step(lambda p, b: tf.loss_fn(p, b, cfg), OPT_CFG)
+
+        def init_fn(gen):
+            return tstep.init_state(tf.init(gen, cfg, dev), compute_dtype=cfg.compute_dtype)
+
+        return BoundStep(arch_id, shape, cfg, train, init_fn, specs, dev, "train")
+    if shape.kind == "prefill":
+        def prefill_fn(params, batch):
+            b, s = batch["tokens"].shape
+            cache = tf.init_cache(cfg, b, s, device=batch["tokens"].device)
+            return tf.prefill(params, batch["tokens"], cache, cfg)
+
+        return BoundStep(arch_id, shape, cfg, prefill_fn, lambda gen: tf.init(gen, cfg, dev),
+                         specs, dev, "prefill")
+
+    def decode_fn(params, batch):
+        return tf.decode_step(params, batch["tokens"], batch["cache"], cfg)
+
+    return BoundStep(arch_id, shape, cfg, decode_fn, lambda gen: tf.init(gen, cfg, dev),
+                     specs, dev, "decode")
 
 
 def _bind_ann(arch, shape: ShapeSpec, cfg, reduced: bool, dev: torch.device) -> BoundStep:

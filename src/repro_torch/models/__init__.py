@@ -1,2 +1,3 @@
 """Models of the port: the recsys family (FM, DeepFM, Wide&Deep, xDeepFM)
-over the embedding-bag substrate, and the NN pieces they use."""
+over the embedding-bag substrate, the decoder-only transformer family
+(dense GQA and MoE), and the NN pieces they use."""

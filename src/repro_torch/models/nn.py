@@ -1,6 +1,6 @@
-"""NN pieces the recsys models use (port of ``repro.models.nn``'s dense and
-MLP parts): parameters are plain dicts of tensors, the apply functions are
-plain functions. No sharding axes: the port runs on one card.
+"""NN pieces of the recsys and LM models (port of ``repro.models.nn``):
+parameters are plain dicts of tensors, the apply functions are plain
+functions. No sharding axes: the port runs on one card.
 """
 from __future__ import annotations
 
@@ -48,3 +48,37 @@ def mlp(params: dict, x: torch.Tensor, n_layers: int,
         if i < n_layers - 1:
             x = torch.relu(x)
     return x
+
+
+def rmsnorm_init(d: int, device: str | torch.device = "cuda") -> dict:
+    return {"scale": torch.ones(d, device=resolve_device(device))}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale`` computed in f32, cast back to
+    ``x.dtype``."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * params["scale"]).to(x.dtype)
+
+
+def embedding_init(generator: torch.Generator | None, vocab: int, d: int,
+                   device: str | torch.device = "cuda") -> dict:
+    """``{"table": (vocab, d)}`` f32, N(0, 1) * 0.02."""
+    dev = resolve_device(device)
+    return {"table": torch.randn(vocab, d, generator=generator, device=dev) * 0.02}
+
+
+def embed(params: dict, ids: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16):
+    """Rows ``ids`` of the table in ``compute_dtype``: gathered first, then
+    cast (the bits of the reference's cast-then-gather, at the rows' cost;
+    the gradient accumulates duplicate ids in the table's f32)."""
+    return params["table"][ids.long()].to(compute_dtype)
+
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(params.numel())

@@ -181,6 +181,14 @@ def forward(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     return logit
 
 
+def loss_fn(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+    """Mean binary cross-entropy of the f32 logits against ``labels``, in
+    the stable form ``max(l, 0) - l y + log1p(exp(-|l|))``."""
+    logit = forward(params, batch, cfg)
+    y = batch["labels"].float()
+    return torch.mean(torch.clamp(logit, min=0) - logit * y + torch.log1p(torch.exp(-logit.abs())))
+
+
 def serve(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     return torch.sigmoid(forward(params, batch, cfg))
 

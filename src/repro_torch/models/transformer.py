@@ -1,0 +1,503 @@
+"""Decoder-only transformer family (port of ``repro.models.transformer``):
+dense GQA (yi, granite, minitron) and MoE (dbrx, deepseek-moe), on one
+device (no ``mesh`` argument: the reference's sharding constraints and its
+shard-mapped MoE have nothing to do on one card).
+
+Parameters are the reference's tree: ``embed.table`` (V, d), ``head.w``
+(d, V), ``ln_f`` (d,) and ``layers``, whose weights are stacked (L, ...).
+A forward splits the stack once with ``torch.unbind`` (indexing ``w[l]``
+inside the layer loop would make every select's backward allocate a whole
+(L, ...) zero tensor).
+
+What stays as the reference computes it: the attention is a blocked online
+softmax over KV blocks of ``q_chunk`` with f32 accumulators and -inf
+masking (not ``scaled_dot_product_attention``), scores are f32 products of
+the compute-dtype operands; the MoE is the sort-based capacity dispatch of
+one group with the Switch-style aux loss; the cross-entropy is chunked over
+``ce_chunk``. Ties in the router take the lower expert index (a stable
+descending sort, as ``lax.top_k``), and the dispatch order is a stable
+argsort.
+
+Remat: ``jax.checkpoint(nothing_saveable)`` becomes
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, only while
+grad is on: each layer (or each of ``scan_groups`` groups), each KV block
+of the attention and each cross-entropy chunk. None of it changes a value.
+
+Deliberate differences: ``decode_step`` and ``prefill`` write the new K/V
+into the cache tensors in place and return them (the reference returns a
+new cache: 34 GB a step at decode_32k batch 8); embeddings are gathered
+then cast, so the table's gradient accumulates duplicate ids in f32 (the
+reference casts the table first and accumulates in the compute dtype).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import resolve_device
+from repro_torch.models import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0          # deepseek-style always-on shared experts
+    d_ff: int = 0              # per-expert hidden dim
+    capacity_factor: float = 1.25
+    impl: str = "dropping"     # "dropping" (sort+capacity) | "dense" (debug)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int                  # dense-FFN hidden (MoE archs: shared/dense path)
+    vocab: int
+    d_head: int = 128
+    moe: MoEConfig | None = None
+    ffn_type: str = "swiglu"   # "swiglu" (3 mats) | "gelu" (2 mats, gpt-bigcode)
+    rope_theta: float = 10_000.0
+    q_chunk: int = 1024        # attention KV-block size
+    ce_chunk: int = 512        # cross-entropy seq-block size
+    remat: bool = True
+    scan_groups: int = 1       # checkpoint groups of L / G layers instead of each layer
+    cast_params_once: bool = True   # cast the stacked mats to compute_dtype once a forward
+    compute_dtype: Any = torch.bfloat16
+
+    @property
+    def n_params(self) -> int:
+        """Analytic parameter count (embed + layers + head)."""
+        d, dh = self.d_model, self.d_head
+        attn = d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh + self.n_heads * dh * d
+        dense_ffn = (3 if self.ffn_type == "swiglu" else 2) * d * self.d_ff
+        per_layer = attn + 2 * d  # + norms
+        if self.moe is not None:
+            per_layer += self.moe.n_experts * 3 * d * self.moe.d_ff
+            per_layer += self.moe.n_shared * 3 * d * self.moe.d_ff
+            per_layer += d * self.moe.n_experts
+        else:
+            per_layer += dense_ffn
+        return self.n_layers * per_layer + 2 * self.vocab * d + d
+
+    @property
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: top-k + shared experts only)."""
+        if self.moe is None:
+            return self.n_params
+        d = self.d_model
+        inactive = self.n_layers * (self.moe.n_experts - self.moe.top_k) * 3 * d * self.moe.d_ff
+        return self.n_params - inactive
+
+
+# --------------------------------------------------------------------- init
+def param_table(cfg: TransformerConfig) -> dict:
+    """Static parameter spec: the params tree with ``(shape, init scale)``
+    leaves (scale ``"ones"`` for the norms); building it allocates nothing."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    L = cfg.n_layers
+    s_attn = 1.0 / (d ** 0.5)
+    s_ffn = 1.0 / (d ** 0.5)
+
+    def lyr(shape, scale):
+        return ((L, *shape), scale)
+
+    layers = {
+        "wq": lyr((d, h * dh), s_attn),
+        "wk": lyr((d, kv * dh), s_attn),
+        "wv": lyr((d, kv * dh), s_attn),
+        "wo": lyr((h * dh, d), 1.0 / (h * dh) ** 0.5),
+        "ln1": ((L, d), "ones"),
+        "ln2": ((L, d), "ones"),
+    }
+    if cfg.moe is None:
+        if cfg.ffn_type == "swiglu":
+            layers["w_gate"] = lyr((d, cfg.d_ff), s_ffn)
+        layers["w_up"] = lyr((d, cfg.d_ff), s_ffn)
+        layers["w_down"] = lyr((cfg.d_ff, d), 1.0 / cfg.d_ff ** 0.5)
+    else:
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff
+        layers["router"] = lyr((d, e), s_ffn)
+        layers["we_gate"] = lyr((e, d, f), s_ffn)
+        layers["we_up"] = lyr((e, d, f), s_ffn)
+        layers["we_down"] = lyr((e, f, d), 1.0 / f ** 0.5)
+        if cfg.moe.n_shared:
+            sf = cfg.moe.n_shared * cfg.moe.d_ff
+            layers["ws_gate"] = lyr((d, sf), s_ffn)
+            layers["ws_up"] = lyr((d, sf), s_ffn)
+            layers["ws_down"] = lyr((sf, d), 1.0 / sf ** 0.5)
+    return {
+        "embed": {"table": ((cfg.vocab, d), 0.02)},
+        "head": {"w": ((d, cfg.vocab), s_attn)},
+        "layers": layers,
+        "ln_f": ((d,), "ones"),
+    }
+
+
+def _spec_items(table: dict, path: str = ""):
+    """(path, (shape, scale)) in the reference's flatten order (sorted keys)."""
+    for k in sorted(table):
+        v = table[k]
+        if isinstance(v, dict):
+            yield from _spec_items(v, f"{path}.{k}".lstrip("."))
+        else:
+            yield f"{path}.{k}".lstrip("."), v
+
+
+def init(generator: torch.Generator | None, cfg: TransformerConfig,
+         device: str | torch.device = "cuda") -> dict:
+    """Random f32 parameters with the reference's shapes and scales, drawn
+    from ``generator`` (on ``device``) leaf by leaf in flatten order: N(0, 1)
+    times the scale, ones for the norms. ``device="meta"`` with no generator
+    gives the shapes and allocates nothing."""
+    dev = resolve_device(device)
+    out: dict = {}
+    for path, (shape, scale) in _spec_items(param_table(cfg)):
+        if scale == "ones":
+            leaf = torch.ones(shape, device=dev)
+        else:
+            leaf = torch.randn(shape, generator=generator, device=dev).mul_(scale)
+        node = out
+        *parents, name = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return out
+
+
+# ---------------------------------------------------------------- attention
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, dh); positions: (..., S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs          # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A 0-dim constant in ``dtype``: a Python scalar times a bf16 tensor
+    rounds the scalar to bf16 first in JAX, and this keeps that rounding."""
+    return torch.tensor(value, dtype=dtype)
+
+
+def _attend(q, k, v, q_pos, kv_pos, cfg: TransformerConfig, causal: bool = True):
+    """q: (B, Sq, H, dh); k/v: (B, Skv, KV, dh) -> (B, Sq, H, dh) in the
+    compute dtype. Online softmax over KV blocks of ``q_chunk`` (one block
+    when ``q_chunk`` does not divide Skv), f32 accumulators; with remat and
+    grad on, each block is checkpointed."""
+    b, sq, h, dh = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    qg = (q * _scalar(dh ** -0.5, q.dtype)).reshape(b, sq, kv, group, dh).float()
+
+    c = min(cfg.q_chunk, skv)
+    n_blk = skv // c if skv % c == 0 else 1
+    c = skv // n_blk
+    kv_pos = kv_pos if kv_pos.dim() == 2 else kv_pos.expand(b, skv)
+    m = torch.full((b, kv, group, sq), -math.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kv, group, sq), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, kv, group, sq, dh), dtype=torch.float32, device=q.device)
+    ck = cfg.remat and torch.is_grad_enabled()
+    for i in range(n_blk):
+        blk = slice(i * c, (i + 1) * c)
+        args = (qg, k[:, blk], v[:, blk], q_pos, kv_pos[:, blk], m, l, o, causal,
+                cfg.compute_dtype)
+        m, l, o = checkpoint(_attend_block, *args, use_reentrant=False) if ck else \
+            _attend_block(*args)
+    o = o / torch.clamp(l[..., None], min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).to(cfg.compute_dtype)
+
+
+def _attend_block(qg, kb, vb, q_pos, pb, m_prev, l_prev, o_prev, causal, dt):
+    """One KV block of the online softmax: the reference's scan body."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kb.float())        # (B, KV, G, Sq, c)
+    if causal:
+        mask = q_pos[:, None, None, :, None] >= pb[:, None, None, None, :]
+        s = s.masked_fill(~mask, -math.inf)
+    m_new = torch.maximum(m_prev, s.amax(dim=-1))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(torch.isfinite(s), p, 0.0)
+    corr = torch.where(torch.isfinite(m_prev), torch.exp(m_prev - m_safe), 0.0)
+    l_new = l_prev * corr + p.sum(dim=-1)
+    o_blk = torch.einsum("bkgqs,bskd->bkgqd", p.to(dt), vb)
+    return m_new, l_new, o_prev * corr[..., None] + o_blk.float()
+
+
+# ---------------------------------------------------------------------- MoE
+def _top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest, ties to the lower index."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """f32 router softmax and its top-k: (probs (t, E), top_p (t, k) f32
+    renormalised, top_e (t, k))."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    top_p, top_e = _top_k(probs, k)
+    return probs, top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9), top_e
+
+
+def _moe_dispatch(x, router, wg, wu, wd, cfg: TransformerConfig, cap: int):
+    """The mesh-free dropping MoE over one dispatch group: route, sort the
+    (token, choice) slots by expert (stable), give each expert its first
+    ``cap`` slots, run the expert GEMMs on (E, cap, d), and give each kept
+    slot its expert's output row at its rank; a slot past its expert's
+    capacity contributes zero (the reference's ascending masked
+    dynamic_update_slice combine). x: (t, d). Returns (y, probs, top_e)."""
+    m = cfg.moe
+    dt = cfg.compute_dtype
+    t, d = x.shape
+    e, k = wg.shape[0], m.top_k
+    mg = t * k
+    probs, top_p, top_e = _route(x, router, k)
+    ge = top_e.reshape(mg)
+    gw = top_p.to(dt).reshape(mg)
+    gtok = torch.arange(t, device=x.device).repeat_interleave(k)
+    order = torch.argsort(ge, stable=True)
+    se, stok, sw = ge[order], gtok[order], gw[order]
+    seg_start = torch.searchsorted(se, torch.arange(e + 1, device=x.device))
+    rank = torch.arange(mg, device=x.device) - seg_start[se]
+    keep = rank < cap
+    slot = torch.where(keep, se * cap + rank, 0)
+    buf = x.new_zeros((e * cap, d)).index_put((slot[keep],), x[stok[keep]])
+    buf = buf.view(e, cap, d)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg.to(dt))) * \
+        torch.einsum("ecd,edf->ecf", buf, wu.to(dt))
+    y_e = torch.einsum("ecf,efd->ecd", h, wd.to(dt)).reshape(e * cap, d)
+    contrib = torch.where(keep[:, None], y_e[slot], 0.0) * sw[:, None]
+    inv = torch.argsort(order)
+    y = contrib[inv].reshape(t, k, d).sum(dim=1)
+    return y, probs, top_e
+
+
+def _moe_ffn(p, y3, cfg: TransformerConfig):
+    """Capacity-dispatch MoE. y3: (B, S, d) -> ((B, S, d), aux loss)."""
+    m = cfg.moe
+    b, s, d = y3.shape
+    t = b * s
+    dt = cfg.compute_dtype
+    e, k = m.n_experts, m.top_k
+    x_flat = y3.reshape(t, d)
+    if m.impl == "dense":
+        probs, top_p, top_e = _route(x_flat, p["router"], k)
+        h_g = torch.einsum("td,edf->tef", x_flat, p["we_gate"].to(dt))
+        h_u = torch.einsum("td,edf->tef", x_flat, p["we_up"].to(dt))
+        y_e = torch.einsum("tef,efd->ted", F.silu(h_g) * h_u, p["we_down"].to(dt))
+        w = torch.zeros((t, e), dtype=dt, device=y3.device).scatter(1, top_e, top_p.to(dt))
+        y = torch.einsum("ted,te->td", y_e, w)
+    elif m.impl == "dropping":
+        cap = max(int(-(-t * k // e) * m.capacity_factor), k)
+        cap = -(-cap // 8) * 8
+        y, probs, top_e = _moe_dispatch(x_flat, p["router"], p["we_gate"], p["we_up"],
+                                        p["we_down"], cfg, cap)
+    else:
+        raise ValueError(f"moe impl {m.impl!r}")
+    if m.n_shared:
+        hs = F.silu(x_flat @ p["ws_gate"].to(dt)) * (x_flat @ p["ws_up"].to(dt))
+        y = y + hs @ p["ws_down"].to(dt)
+    # load-balance aux loss (Switch-style)
+    me = torch.mean(probs.float(), dim=0)
+    ce_frac = torch.zeros(e, device=y3.device).index_add_(
+        0, top_e.reshape(-1), torch.ones(t * k, device=y3.device)) / (t * k)
+    aux = e * torch.sum(me * ce_frac)
+    return y.reshape(b, s, d), aux
+
+
+def _dense_ffn(p, y, cfg: TransformerConfig):
+    dt = cfg.compute_dtype
+    if cfg.ffn_type == "swiglu":
+        h = F.silu(y @ p["w_gate"].to(dt)) * (y @ p["w_up"].to(dt))
+    else:
+        h = F.gelu(y @ p["w_up"].to(dt), approximate="tanh")   # jax.nn.gelu's default
+    return h @ p["w_down"].to(dt)
+
+
+# ------------------------------------------------------------------- blocks
+def _qkv(p, y, positions, cfg: TransformerConfig):
+    b, s, _ = y.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = cfg.compute_dtype
+    q = (y @ p["wq"].to(dt)).reshape(b, s, h, dh)
+    k = (y @ p["wk"].to(dt)).reshape(b, s, kv, dh)
+    v = (y @ p["wv"].to(dt)).reshape(b, s, kv, dh)
+    return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
+
+
+def _ffn(p, x, cfg: TransformerConfig):
+    """The block's second half: x + FFN(rmsnorm(x)) and the aux loss."""
+    y = nn.rmsnorm({"scale": p["ln2"]}, x)
+    if cfg.moe is None:
+        return x + _dense_ffn(p, y, cfg), torch.zeros((), device=x.device)
+    y_moe, aux = _moe_ffn(p, y, cfg)
+    return x + y_moe, aux
+
+
+def _layer(p, x, positions, cfg: TransformerConfig):
+    """One pre-norm block. x: (B, S, d)."""
+    b, s, _ = x.shape
+    y = nn.rmsnorm({"scale": p["ln1"]}, x)
+    q, k, v = _qkv(p, y, positions, cfg)
+    o = _attend(q, k, v, positions, positions, cfg)
+    x = x + (o.reshape(b, s, -1) @ p["wo"].to(cfg.compute_dtype))
+    return _ffn(p, x, cfg)
+
+
+def _cast_layer_params(layers: dict, cfg: TransformerConfig) -> dict:
+    """One cast of the big stacked mats (ndim >= 3) to the compute dtype;
+    norm scales (ndim 2) stay f32."""
+    if not cfg.cast_params_once:
+        return layers
+    return {k: w.to(cfg.compute_dtype) if w.dim() >= 3 else w for k, w in layers.items()}
+
+
+def _unstack(layers: dict) -> list[dict]:
+    """The stacked (L, ...) weights as L per-layer dicts of views (one
+    ``unbind`` a leaf)."""
+    split = {k: w.unbind(0) for k, w in layers.items()}
+    n = len(next(iter(split.values())))
+    return [{k: split[k][i] for k in split} for i in range(n)]
+
+
+def _scan_layers(body, x, layer_params: list[dict], cfg: TransformerConfig):
+    """The layer loop. With remat and grad on, each layer is checkpointed,
+    or (``scan_groups`` G dividing L) each group of L / G layers. Returns
+    (x, [aux per layer])."""
+    L, G = len(layer_params), cfg.scan_groups
+    ck = cfg.remat and torch.is_grad_enabled()
+    groups = [layer_params] if G <= 1 or L % G else \
+        [layer_params[i:i + L // G] for i in range(0, L, L // G)]
+    if len(groups) == 1 and ck:
+        groups = [[lp] for lp in layer_params]
+
+    def run(xc, group):
+        auxes = []
+        for lp in group:
+            xc, a = body(xc, lp)
+            auxes.append(a)
+        return xc, torch.stack(auxes)
+
+    aux = []
+    for group in groups:
+        x, a = checkpoint(run, x, group, use_reentrant=False) if ck else run(x, group)
+        aux.append(a)
+    return x, torch.cat(aux)
+
+
+def forward(params, tokens, cfg: TransformerConfig):
+    """tokens (B, S) -> final hidden states (B, S, d) + aux loss."""
+    b, s = tokens.shape
+    x = nn.embed(params["embed"], tokens, cfg.compute_dtype)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    layers = _unstack(_cast_layer_params(params["layers"], cfg))
+    x, aux = _scan_layers(lambda xc, lp: _layer(lp, xc, positions, cfg), x, layers, cfg)
+    x = nn.rmsnorm({"scale": params["ln_f"]}, x)
+    return x, torch.sum(aux)
+
+
+def _ce_block(xb, lb, head):
+    logits = (xb @ head).float()                                  # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def loss_fn(params, batch, cfg: TransformerConfig, aux_weight: float = 0.01):
+    """Chunked cross-entropy (``ce_chunk`` positions a chunk, one chunk when
+    it does not divide S; each chunk checkpointed while grad is on, so no
+    chunk's f32 logits outlive it) + ``aux_weight`` x the MoE aux loss."""
+    x, aux = forward(params, batch["tokens"], cfg)
+    b, s, d = x.shape
+    head = params["head"]["w"].to(cfg.compute_dtype)
+    c = min(cfg.ce_chunk, s)
+    n_chunk = s // c if s % c == 0 else 1
+    c = s // n_chunk
+    ck = torch.is_grad_enabled()
+    labels = batch["labels"]
+    parts = []
+    for i in range(n_chunk):
+        blk = slice(i * c, (i + 1) * c)
+        args = (x[:, blk], labels[:, blk], head)
+        parts.append(checkpoint(_ce_block, *args, use_reentrant=False) if ck else
+                     _ce_block(*args))
+    return torch.sum(torch.stack(parts)) / (b * s) + aux_weight * aux
+
+
+# ------------------------------------------------------------------ serving
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=None,
+               device: str | torch.device = "cuda") -> dict:
+    dev = resolve_device(device)
+    dtype = dtype or cfg.compute_dtype
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def prefill(params, tokens, cache, cfg: TransformerConfig):
+    """Full-sequence prefill: writes each layer's K/V into
+    ``cache["k"/"v"][:, :, :S]`` in place and returns (last-position logits
+    (B, 1, V) f32, the cache with ``pos`` = S)."""
+    b, s = tokens.shape
+    dt = cfg.compute_dtype
+    x = nn.embed(params["embed"], tokens, dt)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    layers = _unstack(_cast_layer_params(params["layers"], cfg))
+    for li, lp in enumerate(layers):
+        y = nn.rmsnorm({"scale": lp["ln1"]}, x)
+        q, k, v = _qkv(lp, y, positions, cfg)
+        o = _attend(q, k, v, positions, positions, cfg)
+        x = x + (o.reshape(b, s, -1) @ lp["wo"].to(dt))
+        x, _ = _ffn(lp, x, cfg)
+        cache["k"][li, :, :s] = k
+        cache["v"][li, :, :s] = v
+    cache = dict(cache, pos=torch.full((b,), s, dtype=torch.int32, device=tokens.device))
+    x = nn.rmsnorm({"scale": params["ln_f"]}, x[:, -1:])
+    return (x @ params["head"]["w"].to(dt)).float(), cache
+
+
+def decode_step(params, tokens, cache, cfg: TransformerConfig):
+    """One-token decode against the KV cache: tokens (B,) -> (logits (B, 1,
+    V) f32, the cache with the new K/V written in place at ``pos`` (clamped
+    to the cache's end, as ``dynamic_update_slice`` clamps) and ``pos`` + 1).
+    Scores are f32 products scaled by dh^-0.5, positions past ``pos``
+    masked to -1e30, as in the reference."""
+    b = tokens.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = cfg.compute_dtype
+    group = h // kv
+    x = nn.embed(params["embed"], tokens[:, None], dt)           # (B, 1, d)
+    pos = cache["pos"]
+    s_max = cache["k"].shape[2]
+    at = pos.long().clamp(max=s_max - 1)
+    rows = torch.arange(b, device=tokens.device)
+    mask = (torch.arange(s_max, device=tokens.device)[None, :] <= pos[:, None])[:, None, None, :]
+    layers = _unstack(params["layers"])
+    for li, lp in enumerate(layers):
+        ck, cv = cache["k"][li], cache["v"][li]                   # (B, S, KV, dh) views
+        y = nn.rmsnorm({"scale": lp["ln1"]}, x)
+        q, knew, vnew = _qkv(lp, y, pos[:, None], cfg)
+        ck[rows, at] = knew[:, 0].to(ck.dtype)
+        cv[rows, at] = vnew[:, 0].to(cv.dtype)
+        qg = q.reshape(b, kv, group, dh)
+        s = torch.einsum("bkgd,bskd->bkgs", qg.float(), ck.float()) * dh ** -0.5
+        s = torch.where(mask, s, -1e30)
+        p_att = torch.softmax(s, dim=-1).to(dt)
+        o = torch.einsum("bkgs,bskd->bkgd", p_att, cv).reshape(b, 1, h * dh)
+        x = x + o @ lp["wo"].to(dt)
+        x, _ = _ffn(lp, x, cfg)
+    cache = dict(cache, pos=pos + 1)
+    x = nn.rmsnorm({"scale": params["ln_f"]}, x)
+    return (x @ params["head"]["w"].to(dt)).float(), cache

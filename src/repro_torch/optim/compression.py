@@ -1,0 +1,44 @@
+"""Gradient compression for the data-parallel all-reduce (port of
+``repro.optim.compression``): int8 with one scale per leaf and error
+feedback (the quantization error carried to the next step), applied before
+the reduction. ``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+Used by ``train.step.make_train_step(grad_compression="int8_ef")``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.checkpoint.checkpoint import flatten, unflatten
+
+
+def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x -> (int8 codes, f32 scale): scale = max(max|x|, 1e-12) / 127,
+    codes = clip(round(x / scale), -127, 127)."""
+    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def compress_tree(grads, residual):
+    """Quantize grads + error feedback. Returns (q_tree, scales,
+    new_residual). ``residual`` holds the previous step's quantization
+    error (``None``: zeros); adding it back before quantizing makes the
+    compression unbiased over time. The new residual is f32."""
+    g_leaves = [g for _, g in flatten(grads)]
+    r_leaves = [torch.zeros_like(g) for g in g_leaves] if residual is None else \
+        [r for _, r in flatten(residual)]
+    fed = [g.to(torch.float32) + r for g, r in zip(g_leaves, r_leaves)]
+    qs = [quantize_int8(f) for f in fed]
+    new_res = [f - dequantize_int8(q, s) for f, (q, s) in zip(fed, qs)]
+    return (unflatten(grads, (q for q, _ in qs)), unflatten(grads, (s for _, s in qs)),
+            unflatten(grads, iter(new_res)))
+
+
+def decompress_tree(q, s):
+    return unflatten(q, (dequantize_int8(a, b)
+                         for (_, a), (_, b) in zip(flatten(q), flatten(s))))

@@ -100,8 +100,9 @@ def test_generic_tree_names_match_keystr(tmp_path):
     _same_leaves(back, tree)
     with pytest.raises(ValueError, match="leaves"):
         C.restore(str(tmp_path / "r"), 0, {"only": 0}, device="cpu")
-    with pytest.raises(TypeError, match="bfloat16"):
-        C.save(str(tmp_path / "p"), 1, {"w": torch.zeros(2, dtype=torch.bfloat16)})
+    # a bfloat16 leaf saves in the reference's layout (it raised before)
+    C.save(str(tmp_path / "p"), 1, {"w": torch.zeros(2, dtype=torch.bfloat16)})
+    assert _manifest(tmp_path / "p", 1)["dtypes"] == ["bfloat16"]
 
 
 def test_keep_k_gc_and_uncommitted_tmp(tmp_path):
@@ -127,3 +128,65 @@ def test_async_flush_writes_the_values_at_save(tmp_path):
     back = C.restore(d, 3, {"t": 0}, device="cpu")["t"]
     assert torch.equal(back, torch.arange(1000, dtype=torch.int32))
     assert C.save(d, 4, {"t": t}) is None
+
+
+# ------------------------------------------------------------ bfloat16 leaves
+def test_bf16_leaf_round_trip(tmp_path):
+    """A bfloat16 leaf is saved as the reference saves one (its 2-byte
+    payload as ``|V2``, manifest dtype ``"bfloat16"``) and restored as
+    bfloat16, bit for bit."""
+    t = {"w": torch.randn(5, 7).bfloat16(), "f": torch.arange(3.0), "i": torch.arange(4)}
+    C.save(str(tmp_path), 2, t)
+    with open(tmp_path / "step_000000002" / "manifest.json") as f:
+        man = json.load(f)
+    assert man["dtypes"] == ["float32", "int64", "bfloat16"]
+    back = C.restore(str(tmp_path), 2, {"w": 0, "f": 0, "i": 0}, device="cpu")
+    assert back["w"].dtype == torch.bfloat16
+    for k in t:
+        assert torch.equal(back[k], t[k])
+
+
+def _lm_state():
+    from repro.configs import minitron_4b as j_min
+    from repro.launch import steps as rsteps
+    from repro import configs as rconfigs
+    rb = rsteps.bind(rconfigs.get("minitron-4b"), "train_4k", reduced=True)
+    return j_min.SMOKE, rb.init_fn(jax.random.PRNGKey(0))
+
+
+def test_port_restores_a_reference_lm_train_state(tmp_path):
+    """The reference's LM TrainState (bf16 layers, f32 master) saved by the
+    reference restores in the port to the same bits."""
+    from repro_torch.configs import minitron_4b
+    from repro_torch.launch import steps
+    _, rstate = _lm_state()
+    RC.save(str(tmp_path), 0, rstate)
+    like = steps.bind("minitron-4b", "train_4k", reduced=True, device="cpu").init_fn(
+        torch.Generator().manual_seed(0))
+    got = C.restore(str(tmp_path), 0, like, device="cpu")
+    want = convert.train_state_from_numpy(jax.tree.map(np.asarray, rstate),
+                                          minitron_4b.SMOKE, "cpu")
+    assert got.params["layers"]["wq"].dtype == torch.bfloat16
+    pairs_g, pairs_w = C.checkpoint.flatten(got), C.checkpoint.flatten(want)
+    names = [jax.tree_util.keystr(kp) for kp, _ in jax.tree_util.tree_flatten_with_path(rstate)[0]]
+    assert [n for n, _ in pairs_g] == [n for n, _ in pairs_w] == names
+    for (_, a), (_, b) in zip(pairs_g, pairs_w):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_reference_reads_a_port_lm_train_state_as_its_own(tmp_path):
+    """The reference's ``np.load`` of a port-written file gives the bytes it
+    gives for its own file of the same state (bf16 leaves as ``|V2``)."""
+    from repro_torch.configs import minitron_4b
+    _, rstate = _lm_state()
+    state = convert.train_state_from_numpy(jax.tree.map(np.asarray, rstate),
+                                           minitron_4b.SMOKE, "cpu")
+    RC.save(str(tmp_path / "ref"), 0, rstate)
+    C.save(str(tmp_path / "port"), 0, state)
+    mans = [json.load(open(tmp_path / d / "step_000000000" / "manifest.json"))
+            for d in ("ref", "port")]
+    assert mans[0] == mans[1]
+    for i in range(len(mans[0]["names"])):
+        a, b = (np.load(tmp_path / d / "step_000000000" / "shard_00000.npz")[f"leaf_{i}"]
+                for d in ("ref", "port"))
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card (f32,
-bf16, int8 and PQ variants; the FM interaction and the recsys serve path).
+bf16, int8 and PQ variants; the FM interaction, its gradient, the recsys
+serve path and SMOKE train steps).
 
 Marked ``cuda``: on a machine without a card every test skips. On the card
 (no JAX there, so without the JAX conftest):
@@ -653,6 +654,71 @@ def test_recsys_serve_on_the_card(dev, arch_id):
 
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+
+# ------------------------------------------------------------------ training
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fm_gradient_through_the_kernel_matches_the_plain_route(dev, dtype):
+    """The fm_interact Function on the card: one kernel launch forward, the
+    closed-form backward; its gradient against autograd through the plain
+    version on the same embeddings, within one rounding to the dtype (f32:
+    1e-6 of the row scale |g| sum_f |e|)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.fm_interact import ops as FM
+    gen = torch.Generator(device=dev).manual_seed(11)
+    e = torch.randn(4096, 39, 10, generator=gen, device=dev).to(dtype).requires_grad_(True)
+    g = torch.randn(4096, generator=gen, device=dev)
+    before = LAUNCHES["fm_interact"]
+    (ker,) = torch.autograd.grad(FM.fm_interact(e), e, g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fm_interact"] == before + 1 and ker.dtype == dtype
+    (plain,) = torch.autograd.grad(FM.fm_interact_ref(e), e, g)
+    err = (ker.float() - plain.float()).abs()
+    if dtype == torch.float32:
+        scale = g.abs()[:, None, None] * e.detach().abs().sum(1, keepdim=True) + 1e-30
+        assert float((err / scale).max()) <= 1e-6
+    else:
+        assert bool((err <= 2**-7 * plain.float().abs() + 1e-30).all())
+
+
+def _state_to(state, dev):
+    from repro_torch.checkpoint.checkpoint import flatten, unflatten
+    return unflatten(state, (x.to(dev, copy=True) for _, x in flatten(state)))
+
+
+@pytest.mark.parametrize("arch_id", ["deepfm", "minitron-4b", "deepseek-moe-16b"])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch_id):
+    """One bound SMOKE train step on the card against the same step on the
+    CPU from the same state and batch. DeepFM launches fm_interact once.
+    The loss within 1e-2 relative and the grad norm within 5e-2 (bf16
+    products accumulate in another order on the card); each weight within
+    2.05 lr (Adam's first step can flip the sign of a rounding-noise
+    gradient) plus a bf16 ulp of it (2^-7 |w|) for the bf16 leaves."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.configs import base as cb
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    cpu = torch.device("cpu")
+    bc = steps.bind(arch_id, "train_batch" if arch_id == "deepfm" else "train_4k",
+                    reduced=True, device=cpu)
+    bg = steps.bind(arch_id, bc.shape.name, reduced=True, device=dev)
+    state_c = bc.init_fn(torch.Generator().manual_seed(5))
+    state_g = _state_to(state_c, dev)
+    smoke = cb.recsys_smoke_batch if arch_id == "deepfm" else cb.lm_smoke_batch
+    batch_c = smoke(torch.Generator().manual_seed(6), bc.cfg, bc.shape, cpu)
+    batch_g = {k: v.to(dev) for k, v in batch_c.items()}
+    reset_launches()
+    state_g, mg = bg.step_fn(state_g, batch_g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fm_interact"] == int(arch_id == "deepfm")
+    state_c, mc = bc.step_fn(state_c, batch_c)
+    assert float(mg["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-2)
+    assert float(mg["grad_norm"]) == pytest.approx(float(mc["grad_norm"]), rel=5e-2)
+    lr = float(mc["lr"])
+    for (name, a), (_, b) in zip(flatten(state_g.params), flatten(state_c.params)):
+        a, b = a.cpu().float(), b.float()
+        lim = 2.05 * lr + 2**-22 * b.abs() + (2**-7 * b.abs() if "layers" in name else 0)
+        assert bool(((a - b).abs() <= lim + 1e-12).all()), name
 
 
 def test_score_candidates_ties_on_the_card(dev):

@@ -77,7 +77,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.analysis.repo_lint', 'repro_torch.analysis.kernel_check',\n"
         "        'repro_torch.analysis.registry', 'repro_torch.analysis.dispatch_audit',\n"
         "        'repro_torch.analysis.recompile_guard', 'repro_torch.analysis.collectives',\n"
-        "        'repro_torch.analysis.__main__'}\n"
+        "        'repro_torch.analysis.__main__', 'repro_torch.optim.adamw',\n"
+        "        'repro_torch.optim.compression', 'repro_torch.train.step',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.launch.train',\n"
+        "        'repro_torch.models.transformer', 'repro_torch.configs.minitron_4b',\n"
+        "        'repro_torch.configs.granite_20b', 'repro_torch.configs.yi_34b',\n"
+        "        'repro_torch.configs.dbrx_132b', 'repro_torch.configs.deepseek_moe_16b'}\n"
         "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )

@@ -76,12 +76,11 @@ def test_configs_and_shapes_match_reference(arch_id):
 
 
 def test_registry_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        configs.get("yi-34b")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        configs.get("dimenet")
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
-    with pytest.raises(NotImplementedError):
-        steps.bind("deepfm", "train_batch", reduced=True, device="cpu")
+    assert steps.bind("deepfm", "train_batch", reduced=True, device="cpu").kind == "train"
 
 
 def _table(seed, v, d):
