@@ -192,6 +192,23 @@ Phases (any failure raises and exits non-zero):
      config on the card against the CPU; launch.train's main (minitron-4b
      SMOKE, 60 steps) and the same run with a failure injected at step 45,
      which must end at the uninterrupted run's loss and state.
+  9d. the GNN family (after 9c): DimeNet FULL (6 blocks, 128 hidden,
+     bilinear 8, spherical 7, radial 6, bf16 as bound) through
+     bind("dimenet", shape) at every GNN_SHAPES cell, 2 warm-up and 5 timed
+     AdamW steps on one fixed batch each: full_graph_sm at Planetoid Cora's
+     counts (gather), molecule (128 graphs of 30 atoms, gather, graph_reg),
+     minibatch_lg (factorized; 1,024 seeds at fanout (15, 10) drawn by the
+     port's sampler from a 232,965-node graph at degree 50, the subgraph's
+     invariants checked) and ogb_products at its 2,449,029 nodes and the
+     largest edge cut of OGB_CUTS that fits (1 warm-up and 2 timed steps:
+     14.4 s a step at 8.1M edges); step ms, edges/s (graphs/s),
+     peak memory beside the dry run's predicted bytes at the same shapes;
+     every loss and norm finite, the fixed batch's loss falling; gather
+     against factorized at FULL width in f32 (rtol 5e-4, atol 5e-5);
+     the SMOKE config at each shape on the card against the CPU;
+     launch.train --arch dimenet --shape molecule --reduced (20 steps); no
+     hand kernel launched; then the four examples/torch_*.py, each once as
+     a subprocess at its default size (exit 0, seconds).
 Cut to fit the script's time (about 900 s): the sort-oracle witness and the
 PQ path run over the first 500k rows of the 1M corpus (CUT_N), the sharded
 phase's ShardedANN build over the first 125k (SHARD_BUILD_N; 250k before
@@ -3290,17 +3307,17 @@ def _hold_smoke_step(bound_c, bound_g, batch_c, label: str, f32: bool) -> dict:
 
 
 def smoke_card_vs_cpu() -> list:
-    """Every SMOKE config on the card against the port on the CPU from the
-    same weights and batch: the five LM configs (a train step as bound and
-    at compute_dtype=float32; prefill and decode logits and caches at f32,
-    within 1e-4 of the largest magnitude) and the four recsys ones (a train
-    step as bound)."""
+    """Every LM and recsys SMOKE config on the card against the port on the
+    CPU from the same weights and batch: the five LM configs (a train step
+    as bound and at compute_dtype=float32; prefill and decode logits and
+    caches at f32, within 1e-4 of the largest magnitude) and the four recsys
+    ones (a train step as bound). DimeNet's are in the GNN phase."""
     from repro_torch import configs
     from repro_torch.configs import base as cb
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tf
     out = []
-    for arch_id in [a for a in configs.ASSIGNED]:
+    for arch_id in [a for a in configs.ASSIGNED if configs.get(a).family in ("lm", "recsys")]:
         arch = configs.get(arch_id)
         lm = arch.family == "lm"
         shape = "train_4k" if lm else "train_batch"
@@ -3415,6 +3432,411 @@ def train_phase() -> dict:
     emit({"phase": "train_smoke_card_vs_cpu", "configs": smoke_card_vs_cpu()})
     emit({"phase": "train_entry_point", **entry_point_phase()})
     return fm_keys
+
+
+# ------------------------------------------------------------ the GNN phase
+GNN_SEED = SEED + 60
+GNN_WARM, GNN_STEPS = 2, 5                  # warm-up steps (not timed), timed steps
+REDDIT_NODES, REDDIT_DEGREE = 232_965, 50   # GraphSAGE's Reddit graph (about 11.6M edges)
+# ogb_products at its full 2,449,029 nodes: (edges, edge_chunks) tried largest first;
+# the first whose steps fit the card is run (61.9M edges do not: PERF.md section 4;
+# 10,092,544 fit a fresh process, not this one after the earlier phases)
+OGB_CUTS = ((8_126_464, 64), (6_029_312, 32))
+OGB_WARM, OGB_STEPS = 1, 2                  # ogb_products' steps (14.4 s each at 8.1M edges)
+EXAMPLES = ("torch_quickstart", "torch_build_and_search", "torch_recsys_retrieval",
+            "torch_train_lm")
+
+
+def _incoming_triplets(src, dst, n_nodes: int, per_edge: int, t_pad: int, gen) -> dict:
+    """``per_edge`` triplets (kj, ji) for every edge ji, kj drawn uniformly
+    from the edges into src[ji] (triplet_mask 0 where there is none), padded
+    with mask 0 to ``t_pad``."""
+    e = src.shape[0]
+    order = torch.argsort(dst, stable=True)
+    cnt = torch.bincount(dst, minlength=n_nodes)
+    start = torch.cumsum(cnt, 0) - cnt
+    ji = torch.arange(e, device=src.device).repeat_interleave(per_edge)
+    j = src[ji]
+    u = torch.rand(ji.shape[0], generator=gen, device=src.device)
+    r = torch.minimum((u * cnt[j].clamp(min=1)).long(), (cnt[j] - 1).clamp(min=0))
+    kj = order[(start[j] + r).clamp(max=e - 1)]
+    mask = (cnt[j] > 0).float()
+    pad = t_pad - ji.shape[0]
+    z = torch.zeros(pad, dtype=torch.long, device=src.device)
+    return {"triplet_kj": torch.cat([kj, z]).int(), "triplet_ji": torch.cat([ji, z]).int(),
+            "triplet_mask": torch.cat([mask, z.float()])}
+
+
+def _pad_edges(src, dst, e_pad: int) -> dict:
+    """Edge arrays padded to ``e_pad`` slots with mask 0 (node 0 to node 0)."""
+    pad = e_pad - src.shape[0]
+    z = torch.zeros(pad, dtype=torch.int32, device=src.device)
+    return {"edge_src": torch.cat([src.int(), z]), "edge_dst": torch.cat([dst.int(), z]),
+            "edge_mask": torch.cat([torch.ones(src.shape[0], device=src.device), z.float()])}
+
+
+def _distinct_pairs(n: int, m: int, gen, device) -> tuple:
+    """``m`` distinct unordered pairs of distinct nodes below ``n``, as
+    (a, b) with a < b, in random order."""
+    a = torch.randint(0, n, (4 * m,), generator=gen, device=device)
+    b = (a + torch.randint(1, n, (4 * m,), generator=gen, device=device)) % n
+    key = torch.unique(torch.minimum(a, b) * n + torch.maximum(a, b))
+    check(key.shape[0] >= m, f"{key.shape[0]} distinct pairs of {n} nodes, {m} wanted")
+    key = key[torch.randperm(key.shape[0], generator=gen, device=device)[:m]]
+    return key // n, key % n
+
+
+def cora_batch(gen) -> dict:
+    """full_graph_sm at Planetoid Cora's counts: 2,708 nodes, 5,278
+    undirected pairs as 10,556 directed edges padded to 12,288, 1,433 N(0, 1)
+    features, 7 uniform classes, 8 triplets an edge (84,448) padded to
+    86,016; positions N(0, 4) (Cora has none: DimeNet needs them)."""
+    from repro_torch.configs import base as cb
+    dims = cb.GNN_SHAPES[0].dims
+    n = dims["n_nodes"]
+    a, b = _distinct_pairs(n, 10_556 // 2, gen, "cuda")
+    src, dst = torch.cat([a, b]), torch.cat([b, a])
+    batch = {"node_feat": torch.randn(n, dims["d_feat"], generator=gen, device="cuda"),
+             "pos": torch.randn(n, 3, generator=gen, device="cuda") * 2.0,
+             "labels": torch.randint(0, dims["n_out"], (n,), generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             "label_mask": torch.ones(n, device="cuda"),
+             **_pad_edges(src, dst, dims["n_edges"]),
+             **_incoming_triplets(src, dst, n, 8, dims["triplets"], gen)}
+    return batch
+
+
+def molecule_batch(gen) -> dict:
+    """molecule: 128 graphs of 30 atoms, 32 undirected bonds each as 64
+    directed edges (8,192), 8 triplets an edge (65,536), positions
+    N(0, 1.5^2) (inside the 5 Angstrom cutoff), 16 N(0, 1) features, one
+    N(0, 1) label a graph."""
+    from repro_torch.configs import base as cb
+    dims = cb.GNN_SHAPES[3].dims
+    g, atoms = dims["n_graphs"], dims["n_nodes"] // dims["n_graphs"]
+    src, dst = [], []
+    for i in range(g):
+        a, b = _distinct_pairs(atoms, dims["n_edges"] // g // 2, gen, "cuda")
+        src += [a + i * atoms, b + i * atoms]
+        dst += [b + i * atoms, a + i * atoms]
+    src, dst = torch.cat(src), torch.cat(dst)
+    n = g * atoms
+    return {"node_feat": torch.randn(n, dims["d_feat"], generator=gen, device="cuda"),
+            "pos": torch.randn(n, 3, generator=gen, device="cuda") * 1.5,
+            "graph_ids": (torch.arange(n, device="cuda") // atoms).int(),
+            "labels": torch.randn(g, generator=gen, device="cuda"),
+            "node_mask": torch.ones(n, device="cuda"),
+            **_pad_edges(src, dst, dims["n_edges"]),
+            **_incoming_triplets(src, dst, n, 8, dims["triplets"], gen)}
+
+
+def reddit_batch(gen) -> tuple:
+    """minibatch_lg: a random_csr graph of 232,965 nodes at degree 50 (GraphSAGE's
+    Reddit: about 11.6M edges), 602 N(0, 1) features and N(0, 4) positions
+    a node; 1,024 seeds drawn without replacement, sample_two_hop at fanout
+    (15, 10): 1,024 x 166 node slots, 1,024 x 165 edge slots padded to
+    172,032 with mask 0, features and positions gathered by the sampled ids
+    (zero for empty slots), 41 classes, the loss over the seeds. Returns
+    (batch, the sampler's ms, the subgraph, the graph)."""
+    from repro_torch.configs import base as cb
+    from repro_torch.data import sampler as SM
+    dims = cb.GNN_SHAPES[1].dims
+    f1, f2 = dims["fanout"]
+    g = SM.random_csr(gen, REDDIT_NODES, REDDIT_DEGREE, device="cuda")
+    feat = torch.randn(REDDIT_NODES, dims["d_feat"], generator=gen, device="cuda")
+    pos = torch.randn(REDDIT_NODES, 3, generator=gen, device="cuda") * 2.0
+    seeds = torch.randperm(REDDIT_NODES, generator=gen, device="cuda")[:dims["seeds"]].int()
+    ms = []
+    for _ in range(3):                                   # the first warms the allocator
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = SM.two_hop_uniforms(gen, dims["seeds"], f1, f2, device="cuda")
+        sub = SM.sample_two_hop(u, g, seeds, f1, f2)
+        ok = (sub.nodes >= 0)[:, None]
+        nf = torch.where(ok, feat[sub.nodes.clamp(min=0).long()], 0.0)
+        npos = torch.where(ok, pos[sub.nodes.clamp(min=0).long()], 0.0)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    n = sub.nodes.shape[0]
+    check(n == dims["n_nodes"] and sub.edge_src.shape[0] == dims["seeds"] * f1 * (1 + f2),
+          f"minibatch_lg: {n} node and {sub.edge_src.shape[0]} edge slots")
+    pad = dims["n_edges"] - sub.edge_src.shape[0]
+    z = torch.zeros(pad, dtype=torch.int32, device="cuda")
+    batch = {"node_feat": nf, "pos": npos,
+             "edge_src": torch.cat([sub.edge_src, z])[None],
+             "edge_dst": torch.cat([sub.edge_dst, z])[None],
+             "edge_mask": torch.cat([sub.edge_mask, z.float()])[None],
+             "labels": torch.randint(0, dims["n_out"], (n,), generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             "label_mask": (torch.arange(n, device="cuda") < dims["seeds"]).float()}
+    return batch, ms, sub, g, seeds
+
+
+def subgraph_invariants(sub, g, seeds) -> dict:
+    """The seeds come first; every masked-in edge points at a valid slot;
+    every sampled neighbour lies in its parent's CSR row."""
+    live = sub.edge_mask > 0
+    child = sub.nodes[sub.edge_src.long()]
+    parent = sub.nodes[sub.edge_dst.long()]
+    check(torch.equal(sub.nodes[:seeds.shape[0]], seeds), "minibatch_lg: seeds not first")
+    check(bool((child[live] >= 0).all() & (parent[live] >= 0).all()),
+          "minibatch_lg: a masked-in edge points at an empty slot")
+    c, p = child[live].long(), parent[live].long()
+    row = g.row_ptr[p].long()
+    deg = (g.row_ptr[p + 1].long() - row)
+    span = torch.arange(int(deg.max()), device="cuda")
+    idx = (row[:, None] + span).clamp(max=g.col_idx.shape[0] - 1)
+    hit = ((g.col_idx[idx] == c[:, None]) & (span < deg[:, None])).any(dim=1)
+    check(bool(hit.all()), f"minibatch_lg: {int((~hit).sum())} neighbours not in their rows")
+    return {"edges_live": int(live.sum()), "slots_empty": int((sub.nodes < 0).sum()),
+            "neighbours_in_parent_row": True}
+
+
+def ogb_batch(gen, n_edges: int, chunks: int) -> dict:
+    """ogb_products at its 2,449,029 nodes with ``n_edges`` uniform random
+    edges (no self loop) in ``chunks`` chunks, 100 N(0, 1) features,
+    N(0, 4) positions, 47 uniform classes."""
+    from repro_torch.configs import base as cb
+    dims = cb.GNN_SHAPES[2].dims
+    n = dims["n_nodes"]
+    src = torch.randint(0, n, (n_edges,), generator=gen, device="cuda", dtype=torch.int32)
+    dst = torch.randint(0, n, (n_edges,), generator=gen, device="cuda", dtype=torch.int32)
+    dst = torch.where(dst == src, (dst + 1) % n, dst)
+    return {"node_feat": torch.randn(n, dims["d_feat"], generator=gen, device="cuda"),
+            "pos": torch.randn(n, 3, generator=gen, device="cuda") * 2.0,
+            "edge_src": src.view(chunks, -1), "edge_dst": dst.view(chunks, -1),
+            "edge_mask": torch.ones(chunks, n_edges // chunks, device="cuda"),
+            "labels": torch.randint(0, dims["n_out"], (n,), generator=gen, device="cuda",
+                                    dtype=torch.int32),
+            "label_mask": torch.ones(n, device="cuda")}
+
+
+def dry_run_bytes(cfg, shape: str, batch: dict) -> dict:
+    """The dry run's prediction at this run's shapes: the cell bound on the
+    meta device, a meta batch of the same shapes, one meta step."""
+    from repro_torch.launch import dryrun, steps
+    b = steps.bind_with_cfg("dimenet", shape, cfg, device="meta")
+    state = b.init_fn(None)
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+    m = dryrun.measure_step(b, state, meta)
+    state_b, batch_b = dryrun._nbytes(state), dryrun._nbytes(meta)
+    return {"state_bytes": state_b, "batch_bytes": batch_b, "saved_bytes": m["saved_bytes"],
+            "predicted_bytes": state_b + batch_b + m["saved_bytes"], "flops": m["flops"]}
+
+
+def gnn_train_cell(shape: str, batch: dict, cfg=None, unit: str = "edges",
+                   warm: int = GNN_WARM, timed: int = GNN_STEPS) -> dict:
+    """``warm`` + ``timed`` bound train steps (FULL, bf16, steps.OPT_CFG)
+    on one fixed batch: every loss and grad norm finite, the loss falls;
+    step ms (the timed steps), edges/s (or graphs/s), peak memory beside the
+    dry run's predicted bytes."""
+    from repro_torch.launch import steps
+    bound = steps.bind("dimenet", shape, device="cuda") if cfg is None else \
+        steps.bind_with_cfg("dimenet", shape, cfg, device="cuda")
+    state = bound.init_fn(torch.Generator(device="cuda").manual_seed(GNN_SEED + 1))
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()    # the batch, the state, earlier phases' leftovers
+    ms, losses, norms = [], [], []
+    for _ in range(warm + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = bound.step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + norms), f"{shape}: loss or norm {losses} {norms}")
+    check(losses[-1] < losses[0], f"{shape}: the fixed batch's loss {losses}")
+    t = _ms_summary(ms[warm:])
+    n_edges = int(batch["edge_mask"].sum())
+    per_s = (batch["labels"].shape[0] if unit == "graphs" else n_edges) / (t["ms"] / 1e3)
+    pred = dry_run_bytes(bound.cfg, shape, batch)
+    del state
+    return {"cell": shape, "config": f"dimenet FULL ({bound.cfg.triplet_impl}, "
+            f"edge_chunks {bound.cfg.edge_chunks}, {str(bound.cfg.compute_dtype)})",
+            "nodes": batch["node_feat"].shape[0], "edges": n_edges,
+            "edge_slots": batch["edge_mask"].numel(), "step_ms": t["ms"],
+            "step_ms_spread": [t["ms_min"], t["ms_max"], t["n"]], "warm_ms": ms[:warm],
+            f"{unit}_per_s": per_s, "peak_memory_gib": peak / 2**30,
+            "allocated_at_start_gib": at_start / 2**30,
+            "dry_run_predicted_gib": pred["predicted_bytes"] / 2**30,
+            "dry_run": pred, "tflop_per_s": pred["flops"] / (t["ms"] / 1e3) / 1e12,
+            "losses": losses, "grad_norms": norms}
+
+
+def ogb_cell(gen) -> dict:
+    """ogb_products at the largest (edges, edge_chunks) of OGB_CUTS whose
+    steps fit the card."""
+    from repro_torch import configs
+    full = configs.get("dimenet").make_config("ogb_products", False)
+    tried = []
+    for n_edges, chunks in OGB_CUTS:
+        tried.append([n_edges, chunks])
+        res = None
+        try:
+            batch = ogb_batch(gen, n_edges, chunks)
+            res = gnn_train_cell("ogb_products", batch,
+                                 dataclasses.replace(full, edge_chunks=chunks),
+                                 warm=OGB_WARM, timed=OGB_STEPS)
+        except torch.cuda.OutOfMemoryError:
+            pass
+        batch = None
+        _free()                    # outside the handler: its traceback holds the tensors
+        if res is not None:
+            return {**res, "cuts_tried": tried,
+                    "reduced": f"{n_edges:,} of 61,859,140 edges (pad_to 61,861,888) at the "
+                               f"full 2,449,029 nodes, edge_chunks {chunks} (8 at full size): "
+                               "the full edge set needs 14c's sharded edges; "
+                               f"{OGB_WARM} warm-up and {OGB_STEPS} timed steps (the "
+                               "script's time)"}
+    raise RuntimeError(f"ogb_products: no cut of {OGB_CUTS} fits")
+
+
+def gather_vs_factorized() -> dict:
+    """DimeNet FULL width (6 blocks, 128 hidden, n_spherical 7, n_radial 6) in
+    f32 on the card: the gather path against the factorized path on a graph
+    of 2,000 nodes with distinct edges dst = src + U[1, n) mod n (3 an node)
+    and every triplet enumerated, k == i included (the reference's
+    test_dimenet_factorized_equals_gather), rtol 5e-4, atol 5e-5."""
+    from repro_torch.configs import dimenet as D
+    from repro_torch.models import dimenet as dm
+    gen = torch.Generator(device="cuda").manual_seed(GNN_SEED + 2)
+    n, e0 = 2000, 6000
+    src = torch.randint(0, n, (e0,), generator=gen, device="cuda")
+    dst = (src + torch.randint(1, n, (e0,), generator=gen, device="cuda")) % n
+    key = torch.unique(src * n + dst)
+    src, dst = key // n, key % n
+    order = torch.argsort(dst, stable=True)
+    cnt = torch.bincount(dst, minlength=n)
+    start = torch.cumsum(cnt, 0) - cnt
+    reps = cnt[src]
+    ji = torch.arange(src.shape[0], device="cuda").repeat_interleave(reps)
+    off = torch.arange(ji.shape[0], device="cuda") - \
+        (torch.cumsum(reps, 0) - reps).repeat_interleave(reps)
+    kj = order[start[src[ji]] + off]
+    check(bool((dst[kj] == src[ji]).all()), "gather_vs_factorized: triplet enumeration")
+    batch = {"node_feat": torch.randn(n, 16, generator=gen, device="cuda"),
+             "pos": torch.randn(n, 3, generator=gen, device="cuda") * 2.0,
+             "edge_src": src.int(), "edge_dst": dst.int(),
+             "edge_mask": torch.ones(src.shape[0], device="cuda"),
+             "triplet_kj": kj.int(), "triplet_ji": ji.int(),
+             "triplet_mask": torch.ones(kj.shape[0], device="cuda")}
+    cfg = dataclasses.replace(D.FULL, d_feat=16, n_out=7, task="node_class",
+                              compute_dtype=torch.float32)
+    params = dm.init(torch.Generator(device="cuda").manual_seed(GNN_SEED + 3), cfg, "cuda")
+    with torch.no_grad():
+        g = dm.forward(params, batch, cfg)
+        f = dm.forward(params, batch, dataclasses.replace(cfg, triplet_impl="factorized"))
+    worst = float(((g - f).abs() / (5e-5 + 5e-4 * f.abs())).max())
+    out = {"nodes": n, "edges": src.shape[0], "triplets": kj.shape[0],
+           "max_abs_diff": float((g - f).abs().max()), "max_abs_out": float(g.abs().max()),
+           "worst_of_tolerance": worst, "tolerance": "rtol 5e-4, atol 5e-5"}
+    check(worst <= 1.0, f"gather vs factorized at FULL width: {out}")
+    return out
+
+
+def gnn_smoke_card_vs_cpu() -> list:
+    """DimeNet SMOKE at each of the four shapes, on the card against the CPU
+    from the same state and its smoke batch: a bound train step (f32: loss
+    1e-5, grad norm 1e-4; bf16: loss 1e-2, grad norm 5e-2; every weight
+    within 2.05 lr) and, in f32, the forward outputs within 1e-4 of their
+    largest magnitude."""
+    from repro_torch import configs
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import steps
+    from repro_torch.models import dimenet as dm
+    arch = configs.get("dimenet")
+    out = []
+    for shape in [s.name for s in arch.shapes]:
+        res = {"shape": shape}
+        for f32 in (False, True):
+            cfg = arch.make_config(shape, True)
+            if f32:
+                cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+            bc = steps.bind_with_cfg("dimenet", shape, cfg, device="cpu")
+            bg = steps.bind_with_cfg("dimenet", shape, cfg, device="cuda")
+            batch_c = cb.gnn_smoke_batch(torch.Generator().manual_seed(GNN_SEED + 4), cfg,
+                                         bc.shape, "cpu")
+            res["train_f32" if f32 else "train_bf16"] = _hold_smoke_step(
+                bc, bg, batch_c, f"dimenet {shape} SMOKE train", f32)
+            if f32:
+                p_c = dm.init(torch.Generator().manual_seed(GNN_SEED + 5), cfg, "cpu")
+                with torch.no_grad():
+                    want = dm.forward(p_c, batch_c, cfg)
+                    got = dm.forward(_tree_map(lambda x: x.to("cuda"), p_c),
+                                     _tree_map(lambda x: x.to("cuda"), batch_c), cfg).cpu()
+                worst = float((got - want).abs().max()) / (float(want.abs().max()) + 1e-30)
+                check(worst <= 1e-4, f"dimenet {shape} SMOKE forward card vs CPU: {worst}")
+                res["forward_f32_worst"] = worst
+        out.append(res)
+    return out
+
+
+def gnn_entry_point() -> dict:
+    """``python -m repro_torch.launch.train --arch dimenet --shape molecule
+    --reduced`` on the card for 20 steps: every loss finite; its exit code
+    (0 when the last loss is below the first) is recorded."""
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", "dimenet", "--shape", "molecule", "--steps", "20", "--reduced",
+            "--log-every", "1000"]
+    out = launch_train.run(argv)
+    losses = out["losses"]
+    check(len(losses) == 20 and all(math.isfinite(x) for x in losses),
+          f"launch.train dimenet: losses {losses}")
+    rc = launch_train.main(argv)
+    return {"steps": len(losses), "loss_first_last": [losses[0], losses[-1]],
+            "seconds": out["seconds"], "main_rc": rc}
+
+
+def examples_on_the_card() -> list:
+    """Each examples/torch_*.py once on the card as a subprocess at its
+    default size: exit code 0, seconds."""
+    out = []
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", f"{name}.py")],
+                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        sec = time.perf_counter() - t0
+        tail = proc.stdout.strip().splitlines()[-3:]
+        out.append({"example": name, "rc": proc.returncode, "seconds": sec, "tail": tail})
+        check(proc.returncode == 0, f"{name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return out
+
+
+def gnn_phase() -> dict:
+    """Phase 9d: DimeNet FULL at every GNN_SHAPES cell through
+    bind("dimenet", shape), gather against factorized at FULL width, SMOKE
+    card against CPU, the minibatch_lg subgraph's invariants, launch.train,
+    the four examples; no hand kernel launched (the examples run in their
+    own processes)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(GNN_SEED)
+    cells = [gnn_train_cell("full_graph_sm", cora_batch(gen)),
+             gnn_train_cell("molecule", molecule_batch(gen), unit="graphs")]
+    batch, sampler_ms, sub, g, seeds = reddit_batch(gen)
+    inv = subgraph_invariants(sub, g, seeds)
+    del sub, g
+    _free()
+    cells.append({**gnn_train_cell("minibatch_lg", batch), "sampler_ms": sampler_ms[1:],
+                  "sampler_first_ms": sampler_ms[0], "invariants": inv})
+    del batch
+    _free()
+    cells.append(ogb_cell(gen))
+    for c in cells:
+        emit({"phase": "gnn", **{k: v for k, v in c.items() if k != "dry_run"},
+              "dry_run_bytes": c["dry_run"]})
+    clock("gnn_cells")
+    emit({"phase": "gnn_gather_vs_factorized", **gather_vs_factorized()})
+    emit({"phase": "gnn_smoke_card_vs_cpu", "configs": gnn_smoke_card_vs_cpu()})
+    emit({"phase": "gnn_entry_point", **gnn_entry_point()})
+    check(sum(LAUNCHES.values()) == 0, f"the GNN phase launched {dict(LAUNCHES)}")
+    clock("gnn_checks")
+    emit({"phase": "gnn_examples", "examples": examples_on_the_card()})
+    return {"cells": len(cells)}
 
 
 # ------------------------------------------------------------ the sharded phase
@@ -4137,6 +4559,8 @@ def main() -> int:
     fm_entry = next(k for k in report if k["name"] == "fm_interact")
     fm_entry.update(train_phase())
     clock("train")
+    gnn_phase()
+    clock("gnn")
     emit({"phase": "done", "seconds": time.perf_counter() - T0,
           "kernel_build_s": built["seconds"]})
     emit({"kernels": report})

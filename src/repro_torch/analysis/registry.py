@@ -146,8 +146,7 @@ def _cell(arch_id: str, shape_name: str):
         cfg = dataclasses.replace(arch.make_config(shape_name, True),
                                   compute_dtype=torch.float32)
         b = steps.bind_with_cfg(arch_id, shape_name, cfg, device="cpu")
-        smoke = cb.lm_smoke_batch if arch.family == "lm" else cb.recsys_smoke_batch
-        batch = smoke(_gen(), cfg, b.shape, "cpu")
+        batch = cb.smoke_batch(arch.family)(_gen(), cfg, b.shape, "cpu")
         state = b.init_fn(_gen())
         return lambda: b.step_fn(state, batch)
     return setup
@@ -179,6 +178,10 @@ _REGISTRY = {
     "launch/steps.minitron-4b.train_4k": _cell("minitron-4b", "train_4k"),
     "launch/steps.minitron-4b.prefill_32k": _cell("minitron-4b", "prefill_32k"),
     "launch/steps.minitron-4b.decode_32k": _cell("minitron-4b", "decode_32k"),
+    "launch/steps.dimenet.full_graph_sm": _cell("dimenet", "full_graph_sm"),
+    "launch/steps.dimenet.minibatch_lg": _cell("dimenet", "minibatch_lg"),
+    "launch/steps.dimenet.ogb_products": _cell("dimenet", "ogb_products"),
+    "launch/steps.dimenet.molecule": _cell("dimenet", "molecule"),
 }
 
 

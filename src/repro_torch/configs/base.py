@@ -1,6 +1,5 @@
-"""LM, recsys and ANN glue of ``repro.configs.base``: shapes, input specs,
-smoke batches and the Criteo-like vocabulary mix (the GNN glue is the next
-slice of the port).
+"""The glue of ``repro.configs.base``: the LM, GNN, recsys and ANN shapes,
+input specs, smoke batches and the Criteo-like vocabulary mix.
 
 Step kinds per cell:
   train     -> gradients + AdamW update (``train.step``)
@@ -14,6 +13,7 @@ Step kinds per cell:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -31,7 +31,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class Arch:
     arch_id: str
-    family: str               # lm | recsys | ann (the reference's gnn: not ported)
+    family: str               # lm | gnn | recsys | ann
     shapes: tuple[ShapeSpec, ...]
     make_config: Callable[[str | None, bool], Any]   # (shape_name, reduced) -> cfg
 
@@ -44,7 +44,8 @@ class Arch:
 
 def pad_to(n: int, mult: int = 4096) -> int:
     """Round a sharded-dimension size up to a grid-friendly multiple (every
-    mesh factorization up to 512 devices divides 4096)."""
+    mesh factorization up to 512 devices divides 4096). Pipelines mask-pad;
+    models consume the masks (edge_mask / triplet_mask / score masking)."""
     return -(-n // mult) * mult
 
 
@@ -114,6 +115,112 @@ def make_lm_arch(arch_id: str, full, smoke) -> Arch:
     return Arch(arch_id, "lm", LM_SHAPES, make_config)
 
 
+# ----------------------------------------------------------------- GNN glue
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "train",
+              dict(n_nodes=2708, n_edges=pad_to(10556), d_feat=1433, n_out=7,
+                   triplets=pad_to(8 * 10556), impl="gather")),
+    ShapeSpec("minibatch_lg", "train",
+              dict(n_nodes=1024 * 166, n_edges=pad_to(1024 * 165), d_feat=602,
+                   n_out=41, seeds=1024, fanout=(15, 10), impl="factorized",
+                   edge_chunks=1)),
+    ShapeSpec("ogb_products", "train",
+              dict(n_nodes=2449029, n_edges=pad_to(61859140), d_feat=100,
+                   n_out=47, impl="factorized", edge_chunks=8)),
+    ShapeSpec("molecule", "train",
+              dict(n_nodes=128 * 30, n_edges=128 * 64, d_feat=16, n_out=1,
+                   n_graphs=128, triplets=8 * 128 * 64, impl="gather",
+                   task="graph_reg")),
+)
+
+GNN_SMOKE_NODE_SCALE = 64    # nodes divided by this in smoke tests
+GNN_SMOKE_EDGE_SCALE = 256   # edges/triplets divided by this in smoke tests
+
+
+def gnn_input_specs(cfg, shape: ShapeSpec, reduced: bool = False) -> dict:
+    """``{name: (shape, dtype)}`` of every input of the cell's step: the
+    factorized cells' edge arrays arrive chunked (edge_chunks, ce)."""
+    d = dict(shape.dims)
+    n, e = d["n_nodes"], d["n_edges"]
+    if reduced:
+        n = max(n // GNN_SMOKE_NODE_SCALE, 32)
+        e = max(e // GNN_SMOKE_EDGE_SCALE, 64)
+    f32, i32 = torch.float32, torch.int32
+    cch = d.get("edge_chunks", 1)
+    ce = e // cch
+    e = cch * ce
+    eshape = (cch, ce) if d["impl"] == "factorized" else (e,)
+    specs = {"node_feat": ((n, d["d_feat"]), f32), "pos": ((n, 3), f32),
+             "edge_src": (eshape, i32), "edge_dst": (eshape, i32), "edge_mask": (eshape, f32)}
+    if d.get("task") == "graph_reg":
+        ng = d["n_graphs"] if not reduced else max(d["n_graphs"] // 16, 2)
+        specs["graph_ids"] = ((n,), i32)
+        specs["labels"] = ((ng,), f32)
+        specs["node_mask"] = ((n,), f32)
+    else:
+        specs["labels"] = ((n,), i32)
+        specs["label_mask"] = ((n,), f32)
+    if d["impl"] == "gather":
+        t = d["triplets"] if not reduced else max(d["triplets"] // GNN_SMOKE_EDGE_SCALE, 64)
+        specs["triplet_kj"] = ((t,), i32)
+        specs["triplet_ji"] = ((t,), i32)
+        specs["triplet_mask"] = ((t,), f32)
+    return specs
+
+
+def gnn_smoke_batch(generator: torch.Generator, cfg, shape: ShapeSpec,
+                    device: str | torch.device = "cuda") -> dict:
+    """A reduced batch of the cell's inputs from ``generator`` (on
+    ``device``): N(0, 1) features, N(0, 4) positions, uniform edges with
+    no self loop (dst == src moves to (dst + 1) mod n), every mask one;
+    per-graph N(0, 1) labels over contiguous node ranges (graph_reg) or
+    uniform classes; uniform triplet edge ids (gather)."""
+    dev = resolve_device(device)
+    specs = gnn_input_specs(cfg, shape, reduced=True)
+    d = dict(shape.dims)
+    n = specs["node_feat"][0][0]
+    eshape = specs["edge_src"][0]
+
+    def ints(hi, s):
+        return torch.randint(0, hi, s, generator=generator, device=dev, dtype=torch.int32)
+
+    batch = {"node_feat": torch.randn((n, d["d_feat"]), generator=generator, device=dev),
+             "pos": torch.randn((n, 3), generator=generator, device=dev) * 2.0,
+             "edge_src": ints(n, eshape), "edge_dst": ints(n, eshape),
+             "edge_mask": torch.ones(eshape, device=dev)}
+    batch["edge_dst"] = torch.where(batch["edge_dst"] == batch["edge_src"],
+                                    (batch["edge_dst"] + 1) % n, batch["edge_dst"])
+    if d.get("task") == "graph_reg":
+        ng = specs["labels"][0][0]
+        batch["graph_ids"] = torch.clamp(torch.arange(n, device=dev) * ng // n, 0, ng - 1) \
+            .to(torch.int32)
+        batch["labels"] = torch.randn((ng,), generator=generator, device=dev)
+        batch["node_mask"] = torch.ones((n,), device=dev)
+    else:
+        batch["labels"] = ints(d["n_out"], (n,))
+        batch["label_mask"] = torch.ones((n,), device=dev)
+    if d["impl"] == "gather":
+        t = specs["triplet_kj"][0][0]
+        n_e = math.prod(eshape)
+        batch["triplet_kj"] = ints(n_e, (t,))
+        batch["triplet_ji"] = ints(n_e, (t,))
+        batch["triplet_mask"] = torch.ones((t,), device=dev)
+    return batch
+
+
+def make_gnn_arch(arch_id: str, base, smoke) -> Arch:
+    def make_config(shape_name, reduced):
+        tmpl = smoke if reduced else base
+        if shape_name is None:
+            return tmpl
+        d = dict(next(s for s in GNN_SHAPES if s.name == shape_name).dims)
+        return dataclasses.replace(
+            tmpl, d_feat=d["d_feat"], n_out=d["n_out"],
+            task=d.get("task", "node_class"), triplet_impl=d["impl"],
+            edge_chunks=d.get("edge_chunks", 1))
+    return Arch(arch_id, "gnn", GNN_SHAPES, make_config)
+
+
 # -------------------------------------------------------------- recsys glue
 RECSYS_SHAPES = (
     ShapeSpec("train_batch", "train", dict(batch=65536)),
@@ -179,6 +286,12 @@ def make_recsys_arch(arch_id: str, full, smoke) -> Arch:
     def make_config(shape_name, reduced):
         return smoke if reduced else full
     return Arch(arch_id, "recsys", RECSYS_SHAPES, make_config)
+
+
+def smoke_batch(family: str):
+    """The family's reduced-batch builder: ``(generator, cfg, shape,
+    device) -> batch`` (lm, gnn, recsys)."""
+    return {"lm": lm_smoke_batch, "gnn": gnn_smoke_batch, "recsys": recsys_smoke_batch}[family]
 
 
 # ----------------------------------------------------------- ANN (the paper)

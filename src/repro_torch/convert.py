@@ -3,7 +3,7 @@
 The reference's arrays come across with ``np.asarray``; nothing here imports
 the reference. Distance keys: the port's int32 key ``k`` and the reference's
 uint32 ``dist_key`` ``u`` satisfy ``u == k ^ 0x80000000`` bit for bit.
-Recsys and transformer parameters and train states cross as the
+Recsys, transformer and DimeNet parameters and train states cross as the
 reference's nested dicts of arrays; a bfloat16 leaf crosses as its bits
 (the reference's ``ml_dtypes`` array, or a ``|V2`` payload, to a
 ``torch.bfloat16`` tensor; back as a ``|V2`` array, which
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.graph import Graph
+from repro_torch.models import dimenet as dm
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tf
 from repro_torch.optim.adamw import OptState
@@ -163,17 +164,33 @@ def transformer_params_to_numpy(params: dict) -> dict:
     return _tree_to_numpy(params)
 
 
+def dimenet_params_from_numpy(params, cfg: dm.DimeNetConfig,
+                              device: str | torch.device = "cuda") -> dict:
+    """The reference's DimeNet ``init`` tree (``node_in.w``, ``edge_in.w``,
+    ``blocks.*`` stacked (B, ...), ``out_node.w``, ``out_final.w``) -> the
+    port's parameters on ``device``, every shape checked against
+    ``param_table(cfg)``."""
+    return _tree_from_numpy(params, dm.init(None, cfg, device="meta"), resolve_device(device))
+
+
+def dimenet_params_to_numpy(params: dict) -> dict:
+    """The port's DimeNet parameters -> the same tree of numpy arrays."""
+    return _tree_to_numpy(params)
+
+
 def _model_shapes(cfg) -> dict:
     if isinstance(cfg, tf.TransformerConfig):
         return tf.init(None, cfg, device="meta")
+    if isinstance(cfg, dm.DimeNetConfig):
+        return dm.init(None, cfg, device="meta")
     return rs.init(None, cfg, device="meta")
 
 
 def train_state_from_numpy(state, cfg, device: str | torch.device = "cuda"):
     """The reference's ``TrainState(params, OptState(step, m, v, master),
-    residual)`` of a transformer or recsys model (``cfg`` says which) -> the
-    port's ``train.step.TrainState`` on ``device``; ``None`` subtrees stay
-    ``None``, bfloat16 leaves cross as their bits."""
+    residual)`` of a transformer, DimeNet or recsys model (``cfg`` says
+    which) -> the port's ``train.step.TrainState`` on ``device``; ``None``
+    subtrees stay ``None``, bfloat16 leaves cross as their bits."""
     from repro_torch.train.step import TrainState
     dev = resolve_device(device)
     want = _model_shapes(cfg)

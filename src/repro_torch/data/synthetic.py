@@ -1,5 +1,5 @@
-"""Synthetic data (port of ``repro.data.synthetic``'s ANN, LM and recsys
-parts).
+"""Synthetic data (port of ``repro.data.synthetic``: ANN corpora, LM,
+recsys and graph batches).
 
 SIFT/GIST/Deep are not in the repository; these Gaussian mixtures match
 their dimensionalities and clustered structure. Same mixture as the
@@ -97,3 +97,21 @@ def recsys_batch(generator: torch.Generator, batch: int, n_fields: int,
         for f in range(n_fields)], dim=1)                      # (batch, n_fields, multi_hot)
     labels = (torch.rand(batch, generator=generator, device=dev) < 0.3).float()
     return {"dense": dense, "sparse_ids": sparse, "labels": labels}
+
+
+def random_graph_batch(generator: torch.Generator, n_nodes: int, n_edges: int, d_feat: int,
+                       positions: bool = False, device: str | torch.device = "cuda") -> dict:
+    """Synthetic graph made on ``device`` from ``generator``: a uniform
+    int32 edge index (src, then dst), N(0, 1) node features (n_nodes,
+    d_feat) and, with ``positions``, N(0, 1) 3-D positions (molecular
+    nets)."""
+    dev = resolve_device(device)
+    src = torch.randint(0, n_nodes, (n_edges,), generator=generator, device=dev,
+                        dtype=torch.int32)
+    dst = torch.randint(0, n_nodes, (n_edges,), generator=generator, device=dev,
+                        dtype=torch.int32)
+    out = {"edge_src": src, "edge_dst": dst,
+           "node_feat": torch.randn((n_nodes, d_feat), generator=generator, device=dev)}
+    if positions:
+        out["pos"] = torch.randn((n_nodes, 3), generator=generator, device=dev)
+    return out

@@ -1,13 +1,13 @@
-"""Bind (arch, shape) -> the step the cell runs (the lm, recsys and ann
-branches of ``repro.launch.steps``; the gnn family is the next slice).
+"""Bind (arch, shape) -> the step the cell runs (port of
+``repro.launch.steps``).
 
-``bind`` returns, for every cell of those families, the config, an init
+``bind`` returns, for every cell of the grid, the config, an init
 function, the input shapes and the step function, all on one device:
-``train`` cells (LM and recsys) a ``train.step`` train step over
+``train`` cells (LM, GNN and recsys) a ``train.step`` train step over
 ``OPT_CFG`` whose init gives a ``TrainState`` (LM: layers in the compute
-dtype with an f32 master), LM ``prefill`` and ``decode`` cells the
-serving steps, recsys ``serve`` and ``retrieval`` and the paper's
-``ann_build`` and ``ann_search``.
+dtype with an f32 master; DimeNet and recsys: f32), LM ``prefill`` and
+``decode`` cells the serving steps, recsys ``serve`` and ``retrieval`` and
+the paper's ``ann_build`` and ``ann_search``.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ShapeSpec
+from repro_torch.models import dimenet as dm
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
@@ -58,8 +59,13 @@ def bind(arch_id: str, shape_name: str, reduced: bool = False,
         return _bind_ann(arch, shape, cfg, reduced, dev)
     if arch.family == "lm":
         return _bind_lm(arch_id, shape, cfg, reduced, dev)
+    if arch.family == "gnn":
+        train = tstep.make_train_step(lambda p, b: dm.loss_fn(p, b, cfg), OPT_CFG)
+        return BoundStep(arch_id, shape, cfg, train,
+                         lambda gen: tstep.init_state(dm.init(gen, cfg, dev)),
+                         cb.gnn_input_specs(cfg, shape, reduced), dev, "train")
     if arch.family != "recsys":
-        raise NotImplementedError(f"{arch_id}: the {arch.family} family is the next slice")
+        raise ValueError(arch.family)
     specs = cb.recsys_input_specs(cfg, shape, reduced)
 
     if shape.kind == "retrieval":

@@ -6,7 +6,7 @@
 ``--reduced`` runs the smoke-size config; without it the full config runs
 on the one device (the port has no production mesh). Either way the batches
 are the cell's smoke batches (``configs.base.lm_smoke_batch`` /
-``recsys_smoke_batch``) drawn from (``--seed``, step) by
+``gnn_smoke_batch`` / ``recsys_smoke_batch``) drawn from (``--seed``, step) by
 ``data.pipeline.step_generator``, as the reference feeds them. Fault
 tolerance: with ``--ckpt-dir`` the loop runs under
 ``distributed.fault.run_with_restarts`` (a checkpoint every
@@ -52,7 +52,7 @@ def run(argv=None) -> dict:
     bound = steps_mod.bind(args.arch, args.shape, reduced=args.reduced, device=dev)
     if bound.kind != "train":
         raise ValueError(f"{args.shape} is not a training shape")
-    smoke_batch = cb.lm_smoke_batch if arch.family == "lm" else cb.recsys_smoke_batch
+    smoke_batch = cb.smoke_batch(arch.family)
 
     def batch_for(step: int) -> dict:
         return smoke_batch(pipeline.step_generator(args.seed, step, dev), bound.cfg,

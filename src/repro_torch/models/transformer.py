@@ -272,7 +272,10 @@ def _moe_dispatch(x, router, wg, wu, wd, cfg: TransformerConfig, cap: int):
     rank = torch.arange(mg, device=x.device) - seg_start[se]
     keep = rank < cap
     slot = torch.where(keep, se * cap + rank, 0)
-    buf = x.new_zeros((e * cap, d)).index_put((slot[keep],), x[stok[keep]])
+    # a dropped slot writes a spare last row, cut off after: no data-dependent
+    # shape (no host sync for a mask's count; the step runs on the meta device)
+    dest = torch.where(keep, slot, e * cap)
+    buf = x.new_zeros((e * cap + 1, d)).index_put((dest,), x[stok])[:-1]
     buf = buf.view(e, cap, d)
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg.to(dt))) * \
         torch.einsum("ecd,edf->ecf", buf, wu.to(dt))

@@ -232,7 +232,7 @@ def test_dispatch_audit_flags_a_float64_op_and_a_bf16_matmul():
 def test_registered_entries_audit_clean():
     from repro_torch.analysis import registry
     names = list(registry.entries())
-    assert len(names) == 23
+    assert len(names) == 27
     assert DA.run(log=_silent) == []
     assert list(registry.entries(["search_tiled@int8"])) == [
         "core/search.search_tiled@int8", "core/search.search_tiled@int8-hashed"]

@@ -88,13 +88,13 @@ def test_registry_keeps_recsys_and_refuses_what_is_not_ported():
         assert arch.family == ref.family == "recsys"
         assert [(s.name, s.kind, s.dims) for s in arch.shapes] == \
             [(s.name, s.kind, s.dims) for s in ref.shapes]
-    assert configs.ASSIGNED == [a for a in rconfigs.ASSIGNED if a in configs.REGISTRY]
+    assert configs.ASSIGNED == rconfigs.ASSIGNED
     for include_ann in (False, True):
-        assert configs.all_cells(include_ann) == \
-            [c for c in rconfigs.all_cells(include_ann) if c[0] in configs.REGISTRY]
+        assert configs.all_cells(include_ann) == rconfigs.all_cells(include_ann)
     assert ("rnnd-ann", "build_gist") in configs.all_cells(include_ann=True)
-    with pytest.raises(NotImplementedError):
-        configs.get("dimenet")
+    assert configs.get("dimenet").family == rconfigs.get("dimenet").family == "gnn"
+    with pytest.raises(KeyError):
+        configs.get("no-such-arch")
 
 
 @pytest.mark.parametrize("reduced", [False, True])

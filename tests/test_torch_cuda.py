@@ -1272,3 +1272,83 @@ def test_traced_medium_build_equals_untraced_on_the_card(dev):
                for e in sweeps)
     (tiled,) = [e for e in evs if e["name"] == "search/tiled"]
     assert tiled["attrs"]["work"] == st0["work"] and tiled["attrs"]["launches_beam_score"] > 0
+
+
+# ----------------------------------------------------------- the GNN family
+def _gnn_graph(dev, n=400, deg=3, seed=0):
+    """Distinct edges dst = src + U[1, n) mod n and every triplet (k == i
+    included), on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randint(0, n, (n * deg,), generator=gen, device=dev)
+    dst = (src + torch.randint(1, n, (n * deg,), generator=gen, device=dev)) % n
+    key = torch.unique(src * n + dst)
+    src, dst = key // n, key % n
+    tk, tj = torch.nonzero(dst[:, None] == src[None, :], as_tuple=True)
+    return {"node_feat": torch.randn(n, 8, generator=gen, device=dev),
+            "pos": torch.randn(n, 3, generator=gen, device=dev) * 2.0,
+            "edge_src": src.int(), "edge_dst": dst.int(),
+            "edge_mask": torch.ones(src.shape[0], device=dev),
+            "triplet_kj": tk.int(), "triplet_ji": tj.int(),
+            "triplet_mask": torch.ones(tk.shape[0], device=dev),
+            "labels": torch.randint(0, 5, (n,), generator=gen, device=dev, dtype=torch.int32)}
+
+
+def test_dimenet_gather_equals_factorized_on_the_card(dev):
+    """FULL width (n_spherical 7, n_radial 6, 6 blocks) in f32: the two
+    triplet paths within the reference test's rtol 5e-4, atol 5e-5."""
+    import dataclasses
+    from repro_torch.configs import dimenet as D
+    from repro_torch.models import dimenet as dm
+    cfg = dataclasses.replace(D.FULL, d_feat=8, n_out=5, task="node_class",
+                              compute_dtype=torch.float32)
+    params = dm.init(torch.Generator(device=dev).manual_seed(1), cfg, dev)
+    batch = _gnn_graph(dev)
+    with torch.no_grad():
+        g = dm.forward(params, batch, cfg)
+        f = dm.forward(params, batch, dataclasses.replace(cfg, triplet_impl="factorized"))
+    torch.testing.assert_close(f, g, rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("impl", ["gather", "factorized"])
+def test_dimenet_loss_and_gradients_on_the_card_equal_the_cpu(dev, impl):
+    """The SMOKE widths in f32, one graph on both devices: loss within 1e-5
+    relative, every gradient leaf within 1e-4 of its largest (the card's
+    scatters add in another order)."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.configs import dimenet as D
+    from repro_torch.models import dimenet as dm
+    from repro_torch.train import value_and_grad
+    cfg = dataclasses.replace(D.SMOKE, d_feat=8, n_out=5, task="node_class", triplet_impl=impl,
+                              compute_dtype=torch.float32)
+    batch = _gnn_graph(dev, seed=2)
+    if impl == "factorized":
+        e = batch["edge_src"].shape[0] // 4 * 4
+        batch = {k: (v[:e].reshape(4, -1) if k.startswith("edge_") else v)
+                 for k, v in batch.items() if not k.startswith("triplet")}
+    params = dm.init(torch.Generator(device=dev).manual_seed(3), cfg, dev)
+    loss_fn = lambda p, b: dm.loss_fn(p, b, cfg)
+    lg, gg = value_and_grad(loss_fn, params, batch)
+    lc, gc = value_and_grad(loss_fn, {k: v for k, v in _cpu_tree(params).items()},
+                            _cpu_tree(batch))
+    assert float(lg) == pytest.approx(float(lc), rel=1e-5)
+    for (name, a), (_, b) in zip(flatten(gg), flatten(gc)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+
+
+def _cpu_tree(t):
+    return {k: _cpu_tree(v) if isinstance(v, dict) else v.cpu() for k, v in t.items()}
+
+
+def test_two_hop_sampler_on_the_card_equals_the_cpu(dev):
+    """Given the same uniforms the map is deterministic: the card's subgraph
+    is the CPU's bit for bit."""
+    from repro_torch.data import sampler as SM
+    g = SM.random_csr(torch.Generator(device=dev).manual_seed(4), 5000, 20, device=dev)
+    u = SM.two_hop_uniforms(torch.Generator(device=dev).manual_seed(5), 64, 15, 10, device=dev)
+    seeds = torch.arange(64, dtype=torch.int32, device=dev)
+    got = SM.sample_two_hop(u, g, seeds, 15, 10)
+    want = SM.sample_two_hop(tuple(x.cpu() for x in u), SM.CSRGraph(*(x.cpu() for x in g)),
+                             seeds.cpu(), 15, 10)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

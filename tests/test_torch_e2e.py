@@ -82,7 +82,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "        'repro_torch.data.pipeline', 'repro_torch.launch.train',\n"
         "        'repro_torch.models.transformer', 'repro_torch.configs.minitron_4b',\n"
         "        'repro_torch.configs.granite_20b', 'repro_torch.configs.yi_34b',\n"
-        "        'repro_torch.configs.dbrx_132b', 'repro_torch.configs.deepseek_moe_16b'}\n"
+        "        'repro_torch.configs.dbrx_132b', 'repro_torch.configs.deepseek_moe_16b',\n"
+        "        'repro_torch.models.dimenet', 'repro_torch.configs.dimenet',\n"
+        "        'repro_torch.data.sampler', 'repro_torch.launch.dryrun'}\n"
         "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
     )

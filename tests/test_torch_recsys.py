@@ -76,11 +76,15 @@ def test_configs_and_shapes_match_reference(arch_id):
 
 
 def test_registry_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        configs.get("dimenet")
+    """Every architecture of the reference is ported now: ``dimenet``
+    resolves (the gnn family), nothing is left in ``NOT_PORTED``, and an
+    unknown id still raises ``KeyError``."""
+    assert configs.get("dimenet").family == "gnn"
+    assert configs.NOT_PORTED == ()
     with pytest.raises(KeyError):
         configs.get("no-such-arch")
     assert steps.bind("deepfm", "train_batch", reduced=True, device="cpu").kind == "train"
+    assert steps.bind("dimenet", "molecule", reduced=True, device="cpu").kind == "train"
 
 
 def _table(seed, v, d):

@@ -83,9 +83,10 @@ def test_configs_tables_and_specs_match_reference(arch_id):
 
 
 def test_registry_holds_the_lm_family_in_the_reference_order():
-    assert configs.ASSIGNED == [a for a in rconfigs.ASSIGNED if a != "dimenet"]
-    assert configs.all_cells() == [c for c in rconfigs.all_cells() if c[0] != "dimenet"]
-    assert configs.NOT_PORTED == ("dimenet",)
+    assert configs.ASSIGNED == rconfigs.ASSIGNED
+    assert configs.all_cells() == rconfigs.all_cells()
+    assert configs.NOT_PORTED == ()
+    assert sorted(a for a in configs.ASSIGNED if configs.get(a).family == "lm") == sorted(PAIRS)
 
 
 # --------------------------------------------------------- small pieces
