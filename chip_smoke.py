@@ -185,7 +185,7 @@ Phases (any failure raises and exits non-zero):
      minitron-4b FULL (prefill-then-decode against forward at 2,048 tokens
      in f32; prefill_32k at batch 1, decode_32k at batch 8 for 32 steps,
      long_500k at batch 1 and 16 layers for 8 steps, train_4k at the
-     largest depth that fits at 2 x 4096 for 5 steps, its loss falling;
+     largest depth that fits at 2 x 4096 for 3 steps, its loss falling;
      tokens/s, mfu against 989 TFLOP/s, peak); deepseek-moe-16b at full
      width and the depth that fits (train steps at 1 x 4096, prefill of
      4,096 and 8 decode steps, dropping against dense in f32); every SMOKE
@@ -200,7 +200,7 @@ Phases (any failure raises and exits non-zero):
      minibatch_lg (factorized; 1,024 seeds at fanout (15, 10) drawn by the
      port's sampler from a 232,965-node graph at degree 50, the subgraph's
      invariants checked) and ogb_products at its 2,449,029 nodes and the
-     largest edge cut of OGB_CUTS that fits (1 warm-up and 2 timed steps:
+     largest edge cut of OGB_CUTS that fits (1 warm-up and 1 timed step:
      14.4 s a step at 8.1M edges); step ms, edges/s (graphs/s),
      peak memory beside the dry run's predicted bytes at the same shapes;
      every loss and norm finite, the fixed batch's loss falling; gather
@@ -208,12 +208,41 @@ Phases (any failure raises and exits non-zero):
      the SMOKE config at each shape on the card against the CPU;
      launch.train --arch dimenet --shape molecule --reduced (20 steps); no
      hand kernel launched; then the four examples/torch_*.py, each once as
-     a subprocess at its default size (exit 0, seconds).
-Cut to fit the script's time (about 900 s): the sort-oracle witness and the
+     a subprocess (EXAMPLE_ARGS: torch_train_lm's --tiny model,
+     build_and_search at 3,000 rows; exit 0, seconds).
+  9e. mesh training (after 9d): gloo ranks sharing the card through
+     bind(mesh=), each rank its ZeRO-3 blocks of the seeded state: (a)
+     deepseek-moe-16b at full width (d 2048, 64 routed experts top-6 of
+     d_ff 1408, 2 shared, V 102,400, bf16 layers with an f32 master) at 2
+     of its 28 layers on a data 2 x model 2 mesh, batch 2 x 4,096 tokens
+     (2,048 a shard: the shard-mapped MoE with cap 240), 2 steps; then
+     (b) DeepFM FULL train_batch (65,536 rows, the Criteo table whole) on
+     the same 2 x 2 ranks, 3 steps, fm_interact launched once on every
+     rank in every step; each cell's step 1 (loss, and the blocks of the
+     held gradient leaves read back from AdamW's first moment) against
+     the port on one device from the same seeded state (deepseek's MoE as
+     the mesh's per-shard loop, moe_tiles=(2, 2)): bf16, loss within
+     2e-2, gradients within 6e-2 of the leaf's largest; each rank's
+     resident state against the one device's, step seconds, the
+     collectives' seconds and bytes; (c) DimeNet FULL width minibatch_lg
+     at 1 of its 6 blocks, 1 step, on the same ranks (its edges split over
+     data 2, pass A's node buffer psummed over them, its width split over
+     model 2), held the same way; (d) launch.train --ranks 4 --mesh 2x2
+     (minitron-4b SMOKE, gloo ranks on the card), 2 steps with a
+     checkpoint each, then the run resumed from the step-0 commit ends in
+     the step-1 checkpoint bit for bit.
+Cut to fit the script's time (about 1,200 s): the sort-oracle witness and the
 PQ path run over the first 500k rows of the 1M corpus (CUT_N), the sharded
-phase's ShardedANN build over the first 125k (SHARD_BUILD_N; 250k before
-the obs phase was added); streaming_1m runs 24 rounds (32) and serving_1m
-2,048 requests (4,096) since the train phase came;
+phase's ShardedANN build over the first 64k (SHARD_BUILD_N; 125k before
+the mesh_train phase, 250k before the obs phase); streaming_1m runs 24
+rounds (32) since the train phase came, serving_1m 1,024 requests (2,048
+before the mesh_train phase, 4,096 before the train phase); since the
+mesh_train phase, minitron's train_4k runs 3 steps (5), prefill_32k
+16,384 tokens (32,768), ogb_products 1 timed step (2), torch_train_lm its
+--tiny model (its default model), build_and_search 3,000 rows and 200
+queries (6,000 and 400), the traced serving_1m session 256 requests (512),
+and the sharded
+phases' medium corpus and pool have 10,000 rows (SHARD_MEDIUM_N; 20,000);
 scripts/sharded_build.py runs the sharded build at 1M. "clock" lines
 give the seconds since start after each phase. The last lines are the
 kernels' JSON, the card's name and power limit, and
@@ -250,7 +279,10 @@ GIST_MEDIUM = (5_000, 200)
 # their own ground truth (the sort-oracle witness, then the PQ path), and the
 # rows of the sharded phase's ShardedANN build
 CUT_N = 500_000
-SHARD_BUILD_N = 125_000
+SHARD_BUILD_N = 64_000
+# the sharded phases' medium corpus and pool (MEDIUM_N before the mesh_train
+# phase took its place in the script's time); their queries stay MEDIUM_Q
+SHARD_MEDIUM_N = 10_000
 # The JAX package on the CPU at the medium configuration: f32, int8, pq over
 # its own draw of the same mixture (scripts/reference_medium.py); the
 # baselines (NNDescentConfig(), NSGStyleConfig() on it) over numpy_mixture's
@@ -1495,8 +1527,9 @@ def streaming_1m(x, q, g):
     return report
 
 
-# 2,048 requests (4,096 until the train phase came; cut for the script's time)
-SERVE_REQ_1M, SERVE_EVENTS_1M, SERVE_TRACED_1M = 2048, 16, 512
+# 1,024 requests (2,048 until the mesh_train phase came, 4,096 until the train
+# phase came; cut for the script's time)
+SERVE_REQ_1M, SERVE_EVENTS_1M, SERVE_TRACED_1M = 1024, 16, 256
 SERVE_QUERIES_1M = 1000   # the path's queries the 1M sessions draw from (and score)
 
 
@@ -1530,7 +1563,8 @@ def serving_1m(x, q, g):
           "capacity": ann.capacity, "tile_lanes": SERVE_TILE, "write_batch": SERVE_WB,
           "requests": SERVE_REQ_1M, "events": SERVE_EVENTS_1M, "deadline_s": SERVE_DEADLINE,
           "config": "StreamingConfig(build=FULL)", "search": CHURN_SEARCH,
-          "reduced": "2,048 requests (4,096 before the train phase): the script's time", **res})
+          "reduced": "1,024 requests (2,048 before the mesh_train phase, 4,096 before the "
+                     "train phase): the script's time", **res})
     return res
 
 
@@ -2866,6 +2900,8 @@ TRAIN_SEED = SEED + 40
 TRAIN_STEPS = 20                     # recsys train steps a config
 BF16_PEAK = 989e12                   # H100 SXM dense bf16 tensor-core FLOP/s (700 W)
 LM_DEPTHS = (28, 26, 24, 20, 16)     # minitron-4b train_4k: the first that fits is run
+LM_TRAIN_STEPS = 3                   # its steps (5 before the mesh_train phase came)
+PREFILL_SEQ = 16_384                 # prefill_32k's tokens (32,768 before the mesh_train phase)
 MOE_DEPTHS = (4, 2)                  # deepseek-moe-16b: the first that fits is run
 
 
@@ -3125,7 +3161,8 @@ def minitron_phase() -> dict:
     full = minitron_4b.FULL
     gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 1)
     out = {"config": "minitron-4b FULL", "n_params": full.n_params,
-           "reduced": {"prefill_32k": "batch 1 (of 32): a sequence's cache is 4.3 GB",
+           "reduced": {"prefill_32k": f"batch 1 (of 32): a sequence's cache is 4.3 GB; "
+                                      f"{PREFILL_SEQ:,} of its 32,768 tokens (the script's time)",
                        "decode_32k": "batch 8 (of 128): 34 GB of cache",
                        "long_500k": "16 of 32 layers: 69 GB of cache at 32"}}
     pre = steps.bind("minitron-4b", "prefill_32k", device="cuda")
@@ -3150,8 +3187,8 @@ def minitron_phase() -> dict:
     check(ok, f"minitron prefill-then-decode vs forward: {out['prefill_then_decode']}")
     del dec, ref
     _free()
-    # prefill_32k, batch 1
-    seq = pre.shape.dims["seq"]
+    # prefill_32k, batch 1, PREFILL_SEQ tokens
+    seq = PREFILL_SEQ
     toks = token_batch(gen, 1, seq, full.vocab, "cuda")["tokens"]
     pre.step_fn(params, {"tokens": toks[:, :1024]})             # warm (cuBLAS plans)
     _free()
@@ -3194,7 +3231,7 @@ def minitron_phase() -> dict:
     # train_4k at the largest depth that fits, batch 2 x 4096
     depth, res, tried = _largest_fitting(
         LM_DEPTHS, lambda L: lm_train_steps("minitron-4b", dataclasses.replace(full, n_layers=L),
-                                            2, 4096, 5))
+                                            2, 4096, LM_TRAIN_STEPS))
     out["train_4k"] = {**res, "depths_tried": tried}
     out["reduced"]["train_4k"] = (f"{depth} of 32 layers, batch 2 (of 256): the train state "
                                   "at 32 layers is 88 GB before activations")
@@ -3442,9 +3479,15 @@ REDDIT_NODES, REDDIT_DEGREE = 232_965, 50   # GraphSAGE's Reddit graph (about 11
 # the first whose steps fit the card is run (61.9M edges do not: PERF.md section 4;
 # 10,092,544 fit a fresh process, not this one after the earlier phases)
 OGB_CUTS = ((8_126_464, 64), (6_029_312, 32))
-OGB_WARM, OGB_STEPS = 1, 2                  # ogb_products' steps (14.4 s each at 8.1M edges)
+OGB_WARM, OGB_STEPS = 1, 1                  # ogb_products' steps (14.4 s each at 8.1M edges;
+                                            # 2 timed before the mesh_train phase came)
 EXAMPLES = ("torch_quickstart", "torch_build_and_search", "torch_recsys_retrieval",
             "torch_train_lm")
+# since the mesh_train phase came: torch_train_lm trains its --tiny model (its
+# default 300 steps; 60 are too few for its loss check over one small batch
+# a step), build_and_search runs 3,000 rows and 200 queries (6,000 and 400)
+EXAMPLE_ARGS = {"torch_train_lm": ("--tiny",),
+                "torch_build_and_search": ("--n", "3000", "--queries", "200")}
 
 
 def _incoming_triplets(src, dst, n_nodes: int, per_edge: int, t_pad: int, gen) -> dict:
@@ -3792,16 +3835,19 @@ def gnn_entry_point() -> dict:
 
 def examples_on_the_card() -> list:
     """Each examples/torch_*.py once on the card as a subprocess at its
-    default size: exit code 0, seconds."""
+    default size (EXAMPLE_ARGS: cut for the script's time): exit code 0,
+    seconds."""
     out = []
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     for name in EXAMPLES:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", f"{name}.py")],
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", f"{name}.py"),
+                               *EXAMPLE_ARGS.get(name, ())],
                               cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
         sec = time.perf_counter() - t0
         tail = proc.stdout.strip().splitlines()[-3:]
-        out.append({"example": name, "rc": proc.returncode, "seconds": sec, "tail": tail})
+        out.append({"example": name, "rc": proc.returncode, "seconds": sec, "tail": tail,
+                    "args": list(EXAMPLE_ARGS.get(name, ()))})
         check(proc.returncode == 0, f"{name} exited {proc.returncode}: {proc.stderr[-2000:]}")
     return out
 
@@ -3901,7 +3947,7 @@ def _timed_build(mesh, build):
 # NSG's repair may also launch pairwise_l2, when a vertex is unreachable)
 SHARD_KERNELS = {"rnn-descent f32": {"rng_prune"}, "rnn-descent int8": {"rng_prune_int8"},
                  "nn-descent": set(), "nsg-style": {"rng_prune"},
-                 f"rnn-descent f32 n={MEDIUM_N + 1}": {"rng_prune"}}
+                 f"rnn-descent f32 n={SHARD_MEDIUM_N + 1}": {"rng_prune"}}
 
 
 def _medium_builds(x, x_pad):
@@ -3910,8 +3956,8 @@ def _medium_builds(x, x_pad):
     from repro_torch.core import nsg_style as ns
     from repro_torch.core import rnn_descent as rd
     from repro_torch.quant import Quantization
-    f32 = full_build(chunk=MEDIUM_N)
-    int8 = full_build(chunk=MEDIUM_N,
+    f32 = full_build(chunk=SHARD_MEDIUM_N)
+    int8 = full_build(chunk=SHARD_MEDIUM_N,
                                quant=Quantization(**QUANT_KW["int8"]))
     return {
         "rnn-descent f32": (lambda x, gen, mesh: rd.build(x, f32, gen, mesh=mesh), x, SEED + 1),
@@ -3920,7 +3966,7 @@ def _medium_builds(x, x_pad):
                        x, SEED + 3),
         "nsg-style": (lambda x, gen, mesh: ns.build(x, ns.NSGStyleConfig(), gen, mesh=mesh),
                       x, SEED + 4),
-        f"rnn-descent f32 n={MEDIUM_N + 1}": (
+        f"rnn-descent f32 n={SHARD_MEDIUM_N + 1}": (
             lambda x, gen, mesh: rd.build(x, f32, gen, mesh=mesh), x_pad, SEED + 1),
     }
 
@@ -4045,7 +4091,7 @@ def sharded_phase(x, q, g, gt):
     from repro_torch.kernels import LAUNCHES, reset_launches
     # medium: the phase-2 corpus, every build single-device first
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    xm, _ = clustered_vectors(VectorDatasetSpec.sift_like(MEDIUM_N, MEDIUM_Q), gen, "cuda")
+    xm, _ = clustered_vectors(VectorDatasetSpec.sift_like(SHARD_MEDIUM_N, MEDIUM_Q), gen, "cuda")
     x_pad = torch.cat([xm, xm[:1] + 0.25])
     refs, single = {}, {}
     for name, (build, xx, seed) in _medium_builds(xm, x_pad).items():
@@ -4054,7 +4100,7 @@ def sharded_phase(x, q, g, gt):
         refs[name] = build(xx, torch.Generator(device="cuda").manual_seed(seed), None)
         torch.cuda.synchronize()
         single[name] = time.perf_counter() - t0
-    pad_name = f"rnn-descent f32 n={MEDIUM_N + 1}"
+    pad_name = f"rnn-descent f32 n={SHARD_MEDIUM_N + 1}"
     for world, backend in ((1, "nccl"), (2, "gloo"), (4, "gloo")):
         want = {k: v for k, v in refs.items() if k != pad_name or world == 4}
         ranks = spawn_ranks(sharded_medium_rank, world, backend, xm, x_pad, want)
@@ -4129,8 +4175,9 @@ def sharded_phase(x, q, g, gt):
     emit({"phase": "sharded_full", "n": x.shape[0], "build_n": SHARD_BUILD_N, "d": x.shape[1],
           "ranks": 2, "backend": "gloo", "build": "FULL s=20 r=96 t1=4 t2=15 M=128",
           "queries": SHARD_Q, "search": "L=64 K=64 topk=10 dense (and hashed)",
-          "reduced": {"build_n": f"{SHARD_BUILD_N} (the first rows of the 1M corpus; 250000 "
-                                 "before the obs phase took its place in the script's time): "
+          "reduced": {"build_n": f"{SHARD_BUILD_N} (the first rows of the 1M corpus; 125000 "
+                                 "before the mesh_train phase, 250000 before the obs phase "
+                                 "took their places in the script's time): "
                                  "the 1M build takes 137.8 s on two gloo ranks sharing the "
                                  "card (scripts/sharded_build.py)"},
           "wire_bytes_a_sweep_closed_form": sweep, "wire_bytes_build_closed_form": closed,
@@ -4227,7 +4274,7 @@ def sharded_streaming_rank(rank, world, pool, n0, schedule, seeding, refs, serve
     from repro_torch.streaming import StreamingANN, StreamingConfig
     mesh = _card_mesh(world, "gloo")
     _seeding(seeding)
-    cfg = StreamingConfig(build=full_build(chunk=MEDIUM_N), **STREAM_KW)
+    cfg = StreamingConfig(build=full_build(chunk=SHARD_MEDIUM_N), **STREAM_KW)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     ann = StreamingANN.from_corpus(pool[:n0], cfg, mesh=mesh,
@@ -4354,10 +4401,10 @@ def sharded_streaming(x, g):
     from repro_torch.streaming import StreamingANN, StreamingConfig
     from repro_torch.streaming import store as ST
     from repro_torch.streaming import updates as U
-    pool_np, q_np = numpy_mixture(MEDIUM_N, MEDIUM_Q, SEED)
+    pool_np, q_np = numpy_mixture(SHARD_MEDIUM_N, MEDIUM_Q, SEED)
     pool = torch.from_numpy(pool_np).to("cuda")
-    n0, schedule = churn_schedule(MEDIUM_N)
-    cfg = StreamingConfig(build=full_build(chunk=MEDIUM_N), **STREAM_KW)
+    n0, schedule = churn_schedule(SHARD_MEDIUM_N)
+    cfg = StreamingConfig(build=full_build(chunk=SHARD_MEDIUM_N), **STREAM_KW)
     seed_cfg = U.StreamingConfig.seed_search_cfg
 
     def single(seeding):
@@ -4391,7 +4438,7 @@ def sharded_streaming(x, g):
         want = (want, _store_leaves(fe.ann.store))
     finally:
         U.StreamingConfig.seed_search_cfg = seed_cfg
-    emit({"phase": "sharded_streaming_single", "pool": MEDIUM_N, "n0": n0,
+    emit({"phase": "sharded_streaming_single", "pool": SHARD_MEDIUM_N, "n0": n0,
           "hashed_seeding_repeatable": repeatable, "parity_seeding": seeding,
           "inserts_per_s": sum(len(pool_np[a]) for o, a in schedule if o == "ins") / secs["ins"],
           "deletes_per_s": sum(len(a) for o, a in schedule if o == "del") / secs["del"]})
@@ -4413,7 +4460,7 @@ def sharded_streaming(x, g):
                     check(all(r[f"serve_{mode}_store_equal"] for r in ranks),
                           f"sharded serving ({mode}): a rank's store differs")
             emit({"phase": "sharded_streaming", "scale": "medium", "ranks": world,
-                  "backend": "gloo", "pool": MEDIUM_N, "n0": n0, "seeding": seeding,
+                  "backend": "gloo", "pool": SHARD_MEDIUM_N, "n0": n0, "seeding": seeding,
                   "schedule": "churn_schedule, then compact", "equal": True,
                   "serving": None if serve is None else {
                       "requests": SS_REQ, "events": SS_EVENTS, "tile_lanes": SERVE_TILE,
@@ -4462,6 +4509,303 @@ def sharded_streaming(x, g):
                             "deletes_per_s": SS_1M_ROUNDS * b / secs["del"]},
           "per_rank": ranks})
     del want_1m, new, gone
+
+
+# ------------------------------------------------------------ the mesh_train phase
+MESH_SEED = SEED + 70
+MESH_GRID = (2, 2)                          # (data, model): 4 gloo ranks sharing the card
+MESH_DS_LAYERS = 2                          # deepseek-moe-16b's 28 layers cut to 2
+MESH_DS_BATCH = (2, 4096)                   # 1 row x 2,048 tokens a shard: t_loc 2,048
+MESH_DS_STEPS, MESH_FM_STEPS, MESH_GNN_STEPS = 2, 3, 1
+MESH_GNN_BLOCKS = 1                         # DimeNet's 6 blocks cut to 1 (gloo psums of the
+                                            # (N, 4,032) node buffer, 3 a block a step)
+# the gradient leaves held against the one-device step (flatten names)
+MESH_HELD = {"lm": ("['layers']['wq']", "['layers']['we_gate']", "['layers']['router']",
+                    "['embed']['table']"),
+             "recsys": ("['table']", "['wide']", "['mlp']['fc0']['w']", "['bias']"),
+             "gnn": None}                   # every leaf (DimeNet's params are small)
+# bf16 cells: the ranks' GEMMs run other shapes than the one device's (other
+# cuBLAS kernels, other bf16 roundings); f32 cells: other sum orders
+MESH_TOL = {"bf16": {"loss": 2e-2, "grad": 6e-2}, "f32": {"loss": 1e-4, "grad": 1e-3}}
+
+
+def _shape_mesh(rank: int, grid=MESH_GRID):
+    from repro_torch.launch import mesh as M
+    axes = ("data", "model")
+    return M.Mesh(axes, dict(zip(axes, grid)), "none", torch.device("cuda"), rank, {})
+
+
+def _state_parts(state) -> dict:
+    from repro_torch.distributed import fsdp
+    return {part: fsdp.state_bytes(t) for part, t in
+            (("params", state.params), ("m", state.opt.m), ("v", state.opt.v),
+             ("master", state.opt.master))}
+
+
+def _family_loss(family: str):
+    from repro_torch.models import dimenet as dm
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as tf
+    return {"lm": tf.loss_fn, "recsys": rs.loss_fn, "gnn": dm.loss_fn}[family]
+
+
+def _step1_grads(opt_cfg, m, grad_norm: float) -> dict:
+    """Step 1's gradient read back from AdamW's first moment: m = (1 - b1) g
+    after clipping by min(1, clip / norm), so g = m / ((1 - b1) scale)."""
+    scale = 1.0 if opt_cfg.clip_norm is None else \
+        min(1.0, opt_cfg.clip_norm / max(grad_norm, 1e-9))
+    return {n: t.float() / ((1 - opt_cfg.b1) * scale) for n, t in _named(m).items()}
+
+
+def mesh_train_rank(rank, world, cells, grid, out_dir):
+    """One rank of the mesh train cells on the card (gloo, sharing cuda:0),
+    each in turn: its blocks of the seeded state, ``len(batches)`` bound
+    steps timed with each step's kernel launches, step 1's loss and
+    gradient (read back from the first moment; the held leaves' blocks
+    saved to ``out_dir``), the collectives' seconds and bytes."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as S
+    torch.cuda.set_device(0)
+    mesh = M.make_mesh(grid, ("data", "model"), backend="gloo", device="cuda:0")
+    out = {}
+    for label, arch_id, shape, cfg, batches, family in cells:
+        bound = S.bind_with_cfg(arch_id, shape, cfg, mesh=mesh)
+        state = bound.init_fn(torch.Generator(device="cuda").manual_seed(MESH_SEED))
+        _free()
+        resident = _state_parts(state)
+        torch.cuda.reset_peak_memory_stats()
+        mesh.stats.reset()
+        step_s, launches, losses = [], [], []
+        for i, b in enumerate(batches):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = bound.step_fn(state, b)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            launches.append(dict(LAUNCHES))
+            if i == 0:
+                held = MESH_HELD[family]
+                g = _step1_grads(S.OPT_CFG, state.opt.m, float(metrics["grad_norm"]))
+                torch.save({n: t.cpu() for n, t in g.items() if held is None or n in held},
+                           os.path.join(out_dir, f"grads_{family}_{rank}.pt"))
+                del g
+        coll = mesh.stats.summary()
+        out[family] = {
+            "losses": losses, "step_s": step_s, "launches": launches,
+            "resident_bytes": resident, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "collectives": coll,
+            "collective_s": sum(v["seconds"] for v in coll.values()),
+            "sent_bytes": sum(v["sent_bytes"] for v in coll.values()),
+            "staged_bytes": sum(v["staged_bytes"] for v in coll.values())}
+        del state, metrics, bound
+        _free()
+    _rank_out(out_dir, rank, out)
+
+
+def _one_device_step1(arch_id, shape, cfg, batch, family, moe_tiles=None) -> tuple:
+    """(loss, gradients, state bytes by part, the params' axes) of the same
+    seeded state's first step on one device."""
+    from repro_torch.launch import steps as S
+    from repro_torch.train import value_and_grad
+    bound = S.bind_with_cfg(arch_id, shape, cfg, device="cuda")
+    state = bound.init_fn(torch.Generator(device="cuda").manual_seed(MESH_SEED))
+    parts = _state_parts(state)
+    loss_fn = _family_loss(family)
+    kw = {"moe_tiles": moe_tiles} if moe_tiles else {}
+    loss, grads = value_and_grad(lambda p, b: loss_fn(p, b, bound.cfg, **kw), state.params,
+                                 batch)
+    return float(loss), grads, parts, bound.state_axes.params
+
+
+def mesh_train_cells(cells, grid, precision: dict, moe_tiles: dict) -> dict:
+    """Train ``cells`` ((label, arch, shape, cfg, batches, family), each a
+    family once) on ``grid`` gloo ranks sharing the card, in one spawn,
+    then hold each against the port on one device: step 1's loss and the
+    held gradient leaves' blocks of every rank within
+    MESH_TOL[precision[family]] (each leaf against its largest magnitude);
+    every loss finite; the state each rank holds against the one
+    device's."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as M
+    world = grid[0] * grid[1]
+    with tempfile.TemporaryDirectory() as out:
+        _free()
+        t0 = time.perf_counter()
+        M.spawn(mesh_train_rank, world, (cells, grid, out), backend="gloo", timeout_s=900)
+        wall = time.perf_counter() - t0
+        ranks = _ranks_in(out, world)
+        blocks = {c[5]: [torch.load(os.path.join(out, f"grads_{c[5]}_{r}.pt"))
+                         for r in range(world)] for c in cells}
+    res = {}
+    for label, arch_id, shape, cfg, batches, family in cells:
+        rk = [r[family] for r in ranks]
+        _free()
+        loss1, grads, one_parts, axes = _one_device_step1(arch_id, shape, cfg, batches[0],
+                                                          family, moe_tiles.get(family))
+        tol = MESH_TOL[precision[family]]
+        full = _named(grads)
+        flat_axes = dict(zip(full, sh.leaf_axes(axes, grads)))
+        worst = {}
+        for r in range(world):
+            mesh = _shape_mesh(r, grid)
+            for name, blk in blocks[family][r].items():
+                want = sh.local_block(full[name], mesh, flat_axes[name]).float()
+                err = float((blk.to(want.device) - want).abs().max())
+                worst[name] = max(worst.get(name, 0.0), err / (float(want.abs().max()) + 1e-30))
+        del grads, full
+        loss_err = max(abs(r["losses"][0] - loss1) / abs(loss1) for r in rk)
+        res[family] = {
+            "label": label, "grid": list(grid), "wall_s_all_cells": wall,
+            "loss_one_device": loss1, "loss_ranks": [r["losses"][0] for r in rk],
+            "loss_rel_err": loss_err, "grad_rel_err": worst, "tolerance": tol,
+            "losses": rk[0]["losses"], "step_s": [r["step_s"] for r in rk],
+            "launches": [r["launches"] for r in rk],
+            "resident_bytes": [r["resident_bytes"] for r in rk], "one_device_bytes": one_parts,
+            "resident_share": [sum(r["resident_bytes"].values()) / sum(one_parts.values())
+                               for r in rk],
+            "peak_bytes": [r["peak_bytes"] for r in rk],
+            "collective_s": [r["collective_s"] for r in rk],
+            "sent_bytes": [r["sent_bytes"] for r in rk],
+            "staged_bytes": [r["staged_bytes"] for r in rk],
+            "collectives_rank0": rk[0]["collectives"]}
+        check(all(math.isfinite(x) for r in rk for x in r["losses"]),
+              f"{label}: a loss is not finite")
+        check(loss_err <= tol["loss"], f"{label}: step 1 loss {res[family]['loss_ranks']} "
+                                       f"against {loss1} on one device")
+        for name, err in worst.items():
+            check(err <= tol["grad"], f"{label}: gradient {name} off by {err} of its largest")
+        check(len(worst) > 0, f"{label}: no gradient leaf held")
+    _free()
+    return res
+
+
+def _named(tree) -> dict:
+    """{flatten name: leaf}."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    return dict(flatten(tree))
+
+
+def _mesh_lm_cell():
+    """(a) deepseek-moe-16b at full width, 2 layers, on 2 x 2: the cell and
+    its MoE's numbers."""
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(deepseek_moe_16b.FULL, n_layers=MESH_DS_LAYERS)
+    b, s = MESH_DS_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED + 1)
+    batches = []
+    for _ in range(MESH_DS_STEPS):
+        t = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        batches.append({"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()})
+    t_loc = (b // MESH_GRID[0]) * (s // MESH_GRID[1])
+    check(t_loc >= 64, f"deepseek mesh: t_loc {t_loc}")
+    extra = {"t_loc": t_loc, "capacity": tf._capacity(t_loc, cfg.moe), "batch": [b, s],
+             "reduced": f"depth {MESH_DS_LAYERS} of {deepseek_moe_16b.FULL.n_layers} layers"}
+    return ("deepseek-moe-16b FULL width", "deepseek-moe-16b", "train_4k", cfg, batches,
+            "lm"), extra
+
+
+def _mesh_fm_cell():
+    """(b) DeepFM FULL train_batch (65,536 rows, the Criteo table whole) on
+    2 x 2."""
+    from repro_torch.launch import steps as S
+    bound = S.bind("deepfm", "train_batch", device="meta")
+    batches = [_recsys_batch(bound, MESH_SEED + 10 + i) for i in range(MESH_FM_STEPS)]
+    return ("deepfm FULL train_batch", "deepfm", "train_batch", bound.cfg, batches, "recsys")
+
+
+def _mesh_gnn_cell():
+    """(c) DimeNet FULL width minibatch_lg (bf16, MESH_GNN_BLOCKS blocks) on
+    2 x 2: its edges split over data 2, pass A's node buffer psummed over
+    them, the buffer's width split over model 2."""
+    from repro_torch.launch import steps as S
+    bound = S.bind("dimenet", "minibatch_lg", device="meta")
+    cfg = dataclasses.replace(bound.cfg, n_blocks=MESH_GNN_BLOCKS)
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SEED + 20)
+    batch, _, sub, g, _ = reddit_batch(gen)
+    del sub, g
+    extra = {"edges": int(batch["edge_src"].numel()),
+             "reduced": f"{MESH_GNN_BLOCKS} of {bound.cfg.n_blocks} interaction blocks"}
+    return ("dimenet FULL width minibatch_lg", "dimenet", "minibatch_lg", cfg,
+            [batch] * MESH_GNN_STEPS, "gnn"), extra
+
+
+def _mesh_grid_cells() -> tuple:
+    """(a), (b) and (c) one after the other on the same spawn of 2 x 2
+    ranks: their results."""
+    lm_cell, lm_extra = _mesh_lm_cell()
+    fm_cell = _mesh_fm_cell()
+    gnn_cell, gnn_extra = _mesh_gnn_cell()
+    res = mesh_train_cells([lm_cell, fm_cell, gnn_cell], MESH_GRID,
+                           {"lm": "bf16", "recsys": "bf16", "gnn": "bf16"}, {"lm": MESH_GRID})
+    lm, fm, gnn = res["lm"], res["recsys"], res["gnn"]
+    lm.update(lm_extra)
+    gnn.update(gnn_extra)
+    check(lm["capacity"] == 240, f"deepseek mesh: capacity {lm['capacity']}")
+    per_step = [[st.get("fm_interact", 0) for st in r] for r in fm["launches"]]
+    fm["fm_launches"] = per_step
+    check(all(n == 1 for r in per_step for n in r),
+          f"deepfm mesh: fm_interact launches per rank per step {per_step}")
+    return lm, fm, gnn
+
+
+def _mesh_restart() -> dict:
+    """(d) ``launch.train --ranks 4 --mesh 2x2`` on the card (gloo ranks
+    sharing it, minitron-4b SMOKE): 2 steps with a checkpoint each, then
+    the run resumed from the step-0 commit ends in the step-1 checkpoint of
+    the uninterrupted run, bit for bit, with its loss."""
+    import numpy as np
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", "minitron-4b", "--shape", "train_4k", "--reduced", "--device", "cuda",
+            "--ranks", "4", "--mesh", "2x2", "--steps", "2", "--ckpt-every", "1",
+            "--log-every", "1000"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    base = tempfile.mkdtemp(prefix="mesh_ckpt_", dir=os.path.join(ROOT, "build"))
+    a, b = os.path.join(base, "a"), os.path.join(base, "b")
+    try:
+        t0 = time.perf_counter()
+        run_a = launch_train.run(argv + ["--ckpt-dir", a])
+        sec_a = time.perf_counter() - t0
+        shutil.copytree(a, b)
+        shutil.rmtree(os.path.join(b, "step_000000001"))
+        run_b = launch_train.run(argv + ["--ckpt-dir", b])
+
+        def leaves(d):
+            with np.load(os.path.join(d, "step_000000001", "shard_00000.npz")) as z:
+                return ckpt.manifest_names(d, 1), [z[f"leaf_{i}"].tobytes()
+                                                   for i in range(len(z.files))]
+        na, la = leaves(a)
+        nb, lb = leaves(b)
+        out = {"seconds_uninterrupted": sec_a, "leaves": len(na),
+               "bit_for_bit": na == nb and la == lb, "losses": run_a["losses"],
+               "resumed_first_step": run_b["first_step"], "resumed_losses": run_b["losses"]}
+        check(out["bit_for_bit"] and run_b["first_step"] == 1 and
+              run_b["losses"] == run_a["losses"][1:], f"mesh restart: {out}")
+        return out
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def mesh_train_phase() -> dict:
+    """Phase 9e: training over gloo ranks sharing the card through
+    bind(mesh=): (a) deepseek-moe-16b at full width (2 layers) on 2 x 2 at
+    2 x 4,096 tokens (the shard-mapped MoE, cap 240), (b) DeepFM FULL
+    train_batch on 2 x 2 (fm_interact on every rank, every step), (c)
+    DimeNet FULL width minibatch_lg on 2 x 2 (edges over data 2), one
+    spawn for the three, each held against the port on one device; (d) a
+    launch.train --ranks 4 --mesh 2x2 restart. Returns the
+    keys the fm_interact ``kernels`` entry gains."""
+    lm, fm, gnn = _mesh_grid_cells()
+    for cell, res in (("lm", lm), ("recsys", fm), ("gnn", gnn)):
+        emit({"phase": "mesh_train", "cell": cell, **res})
+    clock("mesh_cells")
+    emit({"phase": "mesh_train", "cell": "restart", **_mesh_restart()})
+    return {"mesh_launches_per_rank_step": fm["fm_launches"][0][0],
+            "mesh_ranks": len(fm["fm_launches"]), "mesh_steps": MESH_FM_STEPS}
 
 
 def warm_up() -> None:
@@ -4561,6 +4905,8 @@ def main() -> int:
     clock("train")
     gnn_phase()
     clock("gnn")
+    fm_entry.update(mesh_train_phase())
+    clock("mesh_train")
     emit({"phase": "done", "seconds": time.perf_counter() - T0,
           "kernel_build_s": built["seconds"]})
     emit({"kernels": report})

@@ -17,6 +17,14 @@ cross as host numpy arrays; restore places them on ``device``. A bfloat16
 leaf is stored as the reference stores one (its 2-byte payload as a
 ``|V2`` array, manifest dtype ``"bfloat16"``) and restored as bfloat16 by
 that dtype.
+
+On a mesh of ranks (``mesh=`` with the tree's logical ``axes``) every leaf
+is a rank's block (``distributed/sharding.local_block``): ``save`` gathers
+the leaves one at a time and rank 0 writes them whole, in the layout above,
+so a mesh checkpoint is the reference's global one; ``restore`` reads the
+whole leaves and keeps this rank's blocks. So a state saved on one mesh
+restores on another mesh or on one device, and the other way round (the
+reference's elastic restore through ``shardings=``).
 """
 from __future__ import annotations
 
@@ -94,13 +102,44 @@ def _from_host(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _gathered(tree, mesh, axes):
+    """(name, whole leaf on the host) pairs of a tree of blocks, gathered one
+    leaf at a time (every rank takes part; the host copies are rank 0's)."""
+    from repro_torch.distributed import sharding as sh
+    out = []
+    for (name, t), ax in zip(flatten(tree), sh.leaf_axes(axes, tree)):
+        whole = sh.gather_block(t.detach(), mesh, ax)
+        out.append((name, _to_host(whole) if mesh.rank == 0 else None))
+    return out
+
+
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
-         async_flush: bool = False) -> threading.Thread | None:
-    """Write one committed checkpoint. Returns the flush thread if async."""
+         async_flush: bool = False, mesh=None, axes=None) -> threading.Thread | None:
+    """Write one committed checkpoint. Returns the flush thread if async.
+    On a ``mesh`` every rank calls it with its blocks (``axes``: the tree's
+    logical axes); rank 0 writes, and every rank returns once the step is
+    committed."""
+    if mesh is not None:
+        gathered = _gathered(tree, mesh, axes)
+        thread = None
+        if mesh.rank == 0:
+            thread = _write(ckpt_dir, step, [n for n, _ in gathered],
+                            [h for _, h in gathered], keep, async_flush=False)
+        _barrier(mesh)
+        return thread
     os.makedirs(ckpt_dir, exist_ok=True)
     pairs = flatten(tree)
-    names = [name for name, _ in pairs]
-    hosted = [_to_host(leaf) for _, leaf in pairs]            # device -> host copy
+    return _write(ckpt_dir, step, [name for name, _ in pairs],
+                  [_to_host(leaf) for _, leaf in pairs], keep, async_flush)
+
+
+def _barrier(mesh) -> None:
+    from repro_torch.distributed import comm
+    comm.psum(torch.zeros(1, device=mesh.device), mesh, mesh.axis_names)
+
+
+def _write(ckpt_dir, step, names, hosted, keep, async_flush):
+    os.makedirs(ckpt_dir, exist_ok=True)
     host_leaves = [a for a, _ in hosted]
 
     def _flush():
@@ -164,11 +203,13 @@ def manifest_names(ckpt_dir: str, step: int) -> list[str]:
         return list(json.load(f)["names"])
 
 
-def restore(ckpt_dir: str, step: int, like_tree, device: str | torch.device = "cuda"):
+def restore(ckpt_dir: str, step: int, like_tree, device: str | torch.device = "cuda",
+            mesh=None, axes=None):
     """Load a committed step into the structure of ``like_tree`` (its leaves
     are placeholders: only the structure is read), as tensors on
-    ``device``."""
-    dev = resolve_device(device)
+    ``device``. On a ``mesh``: this rank's blocks (by ``axes``) of the
+    saved whole leaves, on the mesh's device."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     path = os.path.join(ckpt_dir, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -178,6 +219,11 @@ def restore(ckpt_dir: str, step: int, like_tree, device: str | torch.device = "c
             f"like_tree has {n_like} leaves but step {step} holds "
             f"{len(manifest['names'])}: {manifest['names']}")
     with np.load(os.path.join(path, "shard_00000.npz")) as data:
-        leaves = [_from_host(data[f"leaf_{i}"], dt).to(dev)
+        leaves = [_from_host(data[f"leaf_{i}"], dt)
                   for i, dt in zip(range(n_like), manifest["dtypes"])]
-    return unflatten(like_tree, leaves)
+    if mesh is None:
+        return unflatten(like_tree, (t.to(dev) for t in leaves))
+    from repro_torch.distributed import sharding as sh
+    tree = unflatten(like_tree, leaves)
+    return sh.tree_map_axes(lambda t, ax, name: sh.local_block(t, mesh, ax, name).to(dev, copy=True),
+                            tree, axes)

@@ -7,9 +7,12 @@ reference           here                             used by
 ``lax.ppermute``    :func:`ppermute` (a ring hop)    the bucket exchange
 ``lax.all_to_all``  :func:`all_to_all`               corpus-sharded dist keys,
                                                      ``exchange_bucket_tables``
-``lax.all_gather``  :func:`all_gather` (tiled)       frontiers, gathered rows
+``lax.all_gather``  :func:`all_gather` (tiled)       frontiers, gathered rows,
+                                                     ZeRO-3 leaves, K/V blocks
+``lax.psum_scatter`` :func:`reduce_scatter`          leaf gradients, table rows
 ``lax.pmin``        :func:`pmin`                     adjacency slices, checks
-``lax.psum``        :func:`psum`                     termination bit, stats
+``lax.psum``        :func:`psum`                     termination bit, stats,
+                                                     loss sums, node buffers
 ``lax.axis_index``  :func:`axis_index`               block offsets
 (replicated draw)   :func:`broadcast`                RandomGraph(S)
 ==================  ===============================  ===========================
@@ -19,6 +22,16 @@ and runs over the process group of this rank's slice of those axes; ranks
 are addressed by their index along the axes, so ``ppermute(t, mesh, axes,
 j)`` sends to index (me + j) % D and receives from (me - j) % D, the
 reference's ``perm = [(s, (s + j) % D)]``.
+
+Gradients: ``all_gather``, ``reduce_scatter``, ``all_to_all`` and ``psum``
+are differentiable. On a tensor that requires grad (and with grad on) each
+runs as an autograd Function whose backward is its transpose over the same
+ranks: an all_gather's is a reduce-scatter, a reduce-scatter's an
+all_gather, an all_to_all's the inverse exchange (the same call), a psum's a
+psum. That is the gradient of the sum over the ranks of what each rank
+differentiates: a rank that repeats another's work must weight its part of
+the objective down (``distributed/fsdp.py``). The backward's collectives are
+counted like any other.
 
 Under ``gloo`` every CUDA tensor goes through a pinned host buffer, copied
 by this layer, for every collective. Gloo's send/recv take CPU tensors only;
@@ -191,10 +204,7 @@ def ppermute(tensors, mesh, axes, shift: int):
     return out[0] if single else out
 
 
-def all_to_all(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """``t`` (D, ...): block s goes to index s; returns (D, ...) whose block
-    s is what index s sent here (``lax.all_to_all(split_axis=0,
-    concat_axis=0, tiled=False)``)."""
+def _all_to_all(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     group, ranks, me = _slice(mesh, axes)
     d = len(ranks)
     if t.shape[0] != d:
@@ -210,9 +220,18 @@ def all_to_all(t: torch.Tensor, mesh, axes) -> torch.Tensor:
         return c.back(recv, t.device)
 
 
-def all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """Every index's ``t`` concatenated along dim 0, in index order
-    (``lax.all_gather(tiled=True)``); every rank's ``t`` has one shape."""
+def all_to_all(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` (D, ...): block s goes to index s; returns (D, ...) whose block
+    s is what index s sent here (``lax.all_to_all(split_axis=0,
+    concat_axis=0, tiled=False)``). Differentiable: the exchange is its own
+    inverse, so the backward is the same call on the gradient."""
+    axes = tuple(axes)
+    if _differentiable(t, mesh, axes):
+        return _AllToAll.apply(t, mesh, axes)
+    return _all_to_all(t, mesh, axes)
+
+
+def _all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     group, ranks, me = _slice(mesh, axes)
     d = len(ranks)
     if d == 1:
@@ -224,6 +243,114 @@ def all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
         dist.all_gather(parts, send, group=group)
         c.sent(_nbytes(t) * (d - 1))
         return c.back(torch.cat(parts), t.device)
+
+
+_LOW = (torch.bfloat16, torch.float16)    # summed in f32 by the gloo reduce-scatter
+
+
+def _reduce_scatter(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    group, ranks, me = _slice(mesh, axes)
+    d = len(ranks)
+    if d == 1:
+        return t
+    if t.shape[0] % d:
+        raise ValueError(f"reduce_scatter needs a leading dim divisible by {d}, "
+                         f"got {tuple(t.shape)}")
+    t = t.contiguous()
+    n = t.shape[0] // d
+    with _Call(mesh, "reduce_scatter", t) as c:
+        send = c.out(t)
+        if mesh.backend == "nccl":
+            recv = c.buffer(send, (n, *t.shape[1:]))
+            dist.reduce_scatter_tensor(recv, send, group=group)
+            c.sent(_nbytes(t) * (d - 1) // d)
+            return c.back(recv, t.device)
+        # gloo: every index's block me through an all_to_all, summed here in
+        # index order (in f32 for a low-precision tensor)
+        recv = c.buffer(send)
+        dist.all_to_all_single(recv, send, group=group)
+        c.sent(_nbytes(t) * (d - 1) // d)
+        parts = c.back(recv, t.device).view(d, n, *t.shape[1:])
+    acc = parts[0].to(torch.float32) if t.dtype in _LOW else parts[0].clone()
+    for i in range(1, d):
+        acc += parts[i]
+    return acc.to(t.dtype)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _all_gather(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _reduce_scatter(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.axes), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _all_to_all(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.mesh, ctx.axes), None, None
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _all_reduce(t, mesh, axes, dist.ReduceOp.SUM, "psum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axes, dist.ReduceOp.SUM, "psum"), None, None
+
+
+def _differentiable(t: torch.Tensor, mesh, axes) -> bool:
+    return t.requires_grad and torch.is_grad_enabled() and axis_size(mesh, axes) > 1
+
+
+def _on_dim(fn, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn`` (a collective over dim 0) applied along ``dim``."""
+    if dim % max(t.dim(), 1) == 0:
+        return fn(t)
+    return fn(t.movedim(dim, 0)).movedim(0, dim)
+
+
+def all_gather(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """Every index's ``t`` concatenated along ``dim``, in index order
+    (``lax.all_gather(tiled=True)``); every rank's ``t`` has one shape.
+    Differentiable: the backward reduce-scatters along ``dim``."""
+    axes = tuple(axes)
+    if _differentiable(t, mesh, axes):
+        return _on_dim(lambda x: _AllGather.apply(x, mesh, axes), t, dim)
+    return _on_dim(lambda x: _all_gather(x, mesh, axes), t, dim)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The sum over the indices of ``t``, split along ``dim`` into D equal
+    blocks of which this index keeps its own (``lax.psum_scatter(tiled=True)``).
+    Under NCCL one ``reduce_scatter_tensor``; under gloo an all_to_all and a
+    sum in index order. Differentiable: the backward all-gathers."""
+    axes = tuple(axes)
+    if _differentiable(t, mesh, axes):
+        return _on_dim(lambda x: _ReduceScatter.apply(x, mesh, axes), t, dim)
+    return _on_dim(lambda x: _reduce_scatter(x, mesh, axes), t, dim)
 
 
 def broadcast(t: torch.Tensor, mesh, axes, root: int = 0) -> torch.Tensor:
@@ -263,5 +390,10 @@ def pmax(t: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 
 def psum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """Elementwise sum over the indices (a new tensor)."""
+    """Elementwise sum over the indices (a new tensor). Differentiable: the
+    backward psums the gradient (each rank's result feeds its own part of
+    the objective)."""
+    axes = tuple(axes)
+    if _differentiable(t, mesh, axes):
+        return _PSum.apply(t, mesh, axes)
     return _all_reduce(t, mesh, axes, dist.ReduceOp.SUM, "psum")

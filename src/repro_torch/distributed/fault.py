@@ -10,7 +10,10 @@
   * elastic restore   checkpoints are host numpy (the port's checkpoint,
                       the reference's format), so a job resumes onto
                       whatever device it runs on now (``device=``, the
-                      reference's ``shardings=``).
+                      reference's ``shardings=``), or onto a mesh of ranks
+                      (``mesh=`` with the state's logical ``axes``: every
+                      rank runs the loop on its blocks, rank 0 writes the
+                      whole leaves, each rank restores its blocks).
 """
 from __future__ import annotations
 
@@ -51,20 +54,26 @@ def run_with_restarts(
     max_restarts: int = 3,
     keep: int = 3,
     device: str | torch.device = "cpu",
+    mesh=None,
+    axes=None,
 ) -> tuple[Any, list[dict]]:
     """Deterministic crash-recovery driver.
 
     ``step_fn`` receives the global step index and must derive its batch
     from it (deterministic data order == exact recovery). Any exception
     triggers a restore from the latest commit (its leaves as tensors on
-    ``device``); unrecoverable only after ``max_restarts``."""
+    ``device``); unrecoverable only after ``max_restarts``. Under ranks
+    every rank calls it with the same arguments, and a step that fails
+    must fail on every rank (a collective of one rank alone waits out the
+    group's timeout and fails the run)."""
+    io = {"mesh": mesh, "axes": axes}
     history: list[dict] = []
     restarts = 0
     state = make_state()
     start = 0
     latest = ckpt.latest_step(ckpt_dir)
     if latest is not None:
-        state = ckpt.restore(ckpt_dir, latest, state, device=device)
+        state = ckpt.restore(ckpt_dir, latest, state, device=device, **io)
         start = latest + 1
 
     watchdog = StepWatchdog()
@@ -76,7 +85,7 @@ def run_with_restarts(
             metrics.update(watchdog.record(tm.seconds))
             history.append(metrics)
             if (step + 1) % ckpt_every == 0 or step == n_steps - 1:
-                ckpt.save(ckpt_dir, step, state, keep=keep)
+                ckpt.save(ckpt_dir, step, state, keep=keep, **io)
             step += 1
         except Exception:
             restarts += 1
@@ -85,7 +94,7 @@ def run_with_restarts(
             latest = ckpt.latest_step(ckpt_dir)
             state = make_state()
             if latest is not None:
-                state = ckpt.restore(ckpt_dir, latest, state, device=device)
+                state = ckpt.restore(ckpt_dir, latest, state, device=device, **io)
                 step = latest + 1
             else:
                 step = 0

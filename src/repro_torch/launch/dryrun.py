@@ -24,6 +24,12 @@ tensors with shapes and dtypes and no storage behind them. Reported:
     ``beam_score``) is not run (no kernel wrapper has a meta path): its
     ``flops`` and ``saved_bytes`` are null and ``hand_kernels`` names the
     kernel;
+  * ``per_rank``: for each of the reference's production meshes
+    (``launch.mesh.make_production_mesh``: 16 x 16, 2 x 16 x 16), the
+    bytes one rank holds of the state and of the batch when every leaf is
+    placed by the cell's ``state_axes`` and ``batch_axes`` (computed from
+    the shapes: no ranks are spawned), and the leaves whose dims do not
+    split evenly (counted at the larger block, as XLA pads them);
   * ``fits_one_card``: state + batch + saved bytes against the card's
     memory (``torch.cuda.get_device_properties(0).total_memory``, or 80 GiB
     when there is no card). Where ``saved_bytes`` is null the sum is a lower
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 
 import torch
@@ -47,6 +54,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs
 from repro_torch.checkpoint.checkpoint import flatten
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import mesh as M
 from repro_torch.launch import steps
 from repro_torch.obs import trace
 
@@ -99,6 +108,48 @@ def measure_step(bound, state, batch) -> dict:
             "saved_bytes": int(sum(st.nbytes() for st in saved.values()))}
 
 
+def _rank_leaves(tree, axes, path=""):
+    """(name, leaf, logical axes) of a state or batch; a batch key without
+    axes is replicated."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            sub = axes.get(k) if isinstance(axes, dict) else None
+            yield from _rank_leaves(tree[k], sub, f"{path}[{k!r}]")
+        return
+    if isinstance(tree, torch.Tensor):
+        yield path, tree, axes if axes is not None else (None,) * tree.dim()
+        return
+    for (name, t), ax in zip(flatten(tree), sh.leaf_axes(axes, tree)):
+        yield path + name, t, ax
+
+
+def per_rank_bytes(tree, axes, mesh) -> tuple[int, list[str]]:
+    """Bytes of one rank's blocks of ``tree`` on ``mesh`` (a dim that does
+    not split evenly counts its larger block) and the uneven leaves."""
+    total, uneven = 0, []
+    for name, t, ax in _rank_leaves(tree, axes):
+        n = t.element_size()
+        for size, dim_ax in zip(t.shape, sh.dim_axes(mesh, ax)):
+            d = math.prod(mesh.shape[a] for a in dim_ax)
+            n *= -(-size // d)
+            if size % d:
+                uneven.append(name)
+        total += n
+    return total, sorted(set(uneven))
+
+
+def _per_rank(bound, state, batch) -> dict | None:
+    if bound.state_axes is None:
+        return None
+    out = {}
+    for name, multi in (("16x16", False), ("2x16x16", True)):
+        mesh = M.make_production_mesh(multi_pod=multi)
+        st, st_uneven = per_rank_bytes(state, bound.state_axes, mesh)
+        bt, bt_uneven = per_rank_bytes(batch, bound.batch_axes or {}, mesh)
+        out[name] = {"state_bytes": st, "batch_bytes": bt, "uneven": st_uneven + bt_uneven}
+    return out
+
+
 def card_bytes() -> int:
     if torch.cuda.is_available():
         return int(torch.cuda.get_device_properties(0).total_memory)
@@ -119,7 +170,8 @@ def run_cell(arch_id: str, shape_name: str, reduced: bool = False) -> dict:
                "params": sum(t.numel() for _, t in flatten(params)),
                "param_bytes": _nbytes(params), "state_bytes": _nbytes(state),
                "batch_bytes": _nbytes(batch), "hand_kernels": kernels,
-               "flops": None, "saved_bytes": None}
+               "flops": None, "saved_bytes": None,
+               "per_rank": _per_rank(bound, state, batch)}
         if not kernels:
             out.update(measure_step(bound, state, batch))
     total = out["state_bytes"] + out["batch_bytes"] + (out["saved_bytes"] or 0)
@@ -132,6 +184,9 @@ def _line(r: dict) -> str:
     gib = lambda b: "-" if b is None else f"{b / 2**30:.3f}"
     flops = "-" if r["flops"] is None else f"{r['flops']:.3e}"
     note = f"  hand kernel: {', '.join(r['hand_kernels'])}" if r["hand_kernels"] else ""
+    if r.get("per_rank"):
+        pr = r["per_rank"]["16x16"]
+        note += f"  16x16 rank: state {gib(pr['state_bytes'])} GiB batch {gib(pr['batch_bytes'])} GiB"
     return (f"{r['arch'] + '/' + r['shape']:34s} {r['kind']:10s} params {r['params']:>14,d}  "
             f"state {gib(r['state_bytes']):>9s} GiB  batch {gib(r['batch_bytes']):>9s} GiB  "
             f"saved {gib(r['saved_bytes']):>9s} GiB  flops {flops:>10s}  "

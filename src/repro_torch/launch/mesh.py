@@ -108,13 +108,15 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, backend: str,
     return Mesh(axes, dict(zip(axes, shape)), backend, dev, rank, groups, CommStats())
 
 
-def make_production_mesh(*, backend: str, device: str | torch.device,
-                         multi_pod: bool = False) -> Mesh:
-    """The reference's production shapes: (data 16, model 16), or
-    (pod 2, data 16, model 16)."""
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production grids as shapes: (data 16, model 16), or
+    (pod 2, data 16, model 16), seen from rank 0. No process group stands
+    behind it (it takes no ranks to build): it serves the sharding
+    arithmetic (``sharding.block_shape``), as the dry run uses it, and any
+    collective on it fails."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, backend=backend, device=device)
+    return Mesh(axes, dict(zip(axes, shape)), "none", torch.device("meta"), 0, {})
 
 
 def init_process_group(rank: int, world_size: int, store_path: str, *, backend: str,

@@ -8,6 +8,14 @@ function, the input shapes and the step function, all on one device:
 dtype with an f32 master; DimeNet and recsys: f32), LM ``prefill`` and
 ``decode`` cells the serving steps, recsys ``serve`` and ``retrieval`` and
 the paper's ``ann_build`` and ``ann_search``.
+
+``mesh=`` (a ``launch.mesh.Mesh`` this rank belongs to) binds a ``train``
+cell over the mesh's ranks: ``init_fn`` gives this rank's ZeRO-3 blocks of
+the state (``state_axes``), ``step_fn`` takes the global batch and gives
+each rank its block (``batch_axes``), and the loss is the model's
+``loss_fn(mesh=)``. ``state_axes`` and ``batch_axes`` are the reference's
+logical-axes trees, also without a mesh. The serving cells' mesh paths are
+not ported: ``bind`` refuses them on a mesh.
 """
 from __future__ import annotations
 
@@ -37,33 +45,93 @@ class BoundStep:
     input_specs: dict            # {name: (shape, dtype)}
     device: torch.device
     kind: str
+    state_axes: Any = None       # logical-axes tree of the state (train: a TrainState)
+    batch_axes: Any = None       # logical-axes tree of the batch
+    mesh: Any = None
 
 
 OPT_CFG = adamw.AdamWConfig(lr=3e-4, warmup_steps=100, total_steps=10_000)
 
 
+def _train_state_axes(param_axes, master: bool = False) -> tstep.TrainState:
+    """TrainState(params, OptState(step, m, v, master?), residual=None) axes."""
+    return tstep.TrainState(
+        params=param_axes,
+        opt=adamw.OptState(step=(), m=param_axes, v=param_axes,
+                           master=param_axes if master else None),
+        residual=None)
+
+
+def _lm_batch_axes(shape: ShapeSpec) -> dict:
+    """The LM batch's logical axes (train, prefill, and decode at batch >= 16
+    as the reference's ``_lm_batch_axes``)."""
+    if shape.kind == "train":
+        return {"tokens": ("batch", None), "labels": ("batch", None)}
+    if shape.kind == "prefill":
+        return {"tokens": ("batch", None)}
+    if shape.dims["batch"] >= 16:
+        ax = ("layers", "cache_batch", "cache_seq", "kv_heads", "d_head")
+        return {"tokens": ("cache_batch",), "cache": {"k": ax, "v": ax, "pos": ("cache_batch",)}}
+    ax = ("layers", None, "cache_seq_flat", "kv_heads", "d_head")
+    return {"tokens": (None,), "cache": {"k": ax, "v": ax, "pos": (None,)}}
+
+
+def _gnn_axes(key: str, ndim: int = 1) -> tuple:
+    if key.startswith("edge_"):
+        # chunked (C, ce): chunk axis replicated, 'data' on ce
+        return (None, "edges") if ndim == 2 else ("edges",)
+    table = {"node_feat": ("nodes", None), "pos": ("nodes", None),
+             "triplet_kj": ("triplets",), "triplet_ji": ("triplets",),
+             "triplet_mask": ("triplets",)}
+    return table.get(key, (None,) * ndim)
+
+
+def _train(arch_id, shape, cfg, loss, init_params, param_axes, specs, batch_axes, dev,
+           mesh, compute_dtype=None) -> BoundStep:
+    """A ``train`` cell: ``loss(params, batch, mesh)``, OPT_CFG, and on a mesh
+    the blocks of the state."""
+    state_axes = _train_state_axes(param_axes, master=compute_dtype is not None)
+    train = tstep.make_train_step(
+        lambda p, b: loss(p, b, mesh), OPT_CFG, mesh=mesh,
+        param_axes=None if mesh is None else param_axes,
+        batch_axes=None if mesh is None else batch_axes)
+
+    def init_fn(gen):
+        if mesh is None:
+            return tstep.init_state(init_params(gen), compute_dtype=compute_dtype)
+        return tstep.init_state(init_params(gen), compute_dtype=compute_dtype, mesh=mesh,
+                                param_axes=param_axes)
+
+    return BoundStep(arch_id, shape, cfg, train, init_fn, specs, dev, "train",
+                     state_axes, batch_axes, mesh)
+
+
 def bind_with_cfg(arch_id: str, shape_name: str, cfg,
-                  device: str | torch.device = "cuda") -> BoundStep:
+                  device: str | torch.device = "cuda", mesh=None) -> BoundStep:
     """``bind`` with an explicit (overridden) model config, e.g. a depth
     cut to fit one card."""
-    return bind(arch_id, shape_name, reduced=False, device=device, _cfg=cfg)
+    return bind(arch_id, shape_name, reduced=False, device=device, mesh=mesh, _cfg=cfg)
 
 
 def bind(arch_id: str, shape_name: str, reduced: bool = False,
-         device: str | torch.device = "cuda", _cfg=None) -> BoundStep:
+         device: str | torch.device = "cuda", mesh=None, _cfg=None) -> BoundStep:
     arch = configs.get(arch_id)
     shape = arch.shape(shape_name)
     cfg = _cfg if _cfg is not None else arch.make_config(shape_name, reduced)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is not None and shape.kind != "train":
+        raise ValueError(f"{arch_id} {shape_name}: only train cells bind on a mesh "
+                         f"(the {shape.kind} mesh path is not ported)")
     if arch.family == "ann":
         return _bind_ann(arch, shape, cfg, reduced, dev)
     if arch.family == "lm":
-        return _bind_lm(arch_id, shape, cfg, reduced, dev)
+        return _bind_lm(arch_id, shape, cfg, reduced, dev, mesh)
     if arch.family == "gnn":
-        train = tstep.make_train_step(lambda p, b: dm.loss_fn(p, b, cfg), OPT_CFG)
-        return BoundStep(arch_id, shape, cfg, train,
-                         lambda gen: tstep.init_state(dm.init(gen, cfg, dev)),
-                         cb.gnn_input_specs(cfg, shape, reduced), dev, "train")
+        specs = cb.gnn_input_specs(cfg, shape, reduced)
+        batch_axes = {k: _gnn_axes(k, len(s)) for k, (s, _) in specs.items()}
+        return _train(arch_id, shape, cfg, lambda p, b, m: dm.loss_fn(p, b, cfg, mesh=m),
+                      lambda gen: dm.init(gen, cfg, dev), dm.param_axes(cfg), specs,
+                      batch_axes, dev, mesh)
     if arch.family != "recsys":
         raise ValueError(arch.family)
     specs = cb.recsys_input_specs(cfg, shape, reduced)
@@ -73,34 +141,33 @@ def bind(arch_id: str, shape_name: str, reduced: bool = False,
             return rs.score_candidates(batch["query_emb"], batch["cand_embs"], k=100)
 
         return BoundStep(arch_id, shape, cfg, retrieve_fn, lambda gen: {}, specs, dev,
-                         "retrieval")
+                         "retrieval", {}, {"query_emb": (None,), "cand_embs": ("candidates", None)})
+    batch_axes = {"sparse_ids": ("batch", None, None), "dense": ("batch", None)}
     if shape.kind == "train":
-        train = tstep.make_train_step(lambda p, b: rs.loss_fn(p, b, cfg), OPT_CFG)
-        return BoundStep(arch_id, shape, cfg, train,
-                         lambda gen: tstep.init_state(rs.init(gen, cfg, dev)), specs, dev,
-                         "train")
+        batch_axes["labels"] = ("batch",)
+        return _train(arch_id, shape, cfg, lambda p, b, m: rs.loss_fn(p, b, cfg, mesh=m),
+                      lambda gen: rs.init(gen, cfg, dev), rs.param_axes(cfg), specs,
+                      batch_axes, dev, mesh)
 
     def serve_fn(params, batch):
         return rs.serve(params, batch, cfg)
 
     return BoundStep(arch_id, shape, cfg, serve_fn, lambda gen: rs.init(gen, cfg, dev),
-                     specs, dev, "serve")
+                     specs, dev, "serve", rs.param_axes(cfg), batch_axes)
 
 
 def _bind_lm(arch_id: str, shape: ShapeSpec, cfg, reduced: bool,
-             dev: torch.device) -> BoundStep:
+             dev: torch.device, mesh=None) -> BoundStep:
     """The LM cells: ``train`` (chunked CE + aux, ``OPT_CFG``, the train
     state's layers in ``cfg.compute_dtype`` with an f32 master),
     ``prefill`` (a fresh cache of the batch's length a call) and
     ``decode`` (one token against ``batch["cache"]``, written in place)."""
     specs = cb.lm_input_specs(cfg, shape, reduced)
+    axes = _lm_batch_axes(shape)
     if shape.kind == "train":
-        train = tstep.make_train_step(lambda p, b: tf.loss_fn(p, b, cfg), OPT_CFG)
-
-        def init_fn(gen):
-            return tstep.init_state(tf.init(gen, cfg, dev), compute_dtype=cfg.compute_dtype)
-
-        return BoundStep(arch_id, shape, cfg, train, init_fn, specs, dev, "train")
+        return _train(arch_id, shape, cfg, lambda p, b, m: tf.loss_fn(p, b, cfg, mesh=m),
+                      lambda gen: tf.init(gen, cfg, dev), tf.param_axes(cfg), specs, axes,
+                      dev, mesh, compute_dtype=cfg.compute_dtype)
     if shape.kind == "prefill":
         def prefill_fn(params, batch):
             b, s = batch["tokens"].shape
@@ -108,13 +175,13 @@ def _bind_lm(arch_id: str, shape: ShapeSpec, cfg, reduced: bool,
             return tf.prefill(params, batch["tokens"], cache, cfg)
 
         return BoundStep(arch_id, shape, cfg, prefill_fn, lambda gen: tf.init(gen, cfg, dev),
-                         specs, dev, "prefill")
+                         specs, dev, "prefill", tf.param_axes(cfg), axes)
 
     def decode_fn(params, batch):
         return tf.decode_step(params, batch["tokens"], batch["cache"], cfg)
 
     return BoundStep(arch_id, shape, cfg, decode_fn, lambda gen: tf.init(gen, cfg, dev),
-                     specs, dev, "decode")
+                     specs, dev, "decode", tf.param_axes(cfg), axes)
 
 
 def _bind_ann(arch, shape: ShapeSpec, cfg, reduced: bool, dev: torch.device) -> BoundStep:

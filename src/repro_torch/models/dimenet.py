@@ -1,6 +1,7 @@
 """DimeNet (Gasteiger et al., arXiv:2003.03123): directional message passing
-on one device (port of ``repro.models.dimenet``), with both of the
-reference's triplet paths.
+(port of ``repro.models.dimenet``), with both of the reference's triplet
+paths, on one device or (training: ``forward``/``loss_fn`` with ``mesh=``)
+over a mesh of ranks.
 
 Basis (n_radial x n_spherical = 6 x 7 = 42 at the published width):
     basis(t=(k,j,i)) = rbf(d_kj) (x) P_l(cos theta_kji),   l = 0..L-1
@@ -21,7 +22,20 @@ Triplet paths:
 Parameters are the reference's tree (``node_in.w``, ``edge_in.w``,
 ``blocks.*`` stacked (B, ...), ``out_node.w``, ``out_final.w``); a forward
 splits the stack once with ``unbind``, so gradients reach the stacked
-leaves. No ``param_axes``: the port runs on one card.
+leaves. ``param_axes`` replicates every leaf, as the reference's.
+
+On a mesh: the edges (each chunk's ``ce``) split over ``data`` and the
+triplets over (data, model); nodes and params are whole on every rank
+(``distributed/fsdp.py`` sums the params' gradients). The factorized path
+splits the node buffer's width over ``model`` (its ``n_bilinear`` channels:
+rank j holds channels j nb/M onwards): pass A adds this rank's edges into
+its width slice, psummed over ``data``; pass B contracts the slice on this
+rank's edges and the channels are all-gathered over ``model``. The gather
+path gathers the edges' messages over ``data``, adds this rank's triplets
+into every edge, and reduce-scatters them back to the edges' ranks (summed
+over ``model``). The edges' outputs into the nodes are psummed over
+``data``, so every rank then computes the same node outputs and loss, and
+differentiates 1 / N of it.
 
 Sum orders (the contractions are written as broadcasts and reductions, not
 as cuBLAS calls, so an edge's value does not depend on how the edges are
@@ -66,6 +80,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed import comm, fsdp
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import nn
 
 
@@ -177,6 +193,14 @@ def param_table(cfg: DimeNetConfig) -> dict:
         "out_node": {"w": ((h, h), s)},
         "out_final": {"w": ((h, cfg.n_out), s)},
     }
+
+
+def param_axes(cfg: DimeNetConfig) -> dict:
+    """The params' logical axes: every leaf replicated (the stacked blocks
+    on ``layers``)."""
+    return {k: {n: ("layers",) + (None,) * (len(v[0]) - 1) for n, v in sub.items()}
+            if k == "blocks" else {n: (None,) * len(v[0]) for n, v in sub.items()}
+            for k, sub in param_table(cfg).items()}
 
 
 def init(generator: torch.Generator | None, cfg: DimeNetConfig,
@@ -315,7 +339,7 @@ class _PassB(torch.autograd.Function):
 
 
 def _factorized_block(x_nb, rbf, phi, w_sbf, edge_src, edge_dst, edge_mask, n_nodes,
-                      cfg: DimeNetConfig, edge_reverse=None):
+                      cfg: DimeNetConfig, edge_reverse=None, mesh=None):
     """Factorized triplet aggregation of one interaction block: for every
     edge ji,
         agg_ji = sum_{k in N(j)} x_kj *_nb [w_sbf . (rbf_kj (x) P_l(u_kj . u_ji))]
@@ -323,7 +347,9 @@ def _factorized_block(x_nb, rbf, phi, w_sbf, edge_src, edge_dst, edge_mask, n_no
     of each edge's reverse, -1 for none) the k == i backtracking triplet is
     subtracted exactly: P_l(-1) = (-1)^l. Edge arrays arrive (C, ce, ...)
     and are streamed chunk by chunk: one (ce, nb R W) contribution exists
-    at a time. Returns (C, ce, nb)."""
+    at a time. Returns (C, ce, nb). On a ``mesh`` the edges are this rank's
+    (``edge_reverse`` holds global edge ids) and the width is split over
+    ``model`` (module docstring)."""
     cch, ce, nb = x_nb.shape
     n_radial, l_max = cfg.n_radial, cfg.n_spherical
     x_nb = x_nb * edge_mask[..., None]
@@ -332,19 +358,37 @@ def _factorized_block(x_nb, rbf, phi, w_sbf, edge_src, edge_dst, edge_mask, n_no
     w_t = w_sbf.reshape(n_radial, l_max, nb).to(dt).permute(2, 0, 1)   # (nb, R, L)
     leg = torch.tensor(_legendre_coeffs(l_max), dtype=dt, device=dev)
     sign = torch.tensor([(-1.0) ** l for l in range(l_max)], dtype=dt, device=dev)
+    x_all, rbf_all = x_nb, rbf_w               # every edge's (for the reverse ids)
+    if mesh is not None:
+        data, width = sh.mesh_axes(mesh, "edges"), sh.mesh_axes(mesh, "d_ff")
+        if edge_reverse is not None:
+            x_all = comm.all_gather(x_nb, mesh, data, dim=1)
+            rbf_all = comm.all_gather(rbf_w, mesh, data, dim=1)
+        nbw = nb // sh.axis_count(mesh, "d_ff")
+        if nbw * sh.axis_count(mesh, "d_ff") != nb:
+            raise ValueError(f"n_bilinear {nb} does not split over {width}")
+        lo = sh.index_along(mesh, width) * nbw
+        chan = slice(lo, lo + nbw)
+        x_nb, x_all, w_t = x_nb[..., chan], x_all[..., chan], w_t[chan]
 
     # pass A: node buffer A[j] = sum_{kj} x_kj (x) rbf_kj (x) phi(u_kj)
     buf = _PassA.apply(x_nb, rbf_w, phi, edge_dst, n_nodes)
+    if mesh is not None:
+        buf = comm.psum(buf, mesh, data)
 
     # pass B: per edge ji gather A[src] and contract with phi(u_ji)
     x_rev = rbf_rev = None
     if edge_reverse is not None:
         rev = edge_reverse.reshape(cch * ce).long()
         rc = torch.clamp(rev, min=0)
-        x_rev = (x_nb.reshape(cch * ce, nb)[rc] * (rev >= 0).to(dt)[:, None]).reshape(cch, ce, nb)
-        rbf_rev = rbf_w.reshape(cch * ce, n_radial)[rc].reshape(cch, ce, n_radial)
-    return _PassB.apply(buf, edge_src, phi, x_rev, rbf_rev, w_t, leg, sign,
-                        _monomial_block_slices(l_max))
+        x_rev = (x_all.reshape(-1, x_nb.shape[-1])[rc] * (rev >= 0).to(dt)[:, None]
+                 ).reshape(cch, ce, -1)
+        rbf_rev = rbf_all.reshape(-1, n_radial)[rc].reshape(cch, ce, n_radial)
+    agg = _PassB.apply(buf, edge_src, phi, x_rev, rbf_rev, w_t, leg, sign,
+                       _monomial_block_slices(l_max))
+    if mesh is not None:
+        agg = comm.all_gather(agg, mesh, width, dim=-1)
+    return agg
 
 
 # ------------------------------------------------------------------ forward
@@ -354,13 +398,19 @@ def _unstack(blocks: dict) -> list[dict]:
     return [{k: split[k][i] for k in split} for i in range(n)]
 
 
-def forward(params, batch, cfg: DimeNetConfig) -> torch.Tensor:
+def forward(params, batch, cfg: DimeNetConfig, mesh=None) -> torch.Tensor:
     """batch keys: node_feat (N, F), pos (N, 3), edge_src/edge_dst (E,) or
     (C, ce) pre-chunked, edge_mask likewise, [edge_reverse like edge_src],
     [triplet_kj/triplet_ji/triplet_mask (T,) for "gather"], [graph_ids (N,),
     labels (G,), node_mask (N,) for "graph_reg"]. Returns (G, n_out) f32
-    for "graph_reg", (N, n_out) f32 node logits otherwise."""
+    for "graph_reg", (N, n_out) f32 node logits otherwise. On a ``mesh``
+    the edge and triplet arrays are this rank's blocks (edge ids stay
+    global) and every rank returns the whole output."""
     dt = cfg.compute_dtype
+    if mesh is not None:
+        params = sh.tree_map_axes(lambda t, ax, name: fsdp.use(t, mesh, ax), params,
+                                  param_axes(cfg))
+        data = sh.mesh_axes(mesh, "edges")
     pos = batch["pos"].float()
     src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
     emask = batch["edge_mask"].to(dt)
@@ -384,8 +434,12 @@ def forward(params, batch, cfg: DimeNetConfig) -> torch.Tensor:
     if gather:
         t_kj, t_ji = batch["triplet_kj"].long(), batch["triplet_ji"].long()
         t_mask = batch["triplet_mask"].to(dt)
-        u_flat = u.reshape(n_edges, 3)
-        rbf_flat = rbf.reshape(n_edges, -1)
+        u_all, rbf_all = u, rbf
+        if mesh is not None:                # the triplets' edges may be anyone's
+            u_all = comm.all_gather(u, mesh, data, dim=1)
+            rbf_all = comm.all_gather(rbf, mesh, data, dim=1)
+        u_flat = u_all.reshape(-1, 3)
+        rbf_flat = rbf_all.reshape(u_flat.shape[0], -1)
         cos_t = torch.sum(u_flat[t_kj] * u_flat[t_ji], dim=-1)
         ang = legendre_angular(cos_t, cfg.n_spherical)                   # (T, L)
         basis = (rbf_flat[t_kj][:, :, None] * ang[:, None, :]).reshape(t_kj.shape[0], -1).to(dt)
@@ -401,18 +455,24 @@ def forward(params, batch, cfg: DimeNetConfig) -> torch.Tensor:
         x_nb = x @ bp["w_src"].to(dt)                                    # (C, ce, nb)
         if gather:
             bw = basis @ bp["w_sbf"].to(dt)                              # (T, nb)
-            x_nb_flat = x_nb.reshape(n_edges, -1)
-            agg = torch.zeros((n_edges, x_nb.shape[-1]), dtype=dt, device=dev).index_add_(
-                0, t_ji, x_nb_flat[t_kj] * bw * t_mask[:, None]).reshape(x_nb.shape)
+            x_all = x_nb if mesh is None else comm.all_gather(x_nb, mesh, data, dim=1)
+            x_nb_flat = x_all.reshape(-1, x_nb.shape[-1])
+            agg = torch.zeros(x_nb_flat.shape, dtype=dt, device=dev).index_add_(
+                0, t_ji, x_nb_flat[t_kj] * bw * t_mask[:, None]).reshape(x_all.shape)
+            if mesh is not None:
+                agg = comm.reduce_scatter(agg, mesh, data, dim=1)
+                agg = comm.psum(agg, mesh, tuple(a for a in mesh.axis_names if a not in data))
         else:
             agg = _factorized_block(x_nb, rbf, phi, bp["w_sbf"], src, dst, emask, n_nodes,
-                                    cfg, edge_reverse=edge_reverse)
+                                    cfg, edge_reverse=edge_reverse, mesh=mesh)
         upd = agg @ bp["w_bil"].to(dt)                                   # (C, ce, h)
         x = F.silu(x @ bp["w_self"].to(dt) + (rbf_dt @ bp["w_rbf"].to(dt)) * x + upd) \
             * emask[..., None]
         # output block: edges -> dst nodes
         n_part = torch.zeros((n_nodes, h), dtype=dt, device=dev).index_add_(
             0, dst_flat, F.silu(x @ bp["w_out1"].to(dt)).reshape(n_edges, h))
+        if mesh is not None:
+            n_part = comm.psum(n_part, mesh, data)
         return x, node_out + n_part @ bp["w_out2"].to(dt)
 
     node_out = torch.zeros((n_nodes, h), dtype=dt, device=dev)
@@ -434,15 +494,20 @@ def forward(params, batch, cfg: DimeNetConfig) -> torch.Tensor:
     return out.float()                                                   # node logits
 
 
-def loss_fn(params, batch, cfg: DimeNetConfig) -> torch.Tensor:
+def loss_fn(params, batch, cfg: DimeNetConfig, mesh=None) -> torch.Tensor:
     """``graph_reg``: mean squared error against the per-graph labels;
     ``node_class``: the mean over ``label_mask`` (default all ones) of the
-    gold class's negative log-softmax."""
-    out = forward(params, batch, cfg)
+    gold class's negative log-softmax. On a ``mesh`` every rank computes the
+    whole loss and differentiates 1 / N of it."""
+    out = forward(params, batch, cfg, mesh)
     if cfg.task == "graph_reg":
-        return torch.mean((out[:, 0] - batch["labels"].float()) ** 2)
-    mask = batch.get("label_mask")
-    mask = torch.ones(out.shape[0], device=out.device) if mask is None else mask.float()
-    logp = F.log_softmax(out, dim=-1)
-    gold = torch.gather(logp, -1, batch["labels"][:, None].long())[:, 0]
-    return -torch.sum(gold * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        loss = torch.mean((out[:, 0] - batch["labels"].float()) ** 2)
+    else:
+        mask = batch.get("label_mask")
+        mask = torch.ones(out.shape[0], device=out.device) if mask is None else mask.float()
+        logp = F.log_softmax(out, dim=-1)
+        gold = torch.gather(logp, -1, batch["labels"][:, None].long())[:, 0]
+        loss = -torch.sum(gold * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if mesh is None:
+        return loss
+    return fsdp.objective(loss, loss / math.prod(mesh.shape.values()))

@@ -8,8 +8,18 @@ across).
 
 The FM second-order interaction goes through ``kernels.fm_interact``: its
 CUDA kernel for a tensor on the card, its plain version on the CPU (the
-reference's ``use_pallas`` switch is the tensor's device here). On one card
-the reference's sharding constraints have nothing to do and are left out.
+reference's ``use_pallas`` switch is the tensor's device here).
+
+Training on a mesh (``forward``/``loss_fn`` with ``mesh=``): ``table`` and
+``wide`` are ``table_rows`` blocks over the flat (data, model) grid and
+everything else is replicated (:func:`param_axes`); the batch's rows split
+over ``data``. The lookup is row-sharded: every rank gathers the ids of the
+data ranks, answers those in its own row range (zeros elsewhere), and the
+answers are reduce-scattered back to the data blocks over ``data`` and
+summed over ``model``; exactly one rank answers each id, so the sums are
+exact. A table's gradient lands on its own rows only. ``fm_interact`` runs
+on each rank's rows. Ranks that differ only in ``model`` compute the same
+rows, so each differentiates 1 / M of their loss (``distributed/fsdp.py``).
 """
 from __future__ import annotations
 
@@ -19,8 +29,11 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed import comm, fsdp
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.fm_interact import ops as fm_ops
 from repro_torch.models import nn
 
@@ -87,6 +100,24 @@ def embedding_bag_ragged(table: torch.Tensor, flat_ids: torch.Tensor,
 
 
 # --------------------------------------------------------------------- init
+def param_axes(cfg: RecsysConfig) -> dict:
+    """The params' logical axes (the reference's ``param_axes``): the tables
+    row-sharded, the rest replicated."""
+    axes: dict = {"table": ("table_rows", None), "wide": ("table_rows", None), "bias": ()}
+    if cfg.n_dense:
+        axes["dense_proj"] = {"w": (None, None)}
+    if cfg.mlp_dims:
+        n = len(cfg.mlp_dims) + 1
+        axes["mlp"] = {}
+        for i in range(n):
+            axes["mlp"][f"fc{i}"] = {"w": (None, "mlp_hidden" if i < n - 1 else None)}
+            axes["mlp"][f"b{i}"] = ("mlp_hidden" if i < n - 1 else None,)
+    if cfg.interaction == "cin":
+        axes["cin"] = {f"w{i}": (None, None, None) for i in range(len(cfg.cin_dims))}
+        axes["cin_out"] = {"w": (None, None)}
+    return axes
+
+
 def init(generator: torch.Generator | None, cfg: RecsysConfig,
          device: str | torch.device = "cuda") -> dict:
     """Random parameters with the reference's shapes and scales, drawn from
@@ -126,7 +157,25 @@ def _offsets(offsets: tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.tensor(offsets, dtype=torch.int64, device=device)
 
 
-def _field_embed(params: dict, batch: dict, cfg: RecsysConfig):
+def _sharded_rows(block: torch.Tensor, ids: torch.Tensor, mesh, dtype) -> torch.Tensor:
+    """Rows ``ids`` (global rows, this rank's data block of them) of the
+    ``table_rows``-sharded table whose block this rank holds, in ``dtype``:
+    (..., D) for ids (...). An id outside this rank's rows reads a spare
+    zero row that the lookup's backward skips (``padding_idx``), so the
+    gradient's scatter touches this rank's own ids only."""
+    data = sh.mesh_axes(mesh, "batch")
+    rows = sh.mesh_axes(mesh, "table_rows")
+    n = block.shape[0]
+    lo = sh.index_along(mesh, rows) * n
+    every = comm.all_gather(ids, mesh, data)                  # the data ranks' ids
+    mine = (every >= lo) & (every < lo + n)
+    padded = torch.cat([block, block.new_zeros((1, block.shape[1]))])
+    got = F.embedding(torch.where(mine, every - lo, n), padded, padding_idx=n).to(dtype)
+    got = comm.reduce_scatter(got, mesh, data)                # back to the data blocks
+    return comm.psum(got, mesh, tuple(a for a in rows if a not in data))
+
+
+def _field_embed(params: dict, batch: dict, cfg: RecsysConfig, mesh=None):
     """(B, F, hot) per-field ids -> (B, F, D) bagged embeddings in
     ``compute_dtype`` + the f32 wide logit (B,).
 
@@ -135,6 +184,10 @@ def _field_embed(params: dict, batch: dict, cfg: RecsysConfig):
     gathering first and casting the rows gives the same bits."""
     ids = batch["sparse_ids"].long() + _offsets(cfg.field_offsets, params["table"].device)[
         None, :, None]                                          # global rows
+    if mesh is not None:
+        emb = _sharded_rows(params["table"], ids, mesh, cfg.compute_dtype).sum(dim=-2)
+        wide = _sharded_rows(params["wide"], ids, mesh, torch.float32).sum(dim=-2)[..., 0]
+        return emb, wide.sum(dim=-1)
     emb = embedding_bag(params["table"], ids, compute_dtype=cfg.compute_dtype)
     wide = embedding_bag(params["wide"].float(), ids)[..., 0]  # (B, F)
     return emb, wide.sum(dim=-1)
@@ -152,11 +205,24 @@ def _cin(params: dict, x0: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
     return torch.cat(outs, dim=-1)
 
 
-def forward(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+def _replicated(params: dict, cfg: RecsysConfig, mesh) -> dict:
+    """The replicated leaves through ``fsdp.use`` (their gradients sum over
+    the mesh); the tables stay blocks."""
+    axes = param_axes(cfg)
+    return {k: (v if k in ("table", "wide") else
+                sh.tree_map_axes(lambda t, ax, name: fsdp.use(t, mesh, ax), v, axes[k]))
+            for k, v in params.items()}
+
+
+def forward(params: dict, batch: dict, cfg: RecsysConfig, mesh=None) -> torch.Tensor:
     """Returns pre-sigmoid logits (B,) in f32:
-    ``bias + wide + (fm | cin) + deep``, summed in that order."""
+    ``bias + wide + (fm | cin) + deep``, summed in that order. On a
+    ``mesh``: ``params`` are this rank's blocks and ``batch`` its data
+    rows, whose logits come back."""
     dt = cfg.compute_dtype
-    emb, wide_logit = _field_embed(params, batch, cfg)
+    if mesh is not None:
+        params = _replicated(params, cfg, mesh)
+    emb, wide_logit = _field_embed(params, batch, cfg, mesh)
     b = emb.shape[0]
     logit = params["bias"] + wide_logit
 
@@ -181,12 +247,19 @@ def forward(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
     return logit
 
 
-def loss_fn(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: RecsysConfig, mesh=None) -> torch.Tensor:
     """Mean binary cross-entropy of the f32 logits against ``labels``, in
-    the stable form ``max(l, 0) - l y + log1p(exp(-|l|))``."""
-    logit = forward(params, batch, cfg)
+    the stable form ``max(l, 0) - l y + log1p(exp(-|l|))``. On a ``mesh``:
+    the global mean, with the gradient of this rank's share."""
+    logit = forward(params, batch, cfg, mesh)
     y = batch["labels"].float()
-    return torch.mean(torch.clamp(logit, min=0) - logit * y + torch.log1p(torch.exp(-logit.abs())))
+    per = torch.clamp(logit, min=0) - logit * y + torch.log1p(torch.exp(-logit.abs()))
+    if mesh is None:
+        return torch.mean(per)
+    n = per.shape[0] * sh.axis_count(mesh, "batch")
+    local = per.sum()
+    value = comm.psum(local.detach(), mesh, sh.mesh_axes(mesh, "batch")) / n
+    return fsdp.objective(value, local / (n * fsdp.replication(mesh, ("batch",))))
 
 
 def serve(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:

@@ -1,7 +1,26 @@
 """Decoder-only transformer family (port of ``repro.models.transformer``):
 dense GQA (yi, granite, minitron) and MoE (dbrx, deepseek-moe), on one
-device (no ``mesh`` argument: the reference's sharding constraints and its
-shard-mapped MoE have nothing to do on one card).
+device or (training: ``forward``/``loss_fn`` with ``mesh=``) over a mesh of
+ranks.
+
+On a mesh (``distributed/fsdp.py``): the params are this rank's ZeRO-3
+blocks of :func:`param_axes` (the reference's logical axes), each gathered
+in the layer that reads it; the tokens are (``batch``@data, ``seq``@model)
+blocks, so the loss gets the rank's data rows and the forward takes its
+sequence block; attention gathers K and V over ``model`` (``seq_kv`` ->
+replicated) and masks with global positions; ``embed.table`` and
+``head.w`` are ``vocab``@model blocks, gathered for the lookup and the
+logits. The MoE computes what the reference computes on that mesh, which
+is not the single device's result: with at least 64 tokens a shard it is
+the shard-mapped MoE (each (data, model) shard routes its own tokens with
+its own capacity, and the expert slots cross ``model`` in two all_to_alls
+to the ranks that hold their experts, whose ``d_ff`` is gathered over data
+only); below that, the dispatch groups of ``_moe_groups`` (contiguous
+slices of the row-major B x S tokens, whatever the ranks hold: every rank
+gathers the tokens, runs the groups and keeps its own block's outputs).
+The aux loss reads the global ``probs`` and ``top_e`` means. ``moe_tiles=
+(dp, ml)`` on one device runs the shard-mapped dispatch as a loop over the
+mesh's token blocks (the card's check of the mesh run).
 
 Parameters are the reference's tree: ``embed.table`` (V, d), ``head.w``
 (d, V), ``ln_f`` (d,) and ``layers``, whose weights are stacked (L, ...).
@@ -40,6 +59,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.distributed import comm, fsdp
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import nn
 
 
@@ -142,6 +163,35 @@ def param_table(cfg: TransformerConfig) -> dict:
     }
 
 
+def param_axes(cfg: TransformerConfig) -> dict:
+    """The params' logical axes (the reference's ``param_axes``): ZeRO-3
+    ``fsdp`` storage of the layer matrices, experts on ``experts`` with
+    their ``d_ff`` on ``expert_ff``, the vocab on ``vocab``; norms and the
+    router replicated."""
+    kv_axes = (None, "fsdp") if (cfg.n_kv_heads * cfg.d_head) % 512 == 0 else ("fsdp", None)
+    layers = {"wq": ("layers", None, "fsdp"), "wk": ("layers", *kv_axes),
+              "wv": ("layers", *kv_axes), "wo": ("layers", None, "fsdp"),
+              "ln1": ("layers", None), "ln2": ("layers", None)}
+    if cfg.moe is None:
+        if cfg.ffn_type == "swiglu":
+            layers["w_gate"] = ("layers", None, "fsdp")
+        layers["w_up"] = ("layers", None, "fsdp")
+        layers["w_down"] = ("layers", "fsdp", None)
+    else:
+        layers["router"] = ("layers", None, None)
+        layers["we_gate"] = ("layers", "experts", None, "expert_ff")
+        layers["we_up"] = ("layers", "experts", None, "expert_ff")
+        layers["we_down"] = ("layers", "experts", "expert_ff", None)
+        if cfg.moe.n_shared:
+            sfa = (None, "fsdp") if (cfg.moe.n_shared * cfg.moe.d_ff) % 512 == 0 \
+                else ("fsdp", None)
+            layers["ws_gate"] = ("layers", *sfa)
+            layers["ws_up"] = ("layers", *sfa)
+            layers["ws_down"] = ("layers", *reversed(sfa))
+    return {"embed": {"table": ("vocab", None)}, "head": {"w": (None, "vocab")},
+            "layers": layers, "ln_f": (None,)}
+
+
 def _spec_items(table: dict, path: str = ""):
     """(path, (shape, scale)) in the reference's flatten order (sorted keys)."""
     for k in sorted(table):
@@ -235,6 +285,80 @@ def _attend_block(qg, kb, vb, q_pos, pb, m_prev, l_prev, o_prev, causal, dt):
     return m_new, l_new, o_prev * corr[..., None] + o_blk.float()
 
 
+# ------------------------------------------------------------- parallelism
+@dataclasses.dataclass(frozen=True)
+class _Par:
+    """How a forward's tokens are split. ``mesh`` None and ``tiles`` False:
+    one device, the reference without a mesh. ``mesh``: this rank holds
+    token block (``di``, ``mi``) of a (dp, ml) grid, B x S global.
+    ``tiles``: one device computes every block's shard-mapped dispatch."""
+    mesh: Any = None
+    dp: int = 1
+    ml: int = 1
+    di: int = 0
+    mi: int = 0
+    tiles: bool = False
+    axes: Any = None               # param_axes(cfg) on a mesh
+
+    @property
+    def n(self) -> int:
+        return self.dp * self.ml
+
+    def all_axes(self) -> tuple[str, ...]:
+        return tuple(self.mesh.axis_names)
+
+    def data_axes(self) -> tuple[str, ...]:
+        return sh.mesh_axes(self.mesh, "batch")
+
+    def model_axes(self) -> tuple[str, ...]:
+        return sh.mesh_axes(self.mesh, "seq")
+
+
+def _par(cfg: TransformerConfig, mesh, moe_tiles) -> _Par:
+    if mesh is not None and moe_tiles is not None:
+        raise ValueError("moe_tiles emulates a mesh on one device: pass one or the other")
+    if moe_tiles is not None:
+        return _Par(dp=int(moe_tiles[0]), ml=int(moe_tiles[1]), tiles=True)
+    if mesh is None:
+        return _Par()
+    return _Par(mesh, sh.axis_count(mesh, "batch"), sh.axis_count(mesh, "seq"),
+                sh.index_along(mesh, sh.mesh_axes(mesh, "batch")),
+                sh.index_along(mesh, sh.mesh_axes(mesh, "seq")), False, param_axes(cfg))
+
+
+def _use(par: _Par, name: str, w: torch.Tensor, over=None) -> torch.Tensor:
+    """Layer leaf ``name`` (one layer's slice of its block) to compute with."""
+    if par.mesh is None:
+        return w
+    return fsdp.use(w, par.mesh, par.axes["layers"][name][1:], over=over)
+
+
+def _tok_axis(t: int, mesh) -> str | None:
+    """Widest shardable logical axis for a length-t token dimension."""
+    if mesh is None:
+        return None
+    if t % math.prod(mesh.shape.values()) == 0:
+        return "tokens_flat"
+    return "batch" if t % sh.axis_count(mesh, "batch") == 0 else None
+
+
+def _moe_groups(t: int, par: _Par) -> int:
+    """Dispatch-group count: the flat grid size when tokens allow, else the
+    data-parallel size, else 1 (one device)."""
+    if par.mesh is None:
+        return 1
+    if t % par.n == 0 and t // par.n >= 16:
+        return par.n
+    if t % par.dp == 0 and t // par.dp >= 4:
+        return par.dp
+    return 1
+
+
+def _capacity(t: int, m: MoEConfig) -> int:
+    cap = max(int(-(-t * m.top_k // m.n_experts) * m.capacity_factor), m.top_k)
+    return -(-cap // 8) * 8
+
+
 # ---------------------------------------------------------------------- MoE
 def _top_k(probs: torch.Tensor, k: int):
     """``lax.top_k``: the k largest, ties to the lower index."""
@@ -250,17 +374,21 @@ def _route(x: torch.Tensor, router: torch.Tensor, k: int):
     return probs, top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9), top_e
 
 
-def _moe_dispatch(x, router, wg, wu, wd, cfg: TransformerConfig, cap: int):
-    """The mesh-free dropping MoE over one dispatch group: route, sort the
-    (token, choice) slots by expert (stable), give each expert its first
-    ``cap`` slots, run the expert GEMMs on (E, cap, d), and give each kept
-    slot its expert's output row at its rank; a slot past its expert's
-    capacity contributes zero (the reference's ascending masked
-    dynamic_update_slice combine). x: (t, d). Returns (y, probs, top_e)."""
+def _moe_dispatch(x, router, wg, wu, wd, cfg: TransformerConfig, cap: int,
+                  exchange=None):
+    """The dropping MoE over one dispatch group: route, sort the (token,
+    choice) slots by expert (stable), give each expert its first ``cap``
+    slots, run the expert GEMMs on (E, cap, d), and give each kept slot its
+    expert's output row at its rank; a slot past its expert's capacity
+    contributes zero (the reference's ascending masked dynamic_update_slice
+    combine). x: (t, d). ``exchange``: (to the experts' ranks, back), the
+    shard-mapped MoE's two all_to_alls around the GEMMs, whose ``wg``,
+    ``wu``, ``wd`` then hold this rank's experts. Returns (y, probs,
+    top_e)."""
     m = cfg.moe
     dt = cfg.compute_dtype
     t, d = x.shape
-    e, k = wg.shape[0], m.top_k
+    e, k = router.shape[-1], m.top_k
     mg = t * k
     probs, top_p, top_e = _route(x, router, k)
     ge = top_e.reshape(mg)
@@ -277,17 +405,26 @@ def _moe_dispatch(x, router, wg, wu, wd, cfg: TransformerConfig, cap: int):
     dest = torch.where(keep, slot, e * cap)
     buf = x.new_zeros((e * cap + 1, d)).index_put((dest,), x[stok])[:-1]
     buf = buf.view(e, cap, d)
+    if exchange is not None:
+        buf = exchange[0](buf)
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg.to(dt))) * \
         torch.einsum("ecd,edf->ecf", buf, wu.to(dt))
-    y_e = torch.einsum("ecf,efd->ecd", h, wd.to(dt)).reshape(e * cap, d)
+    y_e = torch.einsum("ecf,efd->ecd", h, wd.to(dt))
+    if exchange is not None:
+        y_e = exchange[1](y_e)
+    y_e = y_e.reshape(e * cap, d)
     contrib = torch.where(keep[:, None], y_e[slot], 0.0) * sw[:, None]
     inv = torch.argsort(order)
     y = contrib[inv].reshape(t, k, d).sum(dim=1)
     return y, probs, top_e
 
 
-def _moe_ffn(p, y3, cfg: TransformerConfig):
-    """Capacity-dispatch MoE. y3: (B, S, d) -> ((B, S, d), aux loss)."""
+def _moe_ffn(p, y3, cfg: TransformerConfig, par: _Par = _Par()):
+    """Capacity-dispatch MoE. y3: (B, S, d) (on a mesh: this rank's token
+    block) -> ((B, S, d), aux loss); the aux loss is the global one, the
+    same on every rank."""
+    if par.mesh is not None or par.tiles:
+        return _moe_ffn_split(p, y3, cfg, par)[:2]
     m = cfg.moe
     b, s, d = y3.shape
     t = b * s
@@ -302,10 +439,8 @@ def _moe_ffn(p, y3, cfg: TransformerConfig):
         w = torch.zeros((t, e), dtype=dt, device=y3.device).scatter(1, top_e, top_p.to(dt))
         y = torch.einsum("ted,te->td", y_e, w)
     elif m.impl == "dropping":
-        cap = max(int(-(-t * k // e) * m.capacity_factor), k)
-        cap = -(-cap // 8) * 8
         y, probs, top_e = _moe_dispatch(x_flat, p["router"], p["we_gate"], p["we_up"],
-                                        p["we_down"], cfg, cap)
+                                        p["we_down"], cfg, _capacity(t, m))
     else:
         raise ValueError(f"moe impl {m.impl!r}")
     if m.n_shared:
@@ -317,6 +452,101 @@ def _moe_ffn(p, y3, cfg: TransformerConfig):
         0, top_e.reshape(-1), torch.ones(t * k, device=y3.device)) / (t * k)
     aux = e * torch.sum(me * ce_frac)
     return y.reshape(b, s, d), aux
+
+
+def _moe_ffn_split(p, y3, cfg: TransformerConfig, par: _Par):
+    """``_moe_ffn`` over a token grid: on a mesh of ranks, or one device
+    looping over the grid's blocks (``par.tiles``). Returns (y, aux, the
+    top-k experts of y3's tokens)."""
+    m = cfg.moe
+    b, s, d = y3.shape
+    dt = cfg.compute_dtype
+    e, k = m.n_experts, m.top_k
+    t_glob = b * s * (1 if par.tiles else par.n)
+    t_loc = t_glob // par.n
+    use_sm = m.impl == "dropping" and e % par.ml == 0 and t_loc >= 64
+    mesh = par.mesh
+    full = lambda name: _use(par, name, p[name])
+    summed = True              # probs / top_e are this rank's shares (psum them)
+    if par.tiles:
+        if not use_sm:
+            raise ValueError(f"moe_tiles emulates the shard-mapped MoE, which needs "
+                             f">= 64 tokens a block ({t_loc})")
+        bl, sl = b // par.dp, s // par.ml
+        ys, probs, top_e = [], [], []
+        for i in range(par.dp):
+            row = []
+            for j in range(par.ml):
+                blk = y3[i * bl:(i + 1) * bl, j * sl:(j + 1) * sl].reshape(-1, d)
+                y, pr, te = _moe_dispatch(blk, p["router"], p["we_gate"], p["we_up"],
+                                          p["we_down"], cfg, _capacity(t_loc, m))
+                row.append(y.reshape(bl, sl, d))
+                probs.append(pr)
+                top_e.append(te)
+            ys.append(torch.cat(row, dim=1))
+        y = torch.cat(ys, dim=0).reshape(b * s, d)
+        probs, top_e = torch.cat(probs), torch.cat(top_e)
+        summed = False
+    elif m.impl == "dense" or use_sm:
+        router = full("router")
+        x_loc = y3.reshape(-1, d)
+        if m.impl == "dense":
+            wg, wu, wd = full("we_gate"), full("we_up"), full("we_down")
+            probs, top_p, top_e = _route(x_loc, router, k)
+            h = F.silu(torch.einsum("td,edf->tef", x_loc, wg.to(dt))) * \
+                torch.einsum("td,edf->tef", x_loc, wu.to(dt))
+            y_e = torch.einsum("tef,efd->ted", h, wd.to(dt))
+            w = torch.zeros((x_loc.shape[0], e), dtype=dt, device=y3.device).scatter(
+                1, top_e, top_p.to(dt))
+            y = torch.einsum("ted,te->td", y_e, w)
+        else:
+            data = par.data_axes()
+            wg = _use(par, "we_gate", p["we_gate"], over=data)    # (e_loc, d, f)
+            wu = _use(par, "we_up", p["we_up"], over=data)
+            wd = _use(par, "we_down", p["we_down"], over=data)
+            e_loc, ml, model = e // par.ml, par.ml, par.model_axes()
+            cap = _capacity(t_loc, m)
+
+            def to_experts(buf):                   # (E, cap, d) -> (e_loc, ml * cap, d)
+                got = comm.all_to_all(buf.reshape(ml, e_loc, cap, d), mesh, model)
+                return got.transpose(0, 1).reshape(e_loc, ml * cap, d)
+
+            def back(y_e):                         # (e_loc, ml * cap, d) -> (E, cap, d)
+                y_e = y_e.reshape(e_loc, ml, cap, d).transpose(0, 1).contiguous()
+                return comm.all_to_all(y_e, mesh, model).reshape(e, cap, d)
+
+            y, probs, top_e = _moe_dispatch(x_loc, router, wg, wu, wd, cfg, cap,
+                                            exchange=(to_experts, back))
+    else:
+        # the dispatch groups are contiguous slices of the global row-major
+        # tokens: gather them, run every group, keep this block's outputs
+        x_all = comm.all_gather(comm.all_gather(y3, mesh, par.model_axes(), dim=1),
+                                mesh, par.data_axes(), dim=0)
+        g = _moe_groups(t_glob, par)
+        tg = t_glob // g
+        cap = _capacity(tg, m)
+        ws = [full(n) for n in ("router", "we_gate", "we_up", "we_down")]
+        parts = [_moe_dispatch(xg, *ws, cfg, cap) for xg in x_all.reshape(g, tg, d)]
+        y_all = torch.cat([q[0] for q in parts]).reshape(b * par.dp, s * par.ml, d)
+        y = y_all[par.di * b:(par.di + 1) * b, par.mi * s:(par.mi + 1) * s].reshape(-1, d)
+        probs, top_e = torch.cat([q[1] for q in parts]), torch.cat([q[2] for q in parts])
+        summed = False
+    x_flat = y3.reshape(-1, d)
+    if m.n_shared:
+        hs = F.silu(x_flat @ full("ws_gate").to(dt)) * (x_flat @ full("ws_up").to(dt))
+        y = y + hs @ full("ws_down").to(dt)
+    # load-balance aux loss over the global probs and top_e
+    p_sum = probs.float().sum(dim=0)
+    counts = torch.zeros(e, device=y3.device).index_add_(
+        0, top_e.reshape(-1), torch.ones(top_e.numel(), device=y3.device))
+    if summed and mesh is not None:
+        p_sum = comm.psum(p_sum, mesh, par.all_axes())
+        counts = comm.psum(counts, mesh, par.all_axes())
+    aux = e * torch.sum((p_sum / t_glob) * (counts / (t_glob * k)))
+    if not summed and not par.tiles:           # keep this block's routing
+        top_e = top_e.reshape(b * par.dp, s * par.ml, k)[
+            par.di * b:(par.di + 1) * b, par.mi * s:(par.mi + 1) * s]
+    return y.reshape(b, s, d), aux, top_e.reshape(b, s, k)
 
 
 def _dense_ffn(p, y, cfg: TransformerConfig):
@@ -339,23 +569,36 @@ def _qkv(p, y, positions, cfg: TransformerConfig):
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
-def _ffn(p, x, cfg: TransformerConfig):
+_EXPERT_LEAVES = ("router", "we_gate", "we_up", "we_down", "ws_gate", "ws_up", "ws_down")
+
+
+def _ffn(p, x, cfg: TransformerConfig, par: _Par = _Par()):
     """The block's second half: x + FFN(rmsnorm(x)) and the aux loss."""
     y = nn.rmsnorm({"scale": p["ln2"]}, x)
     if cfg.moe is None:
         return x + _dense_ffn(p, y, cfg), torch.zeros((), device=x.device)
-    y_moe, aux = _moe_ffn(p, y, cfg)
+    y_moe, aux = _moe_ffn(p, y, cfg, par)
     return x + y_moe, aux
 
 
-def _layer(p, x, positions, cfg: TransformerConfig):
-    """One pre-norm block. x: (B, S, d)."""
+def _layer(p, x, positions, cfg: TransformerConfig, par: _Par = _Par()):
+    """One pre-norm block. x: (B, S, d), this rank's token block on a mesh
+    (``positions`` global); the layer's leaves are gathered here, so remat
+    gathers them again."""
     b, s, _ = x.shape
+    kv_pos = positions
+    if par.mesh is not None:
+        p = {k: (w if k in _EXPERT_LEAVES else _use(par, k, w)) for k, w in p.items()}
     y = nn.rmsnorm({"scale": p["ln1"]}, x)
     q, k, v = _qkv(p, y, positions, cfg)
-    o = _attend(q, k, v, positions, positions, cfg)
+    if par.mesh is not None and par.ml > 1:
+        # seq_kv -> replicated: every rank attends over the whole sequence
+        k = comm.all_gather(k, par.mesh, par.model_axes(), dim=1)
+        v = comm.all_gather(v, par.mesh, par.model_axes(), dim=1)
+        kv_pos = torch.arange(s * par.ml, device=x.device).expand(b, s * par.ml)
+    o = _attend(q, k, v, positions, kv_pos, cfg)
     x = x + (o.reshape(b, s, -1) @ p["wo"].to(cfg.compute_dtype))
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg, par)
 
 
 def _cast_layer_params(layers: dict, cfg: TransformerConfig) -> dict:
@@ -399,14 +642,31 @@ def _scan_layers(body, x, layer_params: list[dict], cfg: TransformerConfig):
     return x, torch.cat(aux)
 
 
-def forward(params, tokens, cfg: TransformerConfig):
-    """tokens (B, S) -> final hidden states (B, S, d) + aux loss."""
+def forward(params, tokens, cfg: TransformerConfig, mesh=None, moe_tiles=None):
+    """tokens (B, S) -> final hidden states (B, S, d) + aux loss. On a
+    ``mesh``: ``params`` are this rank's blocks, ``tokens`` its data rows
+    (B / dp, S), and the result is its (B / dp, S / ml) block of hidden
+    states with the global aux loss. ``moe_tiles``: module docstring."""
+    return _forward(params, tokens, cfg, _par(cfg, mesh, moe_tiles))
+
+
+def _forward(params, tokens, cfg: TransformerConfig, par: _Par):
     b, s = tokens.shape
-    x = nn.embed(params["embed"], tokens, cfg.compute_dtype)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    if par.mesh is not None:
+        if s % par.ml:
+            raise ValueError(f"seq {s} does not split over {par.ml} model ranks")
+        s //= par.ml
+        tokens = tokens[:, par.mi * s:(par.mi + 1) * s]
+        table = fsdp.use(params["embed"]["table"], par.mesh, par.axes["embed"]["table"])
+        x = nn.embed({"table": table}, tokens, cfg.compute_dtype)
+        ln_f = fsdp.use(params["ln_f"], par.mesh, par.axes["ln_f"])
+    else:
+        x = nn.embed(params["embed"], tokens, cfg.compute_dtype)
+        ln_f = params["ln_f"]
+    positions = (torch.arange(s, device=tokens.device) + par.mi * s).expand(b, s)
     layers = _unstack(_cast_layer_params(params["layers"], cfg))
-    x, aux = _scan_layers(lambda xc, lp: _layer(lp, xc, positions, cfg), x, layers, cfg)
-    x = nn.rmsnorm({"scale": params["ln_f"]}, x)
+    x, aux = _scan_layers(lambda xc, lp: _layer(lp, xc, positions, cfg, par), x, layers, cfg)
+    x = nn.rmsnorm({"scale": ln_f}, x)
     return x, torch.sum(aux)
 
 
@@ -417,25 +677,42 @@ def _ce_block(xb, lb, head):
     return torch.sum(lse - gold)
 
 
-def loss_fn(params, batch, cfg: TransformerConfig, aux_weight: float = 0.01):
+def loss_fn(params, batch, cfg: TransformerConfig, mesh=None, aux_weight: float = 0.01,
+            moe_tiles=None):
     """Chunked cross-entropy (``ce_chunk`` positions a chunk, one chunk when
     it does not divide S; each chunk checkpointed while grad is on, so no
-    chunk's f32 logits outlive it) + ``aux_weight`` x the MoE aux loss."""
-    x, aux = forward(params, batch["tokens"], cfg)
+    chunk's f32 logits outlive it) + ``aux_weight`` x the MoE aux loss. On a
+    ``mesh`` (``batch`` this rank's data rows): the global loss, whose
+    gradient is this rank's share (its tokens' cross-entropy, 1 / N of the
+    aux loss)."""
+    par = _par(cfg, mesh, moe_tiles)
+    x, aux = _forward(params, batch["tokens"], cfg, par)
     b, s, d = x.shape
+    labels = batch["labels"]
+    if par.mesh is not None:
+        labels = labels[:, par.mi * s:(par.mi + 1) * s]
+        head = fsdp.use(params["head"]["w"], mesh, par.axes["head"]["w"])
+        ce = _ce_sum(x, labels, head.to(cfg.compute_dtype), cfg)
+        n_tok = b * s * par.n
+        value = comm.psum(ce.detach(), mesh, par.all_axes()) / n_tok + aux_weight * aux
+        return fsdp.objective(value, ce / n_tok + aux_weight * aux / par.n)
     head = params["head"]["w"].to(cfg.compute_dtype)
+    return _ce_sum(x, labels, head, cfg) / (b * s) + aux_weight * aux
+
+
+def _ce_sum(x, labels, head, cfg: TransformerConfig):
+    b, s, d = x.shape
     c = min(cfg.ce_chunk, s)
     n_chunk = s // c if s % c == 0 else 1
     c = s // n_chunk
     ck = torch.is_grad_enabled()
-    labels = batch["labels"]
     parts = []
     for i in range(n_chunk):
         blk = slice(i * c, (i + 1) * c)
         args = (x[:, blk], labels[:, blk], head)
         parts.append(checkpoint(_ce_block, *args, use_reentrant=False) if ck else
                      _ce_block(*args))
-    return torch.sum(torch.stack(parts)) / (b * s) + aux_weight * aux
+    return torch.sum(torch.stack(parts))
 
 
 # ------------------------------------------------------------------ serving

@@ -10,6 +10,11 @@ NamedTuples, lists) of tensors, walked in the reference's flatten order
 in place (the reference donates them); elementwise updates run over row
 blocks of at most ``_BLOCK`` elements, which bounds their temporaries
 without changing a value.
+
+On a mesh (``mesh=`` with the parameters' logical ``axes``) every leaf is
+this rank's block (``distributed/fsdp.py``): the update is elementwise, so
+it runs on the blocks as they are; only the global norm of the clipping
+reads the whole tree (:func:`global_norm`).
 """
 from __future__ import annotations
 
@@ -96,33 +101,46 @@ def _sq_sum(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, axes=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, leaves summed in flatten
-    order in f32."""
+    order in f32. On a mesh (``tree``'s leaves are blocks placed by the
+    logical ``axes``, a list in flatten order or a tree) each leaf's square
+    sum is its blocks' sum over the ranks, counted once: a rank whose index
+    along the leaf's replicated axes is not 0 adds nothing, and one psum
+    over the mesh sums the vector of leaves."""
+    leaves = [x for _, x in flatten(tree)]
+    sq = [_sq_sum(x) for x in leaves]
+    if mesh is not None:
+        from repro_torch.distributed import comm
+        from repro_torch.distributed import sharding as sh
+        axes = axes if isinstance(axes, list) else sh.leaf_axes(axes, tree)
+        own = [sh.index_along(mesh, sh.replicated_axes(mesh, ax)) == 0 for ax in axes]
+        vec = torch.stack([s if o else torch.zeros_like(s) for s, o in zip(sq, own)])
+        sq = list(comm.psum(vec, mesh, mesh.axis_names).unbind(0))
     total = None
-    for _, x in flatten(tree):
-        sq = _sq_sum(x)
-        total = sq if total is None else total + sq
+    for s in sq:
+        total = s if total is None else total + s
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, mesh=None, axes=None):
     """Scale every leaf by ``min(1, max_norm / max(norm, 1e-9))`` (in the
     leaf's dtype). Returns (clipped grads, norm); the grads are scaled in
     place."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, mesh, axes)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for _, g in flatten(grads):
         g.mul_(scale.to(g.dtype))
     return grads, norm
 
 
-def apply(cfg: AdamWConfig, params, grads, state: OptState):
+def apply(cfg: AdamWConfig, params, grads, state: OptState, mesh=None, axes=None):
     """One AdamW step. Returns (params, state, metrics): the same parameter
     and moment tensors, updated in place. ``grads`` has the parameters'
     structure (a leaf the loss never read carries zeros: ``train.step``
     gives them, so weight decay still moves that leaf, as in the
-    reference); its leaves are clipped in place."""
+    reference); its leaves are clipped in place. On a mesh, ``axes`` is
+    the parameters' logical-axes tree and every leaf a block."""
     pairs = flatten(params)
     p_leaves = [p for _, p in pairs]
     g_leaves = [g for _, g in flatten(grads)]
@@ -133,7 +151,11 @@ def apply(cfg: AdamWConfig, params, grads, state: OptState):
             raise ValueError(f"gradient {name}: shape {tuple(g.shape)}, expected {tuple(p.shape)}")
     metrics = {}
     if cfg.clip_norm is not None:
-        _, gnorm = clip_by_global_norm(g_leaves, cfg.clip_norm)
+        leaf_axes = None
+        if mesh is not None:
+            from repro_torch.distributed import sharding as sh
+            leaf_axes = sh.leaf_axes(axes, params)
+        _, gnorm = clip_by_global_norm(g_leaves, cfg.clip_norm, mesh, leaf_axes)
         metrics["grad_norm"] = gnorm
     step = state.step + 1
     lr = schedule_lr(cfg, step)

@@ -1352,3 +1352,74 @@ def test_two_hop_sampler_on_the_card_equals_the_cpu(dev):
                              seeds.cpu(), 15, 10)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------------------- mesh training slice
+@pytest.fixture(scope="module")
+def mesh_train_on_the_card(tmp_path_factory):
+    """deepseek-smoke (f32, 2 x 128 tokens: the shard-mapped MoE) and
+    deepfm-smoke (f32) trained on 2 x 2 gloo ranks sharing the card
+    (tests/_mesh_workers.train_jobs) from the port's seeded state, with the
+    one-device results on the card they are held to (deepseek's MoE as the
+    mesh's per-shard loop, ``moe_tiles=(2, 2)``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    import _mesh_workers as W
+    from repro_torch import configs
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import value_and_grad
+    jobs, want = {}, {}
+    for name, arch, shape, family in (("lm", "deepseek-moe-16b", "train_4k", "lm"),
+                                      ("recsys", "deepfm", "train_batch", "recsys")):
+        cfg = dataclasses.replace(configs.get(arch).make_config(shape, True),
+                                  compute_dtype=torch.float32)
+        one = steps.bind(arch, shape, reduced=True, device="cpu", _cfg=cfg)
+        state = one.init_fn(torch.Generator().manual_seed(3))
+        gen = torch.Generator().manual_seed(4)
+        if family == "lm":
+            t = torch.randint(0, cfg.vocab, (2, 129), generator=gen, dtype=torch.int32)
+            batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]}]
+            loss_fn = lambda p, b, cfg=cfg: tf.loss_fn(p, b, cfg, moe_tiles=(2, 2))
+        else:
+            batches = [cb.recsys_smoke_batch(gen, cfg, one.shape, "cpu")]
+            loss_fn = lambda p, b, cfg=cfg: rs.loss_fn(p, b, cfg)
+        jobs[name] = dict(family=family, arch=arch, shape=shape, cfg=cfg, mesh=(2, 2),
+                          device="cuda", state=state, batches=batches)
+        want[name] = value_and_grad(loss_fn, _to_card(state.params), _to_card(batches[0]))
+    out = tmp_path_factory.mktemp("mesh_card")
+    M.spawn(W.train_jobs, 4, (jobs, str(out)), backend="gloo")
+    got = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(4)]
+    return got, want
+
+
+def _to_card(tree):
+    from repro_torch.checkpoint.checkpoint import flatten, unflatten
+    return unflatten(tree, (t.cuda() for _, t in flatten(tree)))
+
+
+@pytest.mark.parametrize("name", ["lm", "recsys"])
+def test_mesh_train_on_the_card_equals_one_device(mesh_train_on_the_card, name):
+    """Loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+    largest (f32; the recsys tower is bf16 in both: within 2e-2)."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    got, want = mesh_train_on_the_card
+    loss, grads = want[name]
+    for r in range(4):
+        assert abs(got[r][name]["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+    for leaf, g in flatten(grads):
+        g = g.float().cpu()
+        tol = 2e-2 if "['mlp']" in leaf or "['dense_proj']" in leaf else 1e-4
+        err = float((got[0][name]["grads"][leaf].float() - g).abs().max())
+        assert err <= tol * float(g.abs().max()) + 1e-30, (leaf, err)
+
+
+def test_mesh_recsys_launches_fm_interact_on_every_rank(mesh_train_on_the_card):
+    got, _ = mesh_train_on_the_card
+    for r in range(4):
+        assert got[r]["recsys"]["launches"].get("fm_interact", 0) >= 1
