@@ -202,7 +202,8 @@ Phases (any failure raises and exits non-zero):
      invariants checked) and ogb_products at its 2,449,029 nodes and the
      largest edge cut of OGB_CUTS that fits (1 warm-up and 1 timed step:
      14.4 s a step at 8.1M edges); step ms, edges/s (graphs/s),
-     peak memory beside the dry run's predicted bytes at the same shapes;
+     peak memory beside the dry run's predicted bytes and its peak_bytes
+     at the same shapes;
      every loss and norm finite, the fixed batch's loss falling; gather
      against factorized at FULL width in f32 (rtol 5e-4, atol 5e-5);
      the SMOKE config at each shape on the card against the CPU;
@@ -231,6 +232,23 @@ Phases (any failure raises and exits non-zero):
      (minitron-4b SMOKE, gloo ranks on the card), 2 steps with a
      checkpoint each, then the run resumed from the step-0 commit ends in
      the step-1 checkpoint bit for bit.
+  9f. mesh serving (after 9e): one spawn of 2 x 2 gloo ranks sharing the
+     card, through bind(mesh=) and the serving entry points, every input
+     drawn from its seed: (a) minitron-4b at full width, 2 of its 32
+     layers, prefill of 2 x 8,192 tokens into a cache of 8,200 (cache_seq
+     over model 2), then 4 decode steps; (b) decode_32k at batch 8 against
+     a seeded 32,768 cache, 4 steps; (c) long_500k at batch 1 against a
+     seeded 524,288 cache split over all 4 ranks (cache_seq_flat), 4 steps;
+     (d) deepseek-moe-16b at full width, 2 of 28 layers, prefill of
+     2 x 4,096 (2,048 tokens a shard: the shard-mapped MoE), then 2 decode
+     steps; (e) DeepFM FULL serve_bulk, fm_interact once a rank; (f)
+     retrieval_cand over the flat grid, top-100; each held against the
+     port on one device with the same params and inputs (the MoE prefill as
+     the mesh's per-shard loop, moe_tiles=(2, 2)): bf16 logits and each
+     rank's cache block within 3e-2 of the one device's largest magnitude,
+     DeepFM's scores within 1e-5, retrieval ids equal at every rank set
+     apart by more than the f32 error bound; step s, the collectives' s
+     and bytes, resident bytes a rank.
 Cut to fit the script's time (about 1,200 s): the sort-oracle witness and the
 PQ path run over the first 500k rows of the 1M corpus (CUT_N), the sharded
 phase's ShardedANN build over the first 64k (SHARD_BUILD_N; 125k before
@@ -3664,7 +3682,8 @@ def dry_run_bytes(cfg, shape: str, batch: dict) -> dict:
     m = dryrun.measure_step(b, state, meta)
     state_b, batch_b = dryrun._nbytes(state), dryrun._nbytes(meta)
     return {"state_bytes": state_b, "batch_bytes": batch_b, "saved_bytes": m["saved_bytes"],
-            "predicted_bytes": state_b + batch_b + m["saved_bytes"], "flops": m["flops"]}
+            "predicted_bytes": state_b + batch_b + m["saved_bytes"], "flops": m["flops"],
+            "peak_bytes": m["peak_bytes"], "temp_bytes": m["temp_bytes"]}
 
 
 def gnn_train_cell(shape: str, batch: dict, cfg=None, unit: str = "edges",
@@ -3705,6 +3724,9 @@ def gnn_train_cell(shape: str, batch: dict, cfg=None, unit: str = "edges",
             f"{unit}_per_s": per_s, "peak_memory_gib": peak / 2**30,
             "allocated_at_start_gib": at_start / 2**30,
             "dry_run_predicted_gib": pred["predicted_bytes"] / 2**30,
+            "dry_run_peak_gib": pred["peak_bytes"] / 2**30,
+            # the card's peak less what was allocated besides the state and the batch
+            "step_peak_gib": (peak - at_start + pred["state_bytes"] + pred["batch_bytes"]) / 2**30,
             "dry_run": pred, "tflop_per_s": pred["flops"] / (t["ms"] / 1e3) / 1e12,
             "losses": losses, "grad_norms": norms}
 
@@ -4808,6 +4830,360 @@ def mesh_train_phase() -> dict:
             "mesh_ranks": len(fm["fm_launches"]), "mesh_steps": MESH_FM_STEPS}
 
 
+MESH_SERVE_SEED = SEED + 80
+MESH_SERVE_LAYERS = 2                   # minitron-4b's 32 and deepseek-moe-16b's 28 layers cut
+                                        # to 2: every step gathers each layer's blocks (gloo)
+MESH_PREFILL = (2, 8192, 8200)          # (a) batch, prompt tokens, cache positions
+MESH_DECODE = (8, 32_768)               # (b) decode_32k at batch 8 (of 128), its cache
+MESH_LONG = 524_288                     # (c) long_500k's cache at batch 1
+MESH_DS_PREFILL = (2, 4096, 4104)       # (d) 2,048 tokens a shard: the shard-mapped MoE
+MESH_SERVE_STEPS = {"lm": 4, "moe": 2}  # decode steps a cell
+MESH_SERVE_TOL = {"logits": 3e-2, "cache": 3e-2, "scores": 1e-5}
+
+
+def _serve_lm_cfg(arch_id: str):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch_id).make_config("prefill_32k", False),
+                               n_layers=MESH_SERVE_LAYERS)
+
+
+def _serve_tokens(cfg, shape, seed: int, n: int) -> tuple:
+    """A prompt of ``shape`` and ``n`` decode token vectors of its batch,
+    from one seeded generator on the card (the same on every rank)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, shape, generator=gen, device="cuda", dtype=torch.int32)
+    return prompt, [torch.randint(0, cfg.vocab, (shape[0],), generator=gen, device="cuda",
+                                  dtype=torch.int32) for _ in range(n)]
+
+
+def _serve_cache(cfg, batch: int, seq: int, seed: int) -> dict:
+    """A seeded whole cache with ``pos`` at its last MESH_SERVE_STEPS["lm"]
+    positions (the same on every rank)."""
+    return _random_cache(cfg, batch, seq, seq - MESH_SERVE_STEPS["lm"],
+                         torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _written(cache: dict, lo: int, hi: int) -> dict:
+    """The cache positions [lo, hi) (of a block: its own part of them)."""
+    return {k: cache[k][:, :, lo:hi].float().cpu() for k in ("k", "v")}
+
+
+def _serve_decode(dec, params, cache, tokens, mesh=None) -> tuple:
+    """Bound decode steps (on a mesh: this rank's blocks of the tokens, the
+    logits gathered whole); (logits of each step, step seconds, cache)."""
+    from repro_torch.distributed import sharding as sh
+    logits, secs = [], []
+    for tok in tokens:
+        if mesh is not None:
+            tok = sh.local_block(tok, mesh, dec.batch_axes["tokens"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = dec.step_fn(params, {"tokens": tok, "cache": cache})
+        if mesh is not None:
+            out = sh.gather_block(out, mesh, dec.out_axes[0])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        logits.append(out.float().cpu())
+    return logits, secs, cache
+
+
+def _serve_stats(mesh, secs, resident: int) -> dict:
+    coll = mesh.stats.summary()
+    return {"step_s": secs, "resident_bytes": resident,
+            "collective_s": sum(v["seconds"] for v in coll.values()),
+            "sent_bytes": sum(v["sent_bytes"] for v in coll.values()),
+            "staged_bytes": sum(v["staged_bytes"] for v in coll.values()),
+            "collectives": {k: v["calls"] for k, v in coll.items()}}
+
+
+def mesh_serve_rank(rank, world, grid, out_dir):
+    """One rank of the mesh serving cells on the card (gloo, sharing
+    cuda:0), each in turn, every input drawn from its seed on every rank
+    and cut to this rank's blocks: (a) minitron-4b prefill of 2 x 8,192
+    tokens into a cache of 8,200, then 4 decode steps; (b) decode_32k at
+    batch 8 against a seeded 32,768 cache (``cache_seq``); (c) long_500k
+    at batch 1 against a seeded 524,288 cache (``cache_seq_flat``); (d)
+    deepseek-moe-16b prefill of 2 x 4,096 tokens (the shard-mapped MoE),
+    then 2 decode steps; (e) DeepFM FULL serve_bulk; (f) retrieval_cand.
+    Writes each cell's gathered outputs, this rank's cache blocks (the
+    written positions of (b) and (c)), its step seconds, collectives and
+    resident bytes."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as tf
+    torch.cuda.set_device(0)
+    mesh = M.make_mesh(grid, ("data", "model"), backend="gloo", device="cuda:0")
+    out, saved = {}, {}
+
+    def prefill_cell(label, arch_id, dims, n_dec, seed):
+        cfg = _serve_lm_cfg(arch_id)
+        pre = S.bind_with_cfg(arch_id, "prefill_32k", cfg, mesh=mesh)
+        params = pre.init_fn(torch.Generator(device="cuda").manual_seed(MESH_SERVE_SEED))
+        _free()
+        b, s, n = dims
+        prompt, toks = _serve_tokens(cfg, (b, s), seed, n_dec)
+        mesh.stats.reset()
+        cache = tf.init_cache(cfg, b, n, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(params, sh.local_block(prompt, mesh, pre.batch_axes["tokens"]),
+                                   cache, cfg, mesh)
+        logits = sh.gather_block(logits, mesh, pre.out_axes[0])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        saved[label] = {"prefill": logits.float().cpu(),
+                        "cache": {k: cache[k].float().cpu() for k in ("k", "v")}}
+        dec = S.bind_with_cfg(arch_id, "decode_32k", cfg, mesh=mesh)
+        dl, secs, cache = _serve_decode(dec, params, cache, toks, mesh)
+        saved[label]["decode"] = dl
+        saved[label]["after"] = {k: cache[k].float().cpu() for k in ("k", "v")}
+        out[label] = _serve_stats(mesh, [sec] + secs,
+                                  fsdp.state_bytes(params) + fsdp.state_bytes(cache))
+        return params
+
+    params = prefill_cell("a", "minitron-4b", MESH_PREFILL, MESH_SERVE_STEPS["lm"],
+                          MESH_SERVE_SEED + 1)
+    cfg = _serve_lm_cfg("minitron-4b")
+    for label, shape, (b, seq) in (("b", "decode_32k", MESH_DECODE),
+                                   ("c", "long_500k", (1, MESH_LONG))):
+        dec = S.bind_with_cfg("minitron-4b", shape, cfg, mesh=mesh)
+        whole = _serve_cache(cfg, b, seq, MESH_SERVE_SEED + 2)
+        cache = sh.tree_local_blocks(whole, mesh, dec.batch_axes["cache"])
+        del whole
+        _free()
+        _, toks = _serve_tokens(cfg, (b, 1), MESH_SERVE_SEED + 3, MESH_SERVE_STEPS["lm"])
+        mesh.stats.reset()
+        dl, secs, cache = _serve_decode(dec, params, cache, toks, mesh)
+        n = cache["k"].shape[2]
+        lo = sh.index_along(mesh, sh.mesh_axes(mesh, dec.batch_axes["cache"]["k"][2])) * n
+        first = seq - MESH_SERVE_STEPS["lm"]
+        saved[label] = {"decode": dl, "lo": lo,
+                        "written": _written(cache, max(first - lo, 0), n) if lo + n > first
+                        else None}
+        out[label] = _serve_stats(mesh, secs, fsdp.state_bytes(params) + fsdp.state_bytes(cache))
+        del cache
+        _free()
+    del params
+    _free()
+    prefill_cell("d", "deepseek-moe-16b", MESH_DS_PREFILL, MESH_SERVE_STEPS["moe"],
+                 MESH_SERVE_SEED + 4)
+    _free()
+    bound = S.bind("deepfm", "serve_bulk", mesh=mesh)
+    params = bound.init_fn(torch.Generator(device="cuda").manual_seed(MESH_SERVE_SEED + 5))
+    whole = _recsys_batch(S.bind("deepfm", "serve_bulk", device="meta"), MESH_SERVE_SEED + 6)
+    batch = {k: sh.local_block(whole[k], mesh, ax) for k, ax in bound.batch_axes.items()}
+    del whole
+    mesh.stats.reset()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = sh.gather_block(bound.step_fn(params, batch), mesh, bound.out_axes)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    saved["e"] = {"scores": scores.cpu()}
+    out["e"] = {**_serve_stats(mesh, [sec], fsdp.state_bytes(params)),
+                "fm_interact_launches": LAUNCHES["fm_interact"]}
+    del params, batch
+    ret = S.bind("deepfm", "retrieval_cand", mesh=mesh)
+    whole = _retrieval_batch(ret)
+    batch = {"query_emb": whole["query_emb"],
+             "cand_embs": sh.local_block(whole["cand_embs"], mesh, ret.batch_axes["cand_embs"])}
+    del whole
+    mesh.stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top, idx = ret.step_fn({}, batch)
+    torch.cuda.synchronize()
+    saved["f"] = {"top": top.cpu(), "ids": idx.cpu()}
+    out["f"] = _serve_stats(mesh, [time.perf_counter() - t0], fsdp.state_bytes(batch))
+    torch.save(saved, os.path.join(out_dir, f"serve_{rank}.pt"))
+    _rank_out(out_dir, rank, out)
+
+
+def _retrieval_batch(bound) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(MESH_SERVE_SEED + 7)
+    return {name: torch.randn(shape, generator=gen, device="cuda")
+            for name, (shape, _) in bound.input_specs.items()}
+
+
+def _err(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    want = want.float().cpu()
+    return float((got.float() - want).abs().max()) / (float(want.abs().max()) + 1e-30)
+
+
+def _one_device_lm(label, arch_id, dims, n_dec, seed, ranks_saved, grid, moe_tiles=None):
+    """The mesh cell (a) or (d) on one device: the same seeded params,
+    prompt and decode tokens; each rank's prefill and final cache blocks
+    and the gathered logits held to it."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as tf
+    cfg = _serve_lm_cfg(arch_id)
+    pre = S.bind_with_cfg(arch_id, "prefill_32k", cfg, device="cuda")
+    params = pre.init_fn(torch.Generator(device="cuda").manual_seed(MESH_SERVE_SEED))
+    b, s, n = dims
+    prompt, toks = _serve_tokens(cfg, (b, s), seed, n_dec)
+    cache = tf.init_cache(cfg, b, n, device="cuda")
+    with torch.no_grad():
+        logits, cache = tf.prefill(params, prompt, cache, cfg, moe_tiles=moe_tiles)
+    errs = {"prefill_logits": _err(ranks_saved[0][label]["prefill"], logits)}
+    axes = tf.cache_axes()
+    cache_err = 0.0
+    for r, sv in enumerate(ranks_saved):
+        m = _shape_mesh(r, grid)
+        for k in ("k", "v"):
+            cache_err = max(cache_err, _err(sv[label]["cache"][k],
+                                            sh.local_block(cache[k], m, axes[k])))
+    errs["prefill_cache"] = cache_err
+    dec = S.bind_with_cfg(arch_id, "decode_32k", cfg, device="cuda")
+    with torch.no_grad():
+        dl, _, cache = _serve_decode(dec, params, cache, toks)
+    errs["decode_logits"] = max(_err(g, w) for g, w in zip(ranks_saved[0][label]["decode"], dl))
+    after = 0.0
+    for r, sv in enumerate(ranks_saved):
+        m = _shape_mesh(r, grid)
+        for k in ("k", "v"):
+            after = max(after, _err(sv[label]["after"][k], sh.local_block(cache[k], m, axes[k])))
+    errs["decode_cache"] = after
+    del params, cache
+    _free()
+    return errs
+
+
+def _one_device_decode(label, shape, dims, ranks_saved, grid):
+    """(b) or (c) on one device from the same seeded cache and tokens: the
+    logits and each rank's written positions."""
+    from repro_torch.launch import steps as S
+    cfg = _serve_lm_cfg("minitron-4b")
+    dec = S.bind_with_cfg("minitron-4b", shape, cfg, device="cuda")
+    params = dec.init_fn(torch.Generator(device="cuda").manual_seed(MESH_SERVE_SEED))
+    b, seq = dims
+    cache = _serve_cache(cfg, b, seq, MESH_SERVE_SEED + 2)
+    _, toks = _serve_tokens(cfg, (b, 1), MESH_SERVE_SEED + 3, MESH_SERVE_STEPS["lm"])
+    with torch.no_grad():
+        dl, secs, cache = _serve_decode(dec, params, cache, toks)
+    first = seq - MESH_SERVE_STEPS["lm"]
+    errs = {"decode_logits": max(_err(g, w) for g, w in zip(ranks_saved[0][label]["decode"],
+                                                             dl)), "cache_written": 0.0}
+    flat = shape == "long_500k"
+    rows = b // (1 if flat else grid[0])
+    for r, sv in enumerate(ranks_saved):
+        got = sv[label]["written"]
+        if got is None:                       # no written position in this rank's block
+            continue
+        lo = sv[label]["lo"]
+        row0 = 0 if flat else (r // grid[1]) * rows
+        hi = max(first, lo) + got["k"].shape[2]
+        want = _written({k: cache[k][:, row0:row0 + rows] for k in ("k", "v")},
+                        max(first, lo), hi)
+        for k in ("k", "v"):
+            errs["cache_written"] = max(errs["cache_written"], _err(got[k], want[k]))
+    out = {**errs, "one_device_step_s": secs}
+    del params, cache
+    _free()
+    return out
+
+
+def mesh_serve_phase() -> dict:
+    """Phase 9f: the serving cells over 2 x 2 gloo ranks sharing the card,
+    one spawn for (a)-(f) (mesh_serve_rank), then each held against the
+    port on one device with the same params and inputs: logits and cache
+    blocks within MESH_SERVE_TOL of the one device's largest magnitude
+    (bf16), DeepFM's f32 scores within 1e-5, retrieval ids equal at every
+    rank whose score is set apart from its neighbours by more than the
+    f32 error bound (PERF.md §2); fm_interact once a rank. Returns the keys
+    the fm_interact ``kernels`` entry gains."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as S
+    world = MESH_GRID[0] * MESH_GRID[1]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _free()
+        t0 = time.perf_counter()
+        M.spawn(mesh_serve_rank, world, (MESH_GRID, tmp), backend="gloo", timeout_s=900)
+        wall = time.perf_counter() - t0
+        ranks = _ranks_in(tmp, world)
+        saved = [torch.load(os.path.join(tmp, f"serve_{r}.pt")) for r in range(world)]
+    tol = MESH_SERVE_TOL
+    res = {"a": _one_device_lm("a", "minitron-4b", MESH_PREFILL, MESH_SERVE_STEPS["lm"],
+                               MESH_SERVE_SEED + 1, saved, MESH_GRID),
+           "b": _one_device_decode("b", "decode_32k", MESH_DECODE, saved, MESH_GRID),
+           "c": _one_device_decode("c", "long_500k", (1, MESH_LONG), saved, MESH_GRID),
+           "d": _one_device_lm("d", "deepseek-moe-16b", MESH_DS_PREFILL, MESH_SERVE_STEPS["moe"],
+                               MESH_SERVE_SEED + 4, saved, MESH_GRID, moe_tiles=MESH_GRID)}
+    bound = S.bind("deepfm", "serve_bulk", device="cuda")
+    params = bound.init_fn(torch.Generator(device="cuda").manual_seed(MESH_SERVE_SEED + 5))
+    with torch.no_grad():
+        scores = bound.step_fn(params, _recsys_batch(bound, MESH_SERVE_SEED + 6))
+    res["e"] = {"scores_max_abs_err": float((saved[0]["e"]["scores"].cuda() - scores)
+                                            .abs().max())}
+    del params, scores
+    ret = S.bind("deepfm", "retrieval_cand", device="cuda")
+    batch = _retrieval_batch(ret)
+    top, idx = ret.step_fn({}, batch)
+    distinct = _distinct_ranks(batch, top.shape[0])
+    got = saved[0]["f"]["ids"].cuda().long()
+    res["f"] = {"ids_equal": int((got == idx.long()).sum()), "distinct_ranks": int(distinct.sum()),
+                "ids_equal_at_distinct": bool(((got == idx.long()) | ~distinct).all()),
+                "every_rank_same": all(torch.equal(s["f"]["ids"], saved[0]["f"]["ids"])
+                                       for s in saved)}
+    del batch
+    _free()
+    names = {"a": "minitron-4b prefill_32k (2 x 8,192 into 8,200) + 4 decode steps",
+             "b": "minitron-4b decode_32k (batch 8, cache 32,768, cache_seq)",
+             "c": "minitron-4b long_500k (batch 1, cache 524,288, cache_seq_flat)",
+             "d": "deepseek-moe-16b prefill 2 x 4,096 (shard-mapped MoE) + 2 decode steps",
+             "e": "deepfm FULL serve_bulk (262,144 rows)",
+             "f": "retrieval_cand (1,003,520 candidates, top-100)"}
+    for cell in "abcdef":
+        rk = [r[cell] for r in ranks]
+        line = {"phase": "mesh_serve", "cell": cell, "label": names[cell], "grid": list(MESH_GRID),
+                "step_s": [r["step_s"] for r in rk],
+                "collective_s": [r["collective_s"] for r in rk],
+                "sent_bytes": [r["sent_bytes"] for r in rk],
+                "staged_bytes": [r["staged_bytes"] for r in rk],
+                "resident_bytes": [r["resident_bytes"] for r in rk],
+                "collectives_rank0": rk[0]["collectives"], **res[cell]}
+        if cell in "abcd":
+            line["reduced"] = f"{MESH_SERVE_LAYERS} layers, full width"
+        if cell == "e":
+            line["fm_interact_launches"] = [r["fm_interact_launches"] for r in rk]
+        emit(line)
+    for cell in "abcd":
+        for key, err in res[cell].items():
+            if key.endswith(("logits", "cache", "cache_written")):
+                check(err <= tol["logits"], f"mesh_serve {cell}: {key} off by {err}")
+    check(res["e"]["scores_max_abs_err"] <= tol["scores"],
+          f"mesh_serve e: scores off by {res['e']['scores_max_abs_err']}")
+    launches = [r["e"]["fm_interact_launches"] for r in ranks]
+    check(launches == [1] * world, f"mesh_serve e: fm_interact launches {launches}")
+    check(res["f"]["ids_equal_at_distinct"] and res["f"]["every_rank_same"],
+          f"mesh_serve f: {res['f']}")
+    emit({"phase": "mesh_serve_wall", "spawn_s": wall,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"mesh_serve_launches_per_rank": launches[0], "mesh_serve_ranks": world}
+
+
+def _distinct_ranks(batch, k: int) -> torch.Tensor:
+    """Of the top ``k`` by a float64 sort, the ranks whose score is apart
+    from both neighbours' by more than the two f32 error bounds (32 ulp of
+    sum_i |c_i q_i|): where the id at that rank does not depend on the
+    sum's order."""
+    c64, q64 = batch["cand_embs"].double(), batch["query_emb"].double()
+    s64 = c64 @ q64
+    order = torch.sort(s64, descending=True, stable=True).indices[:k + 1]
+    eb = 32 * 2.0 ** -24 * (c64.abs() @ q64.abs())[order]
+    sv = s64[order]
+    gap_ok = (sv[:-1] - sv[1:]) > (eb[:-1] + eb[1:])
+    distinct = gap_ok[:k].clone()
+    distinct[1:] &= gap_ok[:k - 1]
+    return distinct
+
+
 def warm_up() -> None:
     """One tiny launch of each kernel: loads its module, so no phase's
     timing pays for that."""
@@ -4907,6 +5283,8 @@ def main() -> int:
     clock("gnn")
     fm_entry.update(mesh_train_phase())
     clock("mesh_train")
+    fm_entry.update(mesh_serve_phase())
+    clock("mesh_serve")
     emit({"phase": "done", "seconds": time.perf_counter() - T0,
           "kernel_build_s": built["seconds"]})
     emit({"kernels": report})

@@ -1,14 +1,17 @@
-"""chip_smoke.py's mesh_train phase (9e), or parts of it, alone on the card.
+"""chip_smoke.py's mesh phases (9e training, 9f serving), or parts of
+them, alone on the card.
 
-    python3 scripts/mesh_phase.py [--parts all|grid,restart]
+    python3 scripts/mesh_phase.py [--parts all|grid,restart,serve]
 
 Builds the kernels, then runs the chosen parts with chip_smoke.py's own
 functions, one JSON line each: ``grid`` (deepseek-moe-16b at full width,
 2 layers, DeepFM FULL train_batch and DimeNet FULL width minibatch_lg, one
 after the other on the same 2 x 2 gloo ranks sharing the card, each held
 against one device; fm_interact on every rank), ``restart``
-(launch.train --ranks 4 --mesh 2x2, resumed from a checkpoint). ``all`` runs
-``mesh_train_phase()`` itself. The card's name and power limit come first.
+(launch.train --ranks 4 --mesh 2x2, resumed from a checkpoint), ``serve``
+(``mesh_serve_phase()``: the LM prefill and decode cells, DeepFM serve_bulk
+and retrieval_cand on 2 x 2 gloo ranks, each held against one device).
+``all`` runs ``mesh_train_phase()`` itself. The card's name and power limit come first.
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ def main() -> int:
         if part == "grid":
             for cell, res in zip(("lm", "recsys", "gnn"), cs._mesh_grid_cells()):
                 cs.emit({"phase": "mesh_train", "cell": cell, **res})
+        elif part == "serve":
+            cs.emit({"phase": "mesh_serve_keys", **cs.mesh_serve_phase()})
         else:
             cs.emit({"phase": "mesh_train", "cell": part, **cs._mesh_restart()})
         cs.clock(f"mesh_{part}")

@@ -33,6 +33,11 @@ differentiates: a rank that repeats another's work must weight its part of
 the objective down (``distributed/fsdp.py``). The backward's collectives are
 counted like any other.
 
+A meta tensor (the dry run's step, ``launch/dryrun.py``) gets an output
+of the shape and dtype the collective gives and sends nothing: the mesh
+may be a production grid with no process group behind it
+(``launch.mesh.make_production_mesh``). Nothing is counted for it.
+
 Under ``gloo`` every CUDA tensor goes through a pinned host buffer, copied
 by this layer, for every collective. Gloo's send/recv take CPU tensors only;
 its all_reduce, broadcast, all_gather and all_to_all_single take CUDA
@@ -53,6 +58,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -150,7 +156,7 @@ def axis_index(mesh, axes) -> int:
 
 
 def axis_size(mesh, axes) -> int:
-    return len(mesh.group(tuple(axes))[1])
+    return math.prod(mesh.shape[a] for a in axes)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -183,11 +189,14 @@ def ppermute(tensors, mesh, axes, shift: int):
     Nones, of the same shapes and dtypes on every rank) to index
     (me + shift) % D and return what index (me - shift) % D sent here, in
     the same structure."""
-    group, ranks, me = _slice(mesh, axes)
-    d = len(ranks)
     single = isinstance(tensors, torch.Tensor)
     ts = (tensors,) if single else tuple(tensors)
     live = [t for t in ts if t is not None]
+    if live and live[0].is_meta:
+        out = tuple(None if t is None else torch.empty_like(t) for t in ts)
+        return out[0] if single else out
+    group, ranks, me = _slice(mesh, axes)
+    d = len(ranks)
     if d == 1 or shift % d == 0 or not live:
         return tensors
     buf = _pack(live)
@@ -205,12 +214,14 @@ def ppermute(tensors, mesh, axes, shift: int):
 
 
 def _all_to_all(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    group, ranks, me = _slice(mesh, axes)
-    d = len(ranks)
+    d = axis_size(mesh, axes)
     if t.shape[0] != d:
         raise ValueError(f"all_to_all needs a leading axis of {d} blocks, got {tuple(t.shape)}")
     if d == 1:
         return t
+    if t.is_meta:
+        return torch.empty_like(t)
+    group, ranks, me = _slice(mesh, axes)
     t = t.contiguous()
     with _Call(mesh, "all_to_all", t) as c:
         send = c.out(t)
@@ -232,10 +243,12 @@ def all_to_all(t: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 
 def _all_gather(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    group, ranks, me = _slice(mesh, axes)
-    d = len(ranks)
+    d = axis_size(mesh, axes)
     if d == 1:
         return t
+    if t.is_meta:
+        return t.new_empty((d * t.shape[0], *t.shape[1:]))
+    group, ranks, me = _slice(mesh, axes)
     t = t.contiguous()
     with _Call(mesh, "all_gather", t) as c:
         send = c.out(t)
@@ -249,15 +262,17 @@ _LOW = (torch.bfloat16, torch.float16)    # summed in f32 by the gloo reduce-sca
 
 
 def _reduce_scatter(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    group, ranks, me = _slice(mesh, axes)
-    d = len(ranks)
+    d = axis_size(mesh, axes)
     if d == 1:
         return t
     if t.shape[0] % d:
         raise ValueError(f"reduce_scatter needs a leading dim divisible by {d}, "
                          f"got {tuple(t.shape)}")
-    t = t.contiguous()
     n = t.shape[0] // d
+    if t.is_meta:
+        return t.new_empty((n, *t.shape[1:]))
+    group, ranks, me = _slice(mesh, axes)
+    t = t.contiguous()
     with _Call(mesh, "reduce_scatter", t) as c:
         send = c.out(t)
         if mesh.backend == "nccl":
@@ -356,9 +371,11 @@ def reduce_scatter(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
 def broadcast(t: torch.Tensor, mesh, axes, root: int = 0) -> torch.Tensor:
     """Index ``root``'s ``t`` on every rank (the others pass a tensor of the
     same shape and dtype to receive into)."""
-    group, ranks, me = _slice(mesh, axes)
-    if len(ranks) == 1:
+    if axis_size(mesh, axes) == 1:
         return t
+    if t.is_meta:
+        return torch.empty_like(t)
+    group, ranks, me = _slice(mesh, axes)
     t = t.contiguous()
     with _Call(mesh, "broadcast", t) as c:
         buf = c.out(t) if me == root else c.buffer(t)
@@ -368,9 +385,11 @@ def broadcast(t: torch.Tensor, mesh, axes, root: int = 0) -> torch.Tensor:
 
 
 def _all_reduce(t: torch.Tensor, mesh, axes, op, name: str) -> torch.Tensor:
-    group, ranks, _ = _slice(mesh, axes)
-    if len(ranks) == 1:
+    if axis_size(mesh, axes) == 1:
         return t
+    if t.is_meta:
+        return torch.empty_like(t)
+    group, ranks, _ = _slice(mesh, axes)
     with _Call(mesh, name, t) as c:
         buf = c.out(t.contiguous())
         buf = buf.clone() if buf is t else buf

@@ -10,7 +10,8 @@
   * elastic restore   checkpoints are host numpy (the port's checkpoint,
                       the reference's format), so a job resumes onto
                       whatever device it runs on now (``device=``, the
-                      reference's ``shardings=``), or onto a mesh of ranks
+                      reference's ``shardings=``; by default the device
+                      of the fresh state's leaves), or onto a mesh of ranks
                       (``mesh=`` with the state's logical ``axes``: every
                       rank runs the loop on its blocks, rank 0 writes the
                       whole leaves, each rank restores its blocks).
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch.checkpoint.checkpoint import flatten
 from repro_torch.obs import trace
 
 
@@ -45,6 +47,15 @@ class StepWatchdog:
         }
 
 
+def _state_device(state) -> torch.device:
+    """The device of the state's first tensor leaf (the host when it has
+    none)."""
+    for _, leaf in flatten(state):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
+
+
 def run_with_restarts(
     make_state: Callable[[], Any],          # fresh state
     step_fn: Callable[[Any, int], tuple[Any, dict]],   # (state, step) -> (state, metrics)
@@ -53,7 +64,7 @@ def run_with_restarts(
     ckpt_every: int = 10,
     max_restarts: int = 3,
     keep: int = 3,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
     mesh=None,
     axes=None,
 ) -> tuple[Any, list[dict]]:
@@ -62,7 +73,9 @@ def run_with_restarts(
     ``step_fn`` receives the global step index and must derive its batch
     from it (deterministic data order == exact recovery). Any exception
     triggers a restore from the latest commit (its leaves as tensors on
-    ``device``); unrecoverable only after ``max_restarts``. Under ranks
+    ``device``, by default the device of ``make_state()``'s first tensor
+    leaf, the host for a state of numpy leaves); unrecoverable only after
+    ``max_restarts``. Under ranks
     every rank calls it with the same arguments, and a step that fails
     must fail on every rank (a collective of one rank alone waits out the
     group's timeout and fails the run)."""
@@ -70,6 +83,8 @@ def run_with_restarts(
     history: list[dict] = []
     restarts = 0
     state = make_state()
+    if device is None:
+        device = _state_device(state)
     start = 0
     latest = ckpt.latest_step(ckpt_dir)
     if latest is not None:

@@ -18,7 +18,8 @@ from repro_torch.kernels.fm_interact.ref import fm_interact_ref
 def fm_interact(emb: torch.Tensor) -> torch.Tensor:
     """(B, F, D) field embeddings, float32 or bfloat16 -> (B,) f32 FM
     second-order logit, accumulated in f32. CPU tensors run
-    :func:`fm_interact_ref`; CUDA tensors the kernel."""
+    :func:`fm_interact_ref`; CUDA tensors the kernel; meta tensors give a
+    meta output."""
     if emb.dim() != 3 or emb.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"emb must be (B, F, D) float32 or bfloat16, got "
                          f"{tuple(emb.shape)} {emb.dtype}")
@@ -31,9 +32,12 @@ def fm_interact(emb: torch.Tensor) -> torch.Tensor:
 
 def _forward(emb):
     """The forward route: the plain version for a CPU tensor, the kernel for
-    a CUDA tensor."""
+    a CUDA tensor; a meta tensor (the dry run) gets a (B,) meta output and
+    launches nothing."""
     if emb.device.type == "cpu":
         return fm_interact_ref(emb)
+    if emb.is_meta:
+        return torch.empty((emb.shape[0],), dtype=torch.float32, device=emb.device)
     return _launch(emb)
 
 

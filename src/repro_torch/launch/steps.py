@@ -9,13 +9,19 @@ dtype with an f32 master; DimeNet and recsys: f32), LM ``prefill`` and
 ``decode`` cells the serving steps, recsys ``serve`` and ``retrieval`` and
 the paper's ``ann_build`` and ``ann_search``.
 
-``mesh=`` (a ``launch.mesh.Mesh`` this rank belongs to) binds a ``train``
-cell over the mesh's ranks: ``init_fn`` gives this rank's ZeRO-3 blocks of
-the state (``state_axes``), ``step_fn`` takes the global batch and gives
-each rank its block (``batch_axes``), and the loss is the model's
-``loss_fn(mesh=)``. ``state_axes`` and ``batch_axes`` are the reference's
-logical-axes trees, also without a mesh. The serving cells' mesh paths are
-not ported: ``bind`` refuses them on a mesh.
+``mesh=`` (a ``launch.mesh.Mesh`` this rank belongs to) binds every cell
+over the mesh's ranks, as the reference binds it. ``init_fn`` gives this
+rank's blocks of the state or params (``state_axes``: ZeRO-3 blocks for
+the LM, row-sharded tables for recsys). A ``train`` step takes the global
+batch and gives each rank its block (``batch_axes``); its loss is the
+model's ``loss_fn(mesh=)``. A serving step (``prefill``, ``decode``,
+``serve``, ``retrieval``) takes this rank's blocks of the batch and
+returns this rank's blocks of its outputs (``out_axes``): the decode cache
+is never whole on any rank (``sharding.tree_gather_blocks`` assembles a
+global value). ``ann_build`` and ``ann_search`` take any mesh and ignore
+it, as the reference does: their ``mesh`` is None and their steps are the
+unmeshed ones. ``state_axes``, ``batch_axes`` and ``out_axes`` are the
+reference's logical-axes trees, also without a mesh.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.configs import base as cb
 from repro_torch.configs.base import ShapeSpec
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import dimenet as dm
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tf
@@ -48,6 +55,7 @@ class BoundStep:
     state_axes: Any = None       # logical-axes tree of the state (train: a TrainState)
     batch_axes: Any = None       # logical-axes tree of the batch
     mesh: Any = None
+    out_axes: Any = None         # logical-axes tree of a serving step's outputs
 
 
 OPT_CFG = adamw.AdamWConfig(lr=3e-4, warmup_steps=100, total_steps=10_000)
@@ -70,10 +78,8 @@ def _lm_batch_axes(shape: ShapeSpec) -> dict:
     if shape.kind == "prefill":
         return {"tokens": ("batch", None)}
     if shape.dims["batch"] >= 16:
-        ax = ("layers", "cache_batch", "cache_seq", "kv_heads", "d_head")
-        return {"tokens": ("cache_batch",), "cache": {"k": ax, "v": ax, "pos": ("cache_batch",)}}
-    ax = ("layers", None, "cache_seq_flat", "kv_heads", "d_head")
-    return {"tokens": (None,), "cache": {"k": ax, "v": ax, "pos": (None,)}}
+        return {"tokens": ("cache_batch",), "cache": tf.cache_axes()}
+    return {"tokens": (None,), "cache": tf.cache_axes(flat=True)}
 
 
 def _gnn_axes(key: str, ndim: int = 1) -> tuple:
@@ -119,9 +125,6 @@ def bind(arch_id: str, shape_name: str, reduced: bool = False,
     shape = arch.shape(shape_name)
     cfg = _cfg if _cfg is not None else arch.make_config(shape_name, reduced)
     dev = mesh.device if mesh is not None else resolve_device(device)
-    if mesh is not None and shape.kind != "train":
-        raise ValueError(f"{arch_id} {shape_name}: only train cells bind on a mesh "
-                         f"(the {shape.kind} mesh path is not ported)")
     if arch.family == "ann":
         return _bind_ann(arch, shape, cfg, reduced, dev)
     if arch.family == "lm":
@@ -138,10 +141,12 @@ def bind(arch_id: str, shape_name: str, reduced: bool = False,
 
     if shape.kind == "retrieval":
         def retrieve_fn(params, batch):
-            return rs.score_candidates(batch["query_emb"], batch["cand_embs"], k=100)
+            return rs.score_candidates(batch["query_emb"], batch["cand_embs"], k=100,
+                                       mesh=mesh)
 
         return BoundStep(arch_id, shape, cfg, retrieve_fn, lambda gen: {}, specs, dev,
-                         "retrieval", {}, {"query_emb": (None,), "cand_embs": ("candidates", None)})
+                         "retrieval", {}, {"query_emb": (None,), "cand_embs": ("candidates", None)},
+                         mesh, ((None,), (None,)))
     batch_axes = {"sparse_ids": ("batch", None, None), "dense": ("batch", None)}
     if shape.kind == "train":
         batch_axes["labels"] = ("batch",)
@@ -150,10 +155,18 @@ def bind(arch_id: str, shape_name: str, reduced: bool = False,
                       batch_axes, dev, mesh)
 
     def serve_fn(params, batch):
-        return rs.serve(params, batch, cfg)
+        return rs.serve(params, batch, cfg, mesh)
 
-    return BoundStep(arch_id, shape, cfg, serve_fn, lambda gen: rs.init(gen, cfg, dev),
-                     specs, dev, "serve", rs.param_axes(cfg), batch_axes)
+    return BoundStep(arch_id, shape, cfg, serve_fn,
+                     _serving_init(lambda gen: rs.init(gen, cfg, dev), rs.param_axes(cfg), mesh),
+                     specs, dev, "serve", rs.param_axes(cfg), batch_axes, mesh, ("batch",))
+
+
+def _serving_init(init, axes, mesh):
+    """A serving cell's init: the params, or on a mesh this rank's blocks."""
+    if mesh is None:
+        return init
+    return lambda gen: sh.tree_local_blocks(init(gen), mesh, axes)
 
 
 def _bind_lm(arch_id: str, shape: ShapeSpec, cfg, reduced: bool,
@@ -168,20 +181,26 @@ def _bind_lm(arch_id: str, shape: ShapeSpec, cfg, reduced: bool,
         return _train(arch_id, shape, cfg, lambda p, b, m: tf.loss_fn(p, b, cfg, mesh=m),
                       lambda gen: tf.init(gen, cfg, dev), tf.param_axes(cfg), specs, axes,
                       dev, mesh, compute_dtype=cfg.compute_dtype)
+    init = _serving_init(lambda gen: tf.init(gen, cfg, dev), tf.param_axes(cfg), mesh)
     if shape.kind == "prefill":
         def prefill_fn(params, batch):
             b, s = batch["tokens"].shape
-            cache = tf.init_cache(cfg, b, s, device=batch["tokens"].device)
-            return tf.prefill(params, batch["tokens"], cache, cfg)
+            if mesh is not None:
+                b *= sh.axis_count(mesh, "batch")
+            cache = tf.init_cache(cfg, b, s, device=batch["tokens"].device, mesh=mesh)
+            return tf.prefill(params, batch["tokens"], cache, cfg, mesh)
 
-        return BoundStep(arch_id, shape, cfg, prefill_fn, lambda gen: tf.init(gen, cfg, dev),
-                         specs, dev, "prefill", tf.param_axes(cfg), axes)
+        return BoundStep(arch_id, shape, cfg, prefill_fn, init, specs, dev, "prefill",
+                         tf.param_axes(cfg), axes, mesh,
+                         (("batch", None, "vocab"), tf.cache_axes()))
+    flat = axes["tokens"] == (None,)
 
     def decode_fn(params, batch):
-        return tf.decode_step(params, batch["tokens"], batch["cache"], cfg)
+        return tf.decode_step(params, batch["tokens"], batch["cache"], cfg, mesh, flat=flat)
 
-    return BoundStep(arch_id, shape, cfg, decode_fn, lambda gen: tf.init(gen, cfg, dev),
-                     specs, dev, "decode", tf.param_axes(cfg), axes)
+    return BoundStep(arch_id, shape, cfg, decode_fn, init, specs, dev, "decode",
+                     tf.param_axes(cfg), axes, mesh,
+                     ((None if flat else "batch", None, "vocab"), axes["cache"]))
 
 
 def _bind_ann(arch, shape: ShapeSpec, cfg, reduced: bool, dev: torch.device) -> BoundStep:

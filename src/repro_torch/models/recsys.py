@@ -20,6 +20,9 @@ summed over ``model``; exactly one rank answers each id, so the sums are
 exact. A table's gradient lands on its own rows only. ``fm_interact`` runs
 on each rank's rows. Ranks that differ only in ``model`` compute the same
 rows, so each differentiates 1 / M of their loss (``distributed/fsdp.py``).
+``serve`` takes the same blocks (without grad). ``score_candidates`` on a
+mesh scores this rank's block of the candidates (the flat ``candidates``
+grid) and only each block's top-k crosses.
 """
 from __future__ import annotations
 
@@ -262,21 +265,49 @@ def loss_fn(params: dict, batch: dict, cfg: RecsysConfig, mesh=None) -> torch.Te
     return fsdp.objective(value, local / (n * fsdp.replication(mesh, ("batch",))))
 
 
-def serve(params: dict, batch: dict, cfg: RecsysConfig) -> torch.Tensor:
-    return torch.sigmoid(forward(params, batch, cfg))
+def serve(params: dict, batch: dict, cfg: RecsysConfig, mesh=None) -> torch.Tensor:
+    """Click probabilities (B,) f32: the sigmoid of :func:`forward`. On a
+    ``mesh`` (no grad): ``params`` this rank's blocks, ``batch`` its data
+    rows, whose probabilities come back; ``fm_interact`` runs once, on the
+    rank's rows."""
+    if mesh is None:
+        return torch.sigmoid(forward(params, batch, cfg))
+    with torch.no_grad():
+        return torch.sigmoid(forward(params, batch, cfg, mesh))
 
 
 # -------------------------------------------------------- retrieval scoring
+def _top_k(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """The k best (score, id) pairs, by score descending and id ascending
+    (``lax.top_k``'s rule when ``ids`` ascend): a stable descending sort."""
+    top, idx = torch.sort(scores, descending=True, stable=True)
+    return top[:k], ids[idx[:k]]
+
+
 def score_candidates(query_emb: torch.Tensor, cand_embs: torch.Tensor, k: int = 100,
-                     n_valid: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                     mesh=None, n_valid: int | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """retrieval_cand shape: one query vs n_candidates, f32 mat-vec + top-k.
 
     Returns (scores (k,) f32 descending, ids (k,) int32). Equal scores rank
     by lower index (the reference's ``lax.top_k`` rule): a stable descending
-    sort. Candidates at or past ``n_valid`` score -inf."""
+    sort. Candidates at or past ``n_valid`` score -inf.
+
+    On a ``mesh``: ``cand_embs`` is this rank's block of the candidates,
+    split over the flat ``candidates`` grid. The mat-vec and a top-k are
+    local; only the k (score, global id) pairs of each block cross (an
+    all_gather), merged by score descending, then global id ascending. Every
+    rank returns the same result."""
     scores = cand_embs.float() @ query_emb.float()
-    if n_valid is not None and n_valid < scores.shape[0]:
-        keep = torch.arange(scores.shape[0], device=scores.device) < n_valid
-        scores = torch.where(keep, scores, torch.full_like(scores, -math.inf))
-    top, idx = torch.sort(scores, descending=True, stable=True)
-    return top[:k], idx[:k].to(torch.int32)
+    n = scores.shape[0]
+    axes = () if mesh is None else sh.mesh_axes(mesh, "candidates")
+    ids = torch.arange(n, device=scores.device) + (0 if mesh is None else
+                                                  sh.index_along(mesh, axes) * n)
+    if n_valid is not None:
+        scores = torch.where(ids < n_valid, scores, torch.full_like(scores, -math.inf))
+    top, idx = _top_k(scores, ids, k)
+    if mesh is not None:
+        every = comm.all_gather(idx, mesh, axes)
+        order = torch.argsort(every, stable=True)                  # global id ascending
+        top, idx = _top_k(comm.all_gather(top, mesh, axes)[order], every[order], k)
+    return top, idx.to(torch.int32)

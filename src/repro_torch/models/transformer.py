@@ -1,7 +1,7 @@
 """Decoder-only transformer family (port of ``repro.models.transformer``):
 dense GQA (yi, granite, minitron) and MoE (dbrx, deepseek-moe), on one
-device or (training: ``forward``/``loss_fn`` with ``mesh=``) over a mesh of
-ranks.
+device or over a mesh of ranks (``mesh=``: training through
+``forward``/``loss_fn``, serving through ``prefill``/``decode_step``).
 
 On a mesh (``distributed/fsdp.py``): the params are this rank's ZeRO-3
 blocks of :func:`param_axes` (the reference's logical axes), each gathered
@@ -21,6 +21,14 @@ gathers the tokens, runs the groups and keeps its own block's outputs).
 The aux loss reads the global ``probs`` and ``top_e`` means. ``moe_tiles=
 (dp, ml)`` on one device runs the shard-mapped dispatch as a loop over the
 mesh's token blocks (the card's check of the mesh run).
+
+Serving on a mesh runs without grad: ``prefill`` is the training forward
+(the same layer code) into a cache of (``cache_batch``@data,
+``cache_seq``@model) blocks; ``decode_step`` is flash-decoding over the
+split cache (``cache_seq``, or ``cache_seq_flat`` at batch 1), its MoE in
+the reference's ``_moe_groups(B, mesh)`` groups. Neither gathers the vocab
+leaves: a token is looked up on the rank's ``embed.table`` rows and summed
+over ``model``, and the logits come from the rank's ``head.w`` columns.
 
 Parameters are the reference's tree: ``embed.table`` (V, d), ``head.w``
 (d, V), ``ln_f`` (d,) and ``layers``, whose weights are stacked (L, ...).
@@ -299,10 +307,26 @@ class _Par:
     mi: int = 0
     tiles: bool = False
     axes: Any = None               # param_axes(cfg) on a mesh
+    # whether this rank's tokens are its data block of the B rows and its
+    # model block of the S positions (training, prefill), or hold them whole
+    # (decode: one position; at batch 1 every row); an axis of size 1 splits
+    split: tuple = (True, True)
 
     @property
     def n(self) -> int:
         return self.dp * self.ml
+
+    @property
+    def grid(self) -> bool:
+        """The tokens are this rank's (B / dp, S / ml) block."""
+        return self.split == (True, True)
+
+    def block(self, b: int, s: int) -> tuple[int, int, int, int]:
+        """(global rows, global positions, first row, first position) of a
+        (b, s) token block held here."""
+        rows, cols = self.split
+        return (b * self.dp if rows else b, s * self.ml if cols else s,
+                self.di * b if rows else 0, self.mi * s if cols else 0)
 
     def all_axes(self) -> tuple[str, ...]:
         return tuple(self.mesh.axis_names)
@@ -314,16 +338,17 @@ class _Par:
         return sh.mesh_axes(self.mesh, "seq")
 
 
-def _par(cfg: TransformerConfig, mesh, moe_tiles) -> _Par:
+def _par(cfg: TransformerConfig, mesh, moe_tiles, split=(True, True)) -> _Par:
     if mesh is not None and moe_tiles is not None:
         raise ValueError("moe_tiles emulates a mesh on one device: pass one or the other")
     if moe_tiles is not None:
         return _Par(dp=int(moe_tiles[0]), ml=int(moe_tiles[1]), tiles=True)
     if mesh is None:
         return _Par()
-    return _Par(mesh, sh.axis_count(mesh, "batch"), sh.axis_count(mesh, "seq"),
-                sh.index_along(mesh, sh.mesh_axes(mesh, "batch")),
-                sh.index_along(mesh, sh.mesh_axes(mesh, "seq")), False, param_axes(cfg))
+    dp, ml = sh.axis_count(mesh, "batch"), sh.axis_count(mesh, "seq")
+    return _Par(mesh, dp, ml, sh.index_along(mesh, sh.mesh_axes(mesh, "batch")),
+                sh.index_along(mesh, sh.mesh_axes(mesh, "seq")), False, param_axes(cfg),
+                (split[0] or dp == 1, split[1] or ml == 1))
 
 
 def _use(par: _Par, name: str, w: torch.Tensor, over=None) -> torch.Tensor:
@@ -462,9 +487,10 @@ def _moe_ffn_split(p, y3, cfg: TransformerConfig, par: _Par):
     b, s, d = y3.shape
     dt = cfg.compute_dtype
     e, k = m.n_experts, m.top_k
-    t_glob = b * s * (1 if par.tiles else par.n)
+    b_glob, s_glob, row0, col0 = par.block(b, s)
+    t_glob = b * s if par.tiles else b_glob * s_glob
     t_loc = t_glob // par.n
-    use_sm = m.impl == "dropping" and e % par.ml == 0 and t_loc >= 64
+    use_sm = m.impl == "dropping" and e % par.ml == 0 and t_loc >= 64 and par.grid
     mesh = par.mesh
     full = lambda name: _use(par, name, p[name])
     summed = True              # probs / top_e are this rank's shares (psum them)
@@ -520,15 +546,18 @@ def _moe_ffn_split(p, y3, cfg: TransformerConfig, par: _Par):
     else:
         # the dispatch groups are contiguous slices of the global row-major
         # tokens: gather them, run every group, keep this block's outputs
-        x_all = comm.all_gather(comm.all_gather(y3, mesh, par.model_axes(), dim=1),
-                                mesh, par.data_axes(), dim=0)
+        x_all = y3
+        if par.split[1]:
+            x_all = comm.all_gather(x_all, mesh, par.model_axes(), dim=1)
+        if par.split[0]:
+            x_all = comm.all_gather(x_all, mesh, par.data_axes(), dim=0)
         g = _moe_groups(t_glob, par)
         tg = t_glob // g
         cap = _capacity(tg, m)
         ws = [full(n) for n in ("router", "we_gate", "we_up", "we_down")]
         parts = [_moe_dispatch(xg, *ws, cfg, cap) for xg in x_all.reshape(g, tg, d)]
-        y_all = torch.cat([q[0] for q in parts]).reshape(b * par.dp, s * par.ml, d)
-        y = y_all[par.di * b:(par.di + 1) * b, par.mi * s:(par.mi + 1) * s].reshape(-1, d)
+        y_all = torch.cat([q[0] for q in parts]).reshape(b_glob, s_glob, d)
+        y = y_all[row0:row0 + b, col0:col0 + s].reshape(-1, d)
         probs, top_e = torch.cat([q[1] for q in parts]), torch.cat([q[2] for q in parts])
         summed = False
     x_flat = y3.reshape(-1, d)
@@ -544,8 +573,7 @@ def _moe_ffn_split(p, y3, cfg: TransformerConfig, par: _Par):
         counts = comm.psum(counts, mesh, par.all_axes())
     aux = e * torch.sum((p_sum / t_glob) * (counts / (t_glob * k)))
     if not summed and not par.tiles:           # keep this block's routing
-        top_e = top_e.reshape(b * par.dp, s * par.ml, k)[
-            par.di * b:(par.di + 1) * b, par.mi * s:(par.mi + 1) * s]
+        top_e = top_e.reshape(b_glob, s_glob, k)[row0:row0 + b, col0:col0 + s]
     return y.reshape(b, s, d), aux, top_e.reshape(b, s, k)
 
 
@@ -581,14 +609,20 @@ def _ffn(p, x, cfg: TransformerConfig, par: _Par = _Par()):
     return x + y_moe, aux
 
 
-def _layer(p, x, positions, cfg: TransformerConfig, par: _Par = _Par()):
-    """One pre-norm block. x: (B, S, d), this rank's token block on a mesh
-    (``positions`` global); the layer's leaves are gathered here, so remat
-    gathers them again."""
+def _gathered(p, par: _Par) -> dict:
+    """A layer's leaves to compute with: on a mesh each gathered from its
+    block, but the experts' (the MoE gathers those it needs)."""
+    if par.mesh is None:
+        return p
+    return {k: (w if k in _EXPERT_LEAVES else _use(par, k, w)) for k, w in p.items()}
+
+
+def _attention(p, x, positions, cfg: TransformerConfig, par: _Par = _Par()):
+    """The block's first half: x + attention(rmsnorm(x)), and the K/V
+    attended over (on a mesh gathered over ``model``: the whole sequence of
+    this rank's rows)."""
     b, s, _ = x.shape
     kv_pos = positions
-    if par.mesh is not None:
-        p = {k: (w if k in _EXPERT_LEAVES else _use(par, k, w)) for k, w in p.items()}
     y = nn.rmsnorm({"scale": p["ln1"]}, x)
     q, k, v = _qkv(p, y, positions, cfg)
     if par.mesh is not None and par.ml > 1:
@@ -597,7 +631,15 @@ def _layer(p, x, positions, cfg: TransformerConfig, par: _Par = _Par()):
         v = comm.all_gather(v, par.mesh, par.model_axes(), dim=1)
         kv_pos = torch.arange(s * par.ml, device=x.device).expand(b, s * par.ml)
     o = _attend(q, k, v, positions, kv_pos, cfg)
-    x = x + (o.reshape(b, s, -1) @ p["wo"].to(cfg.compute_dtype))
+    return x + (o.reshape(b, s, -1) @ p["wo"].to(cfg.compute_dtype)), k, v
+
+
+def _layer(p, x, positions, cfg: TransformerConfig, par: _Par = _Par()):
+    """One pre-norm block. x: (B, S, d), this rank's token block on a mesh
+    (``positions`` global); the layer's leaves are gathered here, so remat
+    gathers them again."""
+    p = _gathered(p, par)
+    x, _, _ = _attention(p, x, positions, cfg, par)
     return _ffn(p, x, cfg, par)
 
 
@@ -716,68 +758,180 @@ def _ce_sum(x, labels, head, cfg: TransformerConfig):
 
 
 # ------------------------------------------------------------------ serving
+CACHE_AXES = ("layers", "cache_batch", "cache_seq", "kv_heads", "d_head")
+# batch 1 (long_500k): the cache's sequence split over the whole grid
+CACHE_AXES_FLAT = ("layers", None, "cache_seq_flat", "kv_heads", "d_head")
+
+
+def cache_axes(flat: bool = False) -> dict:
+    """The cache's logical axes (the reference's ``cache_axes``; ``flat``:
+    its batch-1 layout, ``cache_seq_flat``)."""
+    ax = CACHE_AXES_FLAT if flat else CACHE_AXES
+    return {"k": ax, "v": ax, "pos": (None,) if flat else ("cache_batch",)}
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=None,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda", mesh=None) -> dict:
+    """A zero cache of ``batch`` rows and ``max_seq`` positions; on a
+    ``mesh``, this rank's (``cache_batch``, ``cache_seq``) block of it, the
+    layout ``prefill`` writes."""
     dev = resolve_device(device)
     dtype = dtype or cfg.compute_dtype
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    pos = (batch,)
+    if mesh is not None:
+        axes = cache_axes()
+        shape = sh.block_shape(shape, mesh, axes["k"], "cache")
+        pos = sh.block_shape(pos, mesh, axes["pos"], "cache pos")
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+            "pos": torch.zeros(pos, dtype=torch.int32, device=dev)}
 
 
-def prefill(params, tokens, cache, cfg: TransformerConfig):
+def _vocab_rows(block: torch.Tensor, ids: torch.Tensor, mesh, dtype) -> torch.Tensor:
+    """This rank's share of the embedding of ``ids`` (global token ids):
+    the rows of its ``vocab`` block, zeros for the others, in ``dtype``. A
+    sum over the ``vocab`` axes gives the lookup, exactly (one rank holds
+    each row)."""
+    n = block.shape[0]
+    lo = sh.index_along(mesh, sh.mesh_axes(mesh, "vocab")) * n
+    mine = (ids >= lo) & (ids < lo + n)
+    rows = F.embedding(torch.where(mine, ids - lo, 0).long(), block).to(dtype)
+    return torch.where(mine[..., None], rows, torch.zeros((), dtype=dtype, device=rows.device))
+
+
+def prefill(params, tokens, cache, cfg: TransformerConfig, mesh=None, moe_tiles=None):
     """Full-sequence prefill: writes each layer's K/V into
     ``cache["k"/"v"][:, :, :S]`` in place and returns (last-position logits
-    (B, 1, V) f32, the cache with ``pos`` = S)."""
+    (B, 1, V) f32, the cache with ``pos`` = S).
+
+    On a ``mesh`` (no grad): ``params`` are this rank's blocks, ``tokens``
+    its data rows (B / dp, S) and ``cache`` its (``cache_batch``,
+    ``cache_seq``) block. The forward is the training forward's, context
+    parallel over ``model`` (the layers gathered one at a time); the
+    embedding is a masked lookup on the rank's vocab rows, reduce-scattered
+    over ``model`` to its sequence block. Each rank writes the positions of
+    its cache block from the K/V that attention gathered over ``model``
+    (the cache may be longer than the prompt). Returns the rank's (B / dp,
+    1, V / ml) block of the logits (computed on its ``head.w`` columns) and
+    its cache block. ``moe_tiles``: as in :func:`forward`."""
+    if mesh is None:
+        return _prefill(params, tokens, cache, cfg, _par(cfg, None, moe_tiles))
+    with torch.no_grad():
+        return _prefill(params, tokens, cache, cfg, _par(cfg, mesh, None))
+
+
+def _prefill(params, tokens, cache, cfg: TransformerConfig, par: _Par):
     b, s = tokens.shape
     dt = cfg.compute_dtype
-    x = nn.embed(params["embed"], tokens, dt)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    layers = _unstack(_cast_layer_params(params["layers"], cfg))
-    for li, lp in enumerate(layers):
-        y = nn.rmsnorm({"scale": lp["ln1"]}, x)
-        q, k, v = _qkv(lp, y, positions, cfg)
-        o = _attend(q, k, v, positions, positions, cfg)
-        x = x + (o.reshape(b, s, -1) @ lp["wo"].to(dt))
-        x, _ = _ffn(lp, x, cfg)
-        cache["k"][li, :, :s] = k
-        cache["v"][li, :, :s] = v
+    mesh = par.mesh
+    if mesh is None:
+        x = nn.embed(params["embed"], tokens, dt)
+        lo = 0
+    else:
+        if s % par.ml:
+            raise ValueError(f"seq {s} does not split over {par.ml} model ranks")
+        x = _vocab_rows(params["embed"]["table"], tokens, mesh, dt)
+        x = comm.reduce_scatter(x, mesh, par.model_axes(), dim=1)   # (B / dp, S / ml, d)
+        lo = sh.index_along(mesh, sh.mesh_axes(mesh, "cache_seq")) * cache["k"].shape[2]
+    n_cache = cache["k"].shape[2] * (1 if mesh is None else par.ml)
+    if s > n_cache:
+        raise ValueError(f"a prompt of {s} positions does not fit a cache of {n_cache}")
+    s_loc = x.shape[1]
+    positions = (torch.arange(s_loc, device=tokens.device) + par.mi * s_loc).expand(b, s_loc)
+    width = max(0, min(cache["k"].shape[2], s - lo))           # cache positions the prompt fills
+    for li, lp in enumerate(_unstack(_cast_layer_params(params["layers"], cfg))):
+        lp = _gathered(lp, par)
+        x, k, v = _attention(lp, x, positions, cfg, par)
+        x, _ = _ffn(lp, x, cfg, par)
+        cache["k"][li, :, :width] = k[:, lo:lo + width]
+        cache["v"][li, :, :width] = v[:, lo:lo + width]
     cache = dict(cache, pos=torch.full((b,), s, dtype=torch.int32, device=tokens.device))
-    x = nn.rmsnorm({"scale": params["ln_f"]}, x[:, -1:])
-    return (x @ params["head"]["w"].to(dt)).float(), cache
+    x = x[:, -1:]
+    if mesh is None:
+        ln_f, head = params["ln_f"], params["head"]["w"]
+    else:                                   # the last position is on the last model rank
+        x = comm.all_gather(x, mesh, par.model_axes(), dim=1)[:, -1:]
+        ln_f = fsdp.use(params["ln_f"], mesh, par.axes["ln_f"])
+        head = params["head"]["w"]                                  # (d, V / ml) block
+    x = nn.rmsnorm({"scale": ln_f}, x)
+    return (x @ head.to(dt)).float(), cache
 
 
-def decode_step(params, tokens, cache, cfg: TransformerConfig):
+def decode_step(params, tokens, cache, cfg: TransformerConfig, mesh=None, flat: bool = False):
     """One-token decode against the KV cache: tokens (B,) -> (logits (B, 1,
     V) f32, the cache with the new K/V written in place at ``pos`` (clamped
     to the cache's end, as ``dynamic_update_slice`` clamps) and ``pos`` + 1).
     Scores are f32 products scaled by dh^-0.5, positions past ``pos``
-    masked to -1e30, as in the reference."""
+    masked to -1e30, as in the reference.
+
+    On a ``mesh`` (no grad), flash-decoding over the split cache:
+    ``params`` are this rank's blocks and ``cache`` its block, laid out by
+    :func:`cache_axes` (``flat``: batch 1, the sequence over the whole
+    grid, ``tokens`` whole; else ``tokens`` and the cache's rows this
+    rank's data rows, the sequence over ``model``). The rank whose block
+    holds ``pos`` writes the new K/V; scores, the mask and AV are local to
+    the block, and the softmax is reduced across the sequence's shards
+    (``pmax`` of the max, ``psum`` of the sum, the probabilities cast to the
+    compute dtype as the reference casts them, the partial outputs
+    multiplied and summed in f32 and rounded once). The MoE dispatches in
+    the reference's ``_moe_groups(B, mesh)`` groups. Returns the rank's
+    logits block (its rows, its ``head.w`` columns) and its cache block."""
+    if mesh is None:
+        return _decode(params, tokens, cache, cfg, _Par(), ())
+    with torch.no_grad():
+        ax = cache_axes(flat)["k"]
+        par = _par(cfg, mesh, None, split=(not flat, False))
+        return _decode(params, tokens, cache, cfg, par, sh.mesh_axes(mesh, ax[2]))
+
+
+def _decode(params, tokens, cache, cfg: TransformerConfig, par: _Par, seq_axes):
     b = tokens.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt = cfg.compute_dtype
     group = h // kv
-    x = nn.embed(params["embed"], tokens[:, None], dt)           # (B, 1, d)
+    mesh = par.mesh
     pos = cache["pos"]
-    s_max = cache["k"].shape[2]
+    s_loc = cache["k"].shape[2]
+    if mesh is None:
+        x = nn.embed(params["embed"], tokens[:, None], dt)       # (B, 1, d)
+        lo, s_max = 0, s_loc
+    else:
+        x = _vocab_rows(params["embed"]["table"], tokens[:, None], mesh, dt)
+        x = comm.psum(x, mesh, sh.mesh_axes(mesh, "vocab"))
+        lo, s_max = sh.index_along(mesh, seq_axes) * s_loc, s_loc * comm.axis_size(mesh, seq_axes)
     at = pos.long().clamp(max=s_max - 1)
+    mine = (at >= lo) & (at < lo + s_loc)                        # this block holds pos
+    at = torch.where(mine, at - lo, 0)
     rows = torch.arange(b, device=tokens.device)
-    mask = (torch.arange(s_max, device=tokens.device)[None, :] <= pos[:, None])[:, None, None, :]
-    layers = _unstack(params["layers"])
-    for li, lp in enumerate(layers):
+    kv_pos = torch.arange(s_loc, device=tokens.device) + lo
+    mask = (kv_pos[None, :] <= pos[:, None])[:, None, None, :]
+    # on a mesh the blocks are cast once, so the gathers move the compute dtype
+    layers = params["layers"] if mesh is None else _cast_layer_params(params["layers"], cfg)
+    for li, lp in enumerate(_unstack(layers)):
+        lp = _gathered(lp, par)
         ck, cv = cache["k"][li], cache["v"][li]                   # (B, S, KV, dh) views
         y = nn.rmsnorm({"scale": lp["ln1"]}, x)
         q, knew, vnew = _qkv(lp, y, pos[:, None], cfg)
-        ck[rows, at] = knew[:, 0].to(ck.dtype)
-        cv[rows, at] = vnew[:, 0].to(cv.dtype)
+        keep = ~mine[:, None, None]
+        ck[rows, at] = torch.where(keep, ck[rows, at], knew[:, 0].to(ck.dtype))
+        cv[rows, at] = torch.where(keep, cv[rows, at], vnew[:, 0].to(cv.dtype))
         qg = q.reshape(b, kv, group, dh)
         s = torch.einsum("bkgd,bskd->bkgs", qg.float(), ck.float()) * dh ** -0.5
         s = torch.where(mask, s, -1e30)
-        p_att = torch.softmax(s, dim=-1).to(dt)
-        o = torch.einsum("bkgs,bskd->bkgd", p_att, cv).reshape(b, 1, h * dh)
-        x = x + o @ lp["wo"].to(dt)
-        x, _ = _ffn(lp, x, cfg)
+        if mesh is None:
+            p_att = torch.softmax(s, dim=-1).to(dt)
+            o = torch.einsum("bkgs,bskd->bkgd", p_att, cv)
+        else:
+            m = comm.pmax(s.amax(dim=-1), mesh, seq_axes)
+            e = torch.exp(s - m[..., None])
+            p_att = (e / comm.psum(e.sum(dim=-1), mesh, seq_axes)[..., None]).to(dt)
+            # the partial products in f32: the output rounds once, as one device's does
+            o = torch.einsum("bkgs,bskd->bkgd", p_att.float(), cv.float())
+            o = comm.psum(o, mesh, seq_axes).to(dt)
+        x = x + o.reshape(b, 1, h * dh) @ lp["wo"].to(dt)
+        x, _ = _ffn(lp, x, cfg, par)
     cache = dict(cache, pos=pos + 1)
-    x = nn.rmsnorm({"scale": params["ln_f"]}, x)
+    ln_f = params["ln_f"] if mesh is None else fsdp.use(params["ln_f"], mesh, par.axes["ln_f"])
+    x = nn.rmsnorm({"scale": ln_f}, x)
     return (x @ params["head"]["w"].to(dt)).float(), cache

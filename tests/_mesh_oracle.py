@@ -24,6 +24,22 @@ it changes no value of the reference and costs compile time. One thread:
 the port's ranks run beside it. ``moe``: a dict with
 ``y3`` (B, S, d) runs layer 0's ``_moe_ffn`` on it and returns ``y``,
 ``aux`` and, where the shard-mapped path runs, its ``top_e``.
+
+A serving job has ``serve`` (and ``params``, the reference's whole
+params as numpy, placed by the cell's ``state_axes``; None for a cell
+without params) instead of ``batches``. ``serve["kind"]``:
+  * ``"step"``: the cell's bound step (``serve``, ``retrieval``) under jit
+    on ``serve["batch"]``, placed by its ``batch_axes``; returns ``out``;
+  * ``"retrieval"``: ``score_candidates(query, cand, k, mesh, n_valid)``
+    with ``cand`` placed on ``candidates``; returns ``out``;
+  * ``"lm"``: ``prefill`` of ``serve["prompt"]`` (B, S) into a zero cache
+    of ``serve["cache_len"]`` positions placed by ``cache_axes`` (or, with
+    no prompt, the cache ``serve["k"]``, ``["v"]``, ``["pos"]`` placed
+    ``cache_seq_flat``), then one ``decode_step`` per token vector of
+    ``serve["decode"]``; returns the prefill's logits and cache, every
+    decode's logits and the last cache (f32). ``serve["moe"]`` (B, 1, d)
+    runs layer 0's ``_moe_ffn`` on it as the decode does and returns ``y``
+    and the tokens' top-k experts.
 """
 import dataclasses
 import os
@@ -85,11 +101,81 @@ def _flat(tree):
             if v.dtype.name in ("bfloat16", "float64") else np.asarray(v) for k, v in leaves}
 
 
+def _mesh(job, devices):
+    import jax
+    from jax.sharding import AxisType
+    d, m = job["mesh"]
+    return jax.make_mesh((d, m), ("data", "model"), axis_types=(AxisType.Auto,) * 2,
+                         devices=devices[:d * m])
+
+
+def _serve(job, devices):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro import configs as rconfigs
+    from repro.distributed import sharding as rsh
+    from repro.launch import steps as rsteps
+    from repro.models import transformer as T
+
+    arch = rconfigs.get(job["arch"])
+    cfg = _cfg(arch, job["shape"], job["cfg"])
+    mesh = _mesh(job, devices)
+    bound = rsteps.bind(arch, job["shape"], reduced=True, mesh=mesh, _cfg=cfg)
+    params = {}
+    if job["params"] is not None:
+        params = jax.device_put(jax.tree.map(jnp.asarray, job["params"]),
+                                rsh.tree_shardings(mesh, bound.state_axes))
+    sv = job["serve"]
+
+    def place(a, axes, dtype=None):
+        a = jnp.asarray(a) if dtype is None else jnp.asarray(a).astype(dtype)
+        return jax.device_put(a, rsh.sharding(mesh, *axes))
+
+    if sv["kind"] == "step":
+        batch = {k: place(v, bound.batch_axes[k]) for k, v in sv["batch"].items()}
+        return {"out": jax.tree.map(np.asarray, jax.jit(bound.step_fn)(params, batch))}
+    if sv["kind"] == "retrieval":
+        from repro.models import recsys as R
+        fn = jax.jit(lambda q, c: R.score_candidates(q, c, sv["k"], mesh, sv["n_valid"]))
+        return {"out": jax.tree.map(np.asarray, fn(jnp.asarray(sv["query"]),
+                                                   place(sv["cand"], ("candidates", None))))}
+    f32 = lambda c: {k: np.asarray(c[k]).astype(np.float32) for k in ("k", "v")} | \
+        {"pos": np.asarray(c["pos"])}
+    res = {"decode": []}
+    if "prompt" in sv:
+        cax = T.cache_axes()
+        cache = {k: place(v, cax[k]) for k, v in
+                 T.init_cache(cfg, sv["prompt"].shape[0], sv["cache_len"]).items()}
+        logits, cache = jax.jit(lambda p, t, c: T.prefill(p, t, c, cfg, mesh))(
+            params, place(sv["prompt"], ("batch", None)), cache)
+        res["prefill"] = {"logits": np.asarray(logits), **f32(cache)}
+        tok_axes = ("cache_batch",)
+    else:
+        ax = ("layers", None, "cache_seq_flat", "kv_heads", "d_head")
+        cache = {"k": place(sv["k"], ax, cfg.compute_dtype),
+                 "v": place(sv["v"], ax, cfg.compute_dtype), "pos": place(sv["pos"], (None,))}
+        tok_axes = (None,)
+    step = jax.jit(lambda p, t, c: T.decode_step(p, t, c, cfg, mesh))
+    for tok in sv["decode"]:
+        logits, cache = step(params, place(tok, tok_axes), cache)
+        res["decode"].append(np.asarray(logits))
+    res["cache"] = f32(cache)
+    if "moe" in sv:
+        p0 = jax.tree.map(lambda w: w[0], params["layers"])
+        y3 = jnp.asarray(sv["moe"])
+        y, _ = jax.jit(lambda p, y3: T._moe_ffn(p, y3, cfg, mesh))(p0, y3)
+        probs = jax.nn.softmax(y3.reshape(-1, y3.shape[-1]).astype(jnp.float32)
+                               @ p0["router"].astype(jnp.float32), axis=-1)
+        res["moe"] = {"y": np.asarray(y),
+                      "top_e": np.asarray(jax.lax.top_k(probs, cfg.moe.top_k)[1])}
+    return res
+
+
 def _run(job, devices):
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from jax.sharding import AxisType
     from repro import configs as rconfigs
     from repro.distributed import sharding as rsh
     from repro.launch import steps as rsteps
@@ -97,13 +183,11 @@ def _run(job, devices):
     from repro.models import recsys as R
     from repro.models import transformer as T
 
+    if "serve" in job:
+        return _serve(job, devices)
     arch = rconfigs.get(job["arch"])
     cfg = _cfg(arch, job["shape"], job["cfg"])
-    mesh = None
-    if job["mesh"] is not None:
-        d, m = job["mesh"]
-        mesh = jax.make_mesh((d, m), ("data", "model"), axis_types=(AxisType.Auto,) * 2,
-                             devices=devices[:d * m])
+    mesh = None if job["mesh"] is None else _mesh(job, devices)
     bound = rsteps.bind(arch, job["shape"], reduced=True, mesh=mesh, _cfg=cfg)
     state = bound.init_fn(jax.random.PRNGKey(job["seed"]))
     batches = [{k: jnp.asarray(v) for k, v in b.items()} for b in job["batches"]]

@@ -11,6 +11,11 @@ one bound step per batch, this rank's state bytes by part, the collective
 counters, and with ``moe`` layer 0's MoE on this rank's block of ``y3``
 (outputs and routing gathered in the reference's shard order). Rank r
 writes ``rank{r}.pt``.
+
+``serve_jobs`` runs the serving cells the same way (``fn(rank, world,
+jobs, out_dir)``): each job binds its cell on its mesh, takes this rank's
+blocks of the given whole params and batch, and records its outputs
+gathered whole, this rank's cache blocks and resident bytes.
 """
 import os
 
@@ -86,4 +91,111 @@ def train_jobs(rank, world, jobs, out_dir):
         out["stats"] = mesh.stats.summary()
         out["state"] = _flat(sh.tree_gather_blocks(state, mesh, bound.state_axes))
         res[key] = out
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+# ------------------------------------------------------------------ serving
+def _gathered(t, mesh, axes):
+    return sh.gather_block(t, mesh, axes).clone()
+
+
+def _serve_lm(job, mesh):
+    """Prefill of ``prompt`` (this rank's rows) into a zero cache of
+    ``cache_len`` (``bound``: through the bound prefill step, a cache of the
+    prompt's length), or the given ``cache`` placed ``cache_seq_flat``;
+    then one bound decode step per token vector of ``decode``."""
+    cfg, arch = job["cfg"], job["arch"]
+    pre = steps.bind(arch, "prefill_32k", reduced=True, mesh=mesh, _cfg=cfg)
+    params = sh.tree_local_blocks(job["params"], mesh, pre.state_axes)
+    out = {"param_bytes": fsdp.state_bytes(params), "decode": []}
+    if "prompt" in job:
+        tokens = sh.local_block(job["prompt"], mesh, pre.batch_axes["tokens"])
+        if job.get("bound"):
+            logits, cache = pre.step_fn(params, {"tokens": tokens})
+        else:
+            cache = tf.init_cache(cfg, job["prompt"].shape[0], job["cache_len"],
+                                  device=mesh.device, mesh=mesh)
+            logits, cache = tf.prefill(params, tokens, cache, cfg, mesh)
+        out["prefill"] = {"logits": _gathered(logits, mesh, pre.out_axes[0]),
+                          **{k: v.clone() for k, v in cache.items()}}
+        dec = steps.bind(arch, "decode_32k", reduced=True, mesh=mesh, _cfg=cfg)
+    else:
+        dec = steps.bind(arch, "long_500k", reduced=True, mesh=mesh, _cfg=cfg)
+        cache = sh.tree_local_blocks(job["cache"], mesh, dec.batch_axes["cache"])
+    for tok in job["decode"]:
+        tok = sh.local_block(tok, mesh, dec.batch_axes["tokens"])
+        logits, cache = dec.step_fn(params, {"tokens": tok, "cache": cache})
+        out["decode"].append(_gathered(logits, mesh, dec.out_axes[0]))
+    out["cache"] = {k: v.clone() for k, v in cache.items()}
+    out["cache_bytes"] = fsdp.state_bytes(cache)
+    if "moe" in job:
+        par = tf._par(cfg, mesh, None, split=(True, False))
+        p0 = {k: v[0] for k, v in params["layers"].items()}
+        y3 = sh.local_block(job["moe"], mesh, ("batch", None, None))
+        with torch.no_grad():
+            y, _, top_e = tf._moe_ffn_split(p0, y3, cfg, par)
+        out["moe"] = {"y": _gathered(y, mesh, ("batch", None, None)),
+                      "top_e": _gathered(top_e, mesh, ("batch", None, None))}
+    out["stats"] = mesh.stats.summary()
+    return out
+
+
+def _serve_recsys(job, mesh):
+    """The bound ``serve`` step on this rank's blocks, counting the
+    ``fm_interact`` calls it makes."""
+    from repro_torch.kernels.fm_interact import ops as fm_ops
+    bound = steps.bind(job["arch"], job["shape"], reduced=True, mesh=mesh, _cfg=job["cfg"])
+    params = sh.tree_local_blocks(job["params"], mesh, bound.state_axes)
+    batch = {k: sh.local_block(v, mesh, bound.batch_axes[k]) for k, v in job["batch"].items()}
+    calls, fm = [], fm_ops.fm_interact
+    fm_ops.fm_interact = lambda emb: calls.append(emb.shape[0]) or fm(emb)
+    try:
+        scores = bound.step_fn(params, batch)
+    finally:
+        fm_ops.fm_interact = fm
+    return {"scores": _gathered(scores, mesh, bound.out_axes), "fm_rows": calls,
+            "param_bytes": fsdp.state_bytes(params)}
+
+
+def _serve_retrieval(job, mesh):
+    """The bound ``retrieval`` step (top-100), and ``score_candidates`` with
+    ``k`` and ``n_valid``, on this rank's block of the candidates."""
+    bound = steps.bind("deepfm", "retrieval_cand", reduced=True, mesh=mesh)
+    cand = sh.local_block(job["cand"], mesh, bound.batch_axes["cand_embs"])
+    top, ids = bound.step_fn({}, {"query_emb": job["query"], "cand_embs": cand})
+    vtop, vids = rs.score_candidates(job["query"], cand, k=job["k"], mesh=mesh,
+                                     n_valid=job["n_valid"])
+    return {"top": top, "ids": ids, "valid_top": vtop, "valid_ids": vids,
+            "rows": cand.shape[0]}
+
+
+SERVE = {"lm": _serve_lm, "recsys": _serve_recsys, "retrieval": _serve_retrieval}
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree
+
+
+def serve_jobs(rank, world, jobs, out_dir):
+    """Each job whose (data, model) mesh has ``world`` ranks, bound on that
+    mesh of gloo ranks (CPU ranks, or with a job's ``device`` "cuda" ranks
+    sharing the card) and run by its family's function above; rank r
+    writes ``rank{r}.pt``, its tensors on the host."""
+    torch.set_num_threads(1)
+    res = {}
+    for key, job in jobs.items():
+        d, m = job["mesh"]
+        if d * m != world:
+            continue
+        dev = "cuda:0" if job.get("device", "cpu") == "cuda" else "cpu"
+        if dev != "cpu":
+            torch.cuda.set_device(0)
+        mesh = M.make_mesh((d, m), ("data", "model"), backend="gloo", device=dev)
+        res[key] = _to(SERVE[job["family"]](_to(job, mesh.device), mesh), "cpu")
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))

@@ -1423,3 +1423,106 @@ def test_mesh_recsys_launches_fm_interact_on_every_rank(mesh_train_on_the_card):
     got, _ = mesh_train_on_the_card
     for r in range(4):
         assert got[r]["recsys"]["launches"].get("fm_interact", 0) >= 1
+
+
+# -------------------------------------------------------- mesh serving slice
+@pytest.fixture(scope="module")
+def mesh_serve_on_the_card(tmp_path_factory):
+    """minitron-smoke (bf16, the config's own dtype) prefill of 4 x 32
+    tokens into a cache of 48 and 3 decode steps, and retrieval over 4,096
+    integer-valued candidates (top-100, n_valid 3,000), on 2 x 2 gloo ranks
+    sharing the card (tests/_mesh_workers.serve_jobs), with the one-device
+    results on the card they are held to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import _mesh_workers as W
+    from repro_torch import configs
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as tf
+    cfg = configs.get("minitron-4b").make_config("prefill_32k", True)
+    params = tf.init(torch.Generator().manual_seed(5), cfg, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab, (4, 32), generator=gen, dtype=torch.int32)
+    toks = [torch.randint(0, cfg.vocab, (4,), generator=gen, dtype=torch.int32)
+            for _ in range(3)]
+    cand = torch.randint(-2, 3, (4096, 8), generator=gen).float()
+    query = torch.randint(-2, 3, (8,), generator=gen).float()
+    jobs = {"lm": dict(family="lm", arch="minitron-4b", cfg=cfg, mesh=(2, 2), device="cuda",
+                       params=params, prompt=prompt, cache_len=48, decode=toks),
+            "retrieval": dict(family="retrieval", mesh=(2, 2), device="cuda", query=query,
+                              cand=cand, k=100, n_valid=3000)}
+    out = tmp_path_factory.mktemp("mesh_serve_card")
+    M.spawn(W.serve_jobs, 4, (jobs, str(out)), backend="gloo")
+    got = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(4)]
+    card = _to_card(params)
+    with torch.no_grad():
+        cache = tf.init_cache(cfg, 4, 48, device="cuda")
+        logits, cache = tf.prefill(card, prompt.cuda(), cache, cfg)
+        want = {"prefill": logits.float().cpu(), "decode": []}
+        for t in toks:
+            logits, cache = tf.decode_step(card, t.cuda(), cache, cfg)
+            want["decode"].append(logits.float().cpu())
+    want["retrieval"] = [rs.score_candidates(query.cuda(), cand.cuda(), k=100),
+                         rs.score_candidates(query.cuda(), cand.cuda(), k=100, n_valid=3000)]
+    return got, want
+
+
+def test_mesh_serve_decode_on_the_card_equals_one_device(mesh_serve_on_the_card):
+    """The prefill's and every decode step's logits on every rank within
+    3e-2 of the one device's largest |logit| (bf16: the ranks' GEMMs and the
+    split softmax round in other places)."""
+    got, want = mesh_serve_on_the_card
+    for r in range(4):
+        res = got[r]["lm"]
+        pairs = [(res["prefill"]["logits"], want["prefill"])] + \
+            list(zip(res["decode"], want["decode"]))
+        for g, w in pairs:
+            err = float((g.float() - w).abs().max())
+            assert err <= 3e-2 * float(w.abs().max()), (r, err)
+
+
+def test_mesh_serve_retrieval_on_the_card_equals_one_device(mesh_serve_on_the_card):
+    """Integer-valued candidates: exact scores, many ties, broken by the
+    lower global id on the mesh as on one device."""
+    got, want = mesh_serve_on_the_card
+    (top, ids), (vtop, vids) = want["retrieval"]
+    for r in range(4):
+        res = got[r]["retrieval"]
+        assert torch.equal(res["ids"], ids.cpu()) and torch.equal(res["top"], top.cpu())
+        assert torch.equal(res["valid_ids"], vids.cpu())
+        assert torch.equal(res["valid_top"], vtop.cpu())
+
+
+def test_mesh_serve_dry_run_peak_of_minibatch_lg_on_the_card(dev):
+    """The dry run's ``peak_bytes`` for DimeNet FULL minibatch_lg within 20 %
+    of the card's high-water mark over one step of the same shapes (random
+    edges over its node slots; the state and the batch counted, nothing
+    else)."""
+    from repro_torch.configs import base as cb
+    from repro_torch.launch import dryrun, steps
+    pred = dryrun.run_cell("dimenet", "minibatch_lg")
+    bound = steps.bind("dimenet", "minibatch_lg", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    state = bound.init_fn(gen)
+    dims = cb.GNN_SHAPES[1].dims
+    batch = {}
+    for k, (shape, dtype) in bound.input_specs.items():
+        if k in ("edge_src", "edge_dst", "labels"):
+            hi = dims["n_out"] if k == "labels" else dims["n_nodes"]
+            batch[k] = torch.randint(0, hi, shape, generator=gen, device="cuda", dtype=dtype)
+        elif k in ("node_feat", "pos"):
+            batch[k] = torch.randn(shape, generator=gen, device="cuda")
+        else:                                       # the edge and label masks
+            batch[k] = torch.ones(shape, dtype=dtype, device="cuda")
+    batch["edge_dst"] = torch.where(batch["edge_dst"] == batch["edge_src"],
+                                    (batch["edge_dst"] + 1) % dims["n_nodes"], batch["edge_dst"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    bound.step_fn(state, batch)
+    torch.cuda.synchronize()
+    own = pred["state_bytes"] + pred["batch_bytes"]
+    card = torch.cuda.max_memory_allocated() - before + own
+    assert abs(pred["peak_bytes"] - card) <= 0.2 * card, (pred["peak_bytes"], card)

@@ -222,6 +222,12 @@ def test_collectives_of_the_mesh_step_are_counted(runs):
 
 
 def test_bind_refuses_a_serving_cell_on_a_mesh():
-    mesh = M.Mesh(("data", "model"), {"data": 1, "model": 1}, "gloo", torch.device("cpu"), 0, {})
-    with pytest.raises(ValueError, match="only train cells"):
-        steps.bind("minitron-4b", "decode_32k", reduced=True, mesh=mesh)
+    """Every cell binds on a mesh, as in the reference; a serving cell whose
+    params do not split over the mesh (the SMOKE vocab of 512 over 3
+    ``model`` ranks) is refused when its blocks are taken, naming the
+    leaf."""
+    mesh = M.Mesh(("data", "model"), {"data": 1, "model": 3}, "gloo", torch.device("cpu"), 0, {})
+    bound = steps.bind("minitron-4b", "decode_32k", reduced=True, mesh=mesh)
+    assert bound.mesh is mesh and bound.kind == "decode"
+    with pytest.raises(ValueError, match="embed.*does not split"):
+        bound.init_fn(torch.Generator().manual_seed(0))
