@@ -102,19 +102,43 @@ def update_neighbors(x: torch.Tensor, g: G.Graph, cfg: RNNDescentConfig,
     """Paper Algorithm 4, one parallel sweep over all vertices: keep the RNG
     survivors (flags become "old"), and merge each dropped v's replacement
     edge (w -> v) into w's row, flagged "new". ``x`` is cast to the gram
-    dtype if it is not in it already; ``qx`` (int8) prunes over codes."""
-    keep, red_w, red_d = prune_rows(gram_input(x, cfg), g.neighbors, g.dists,
-                                    g.flags, cfg, qx=qx)
-    inf = torch.tensor(float("inf"), device=g.dists.device)
-    pruned = G.sort_rows(G.Graph(
-        neighbors=torch.where(keep, g.neighbors, -1),
-        dists=torch.where(keep, g.dists, inf),
-        flags=torch.zeros_like(g.flags),
-    ))
-    cand_dst = torch.where(red_w >= 0, g.neighbors, -1)
-    return G.merge_candidate_edges(pruned, red_w.reshape(-1), cand_dst.reshape(-1),
-                                   red_d.reshape(-1), merge=cfg.merge,
-                                   n_buckets=cfg.n_buckets)
+    dtype if it is not in it already; ``qx`` (int8) prunes over codes.
+
+    Observability: the prune runs under an ``rng_prune/rows`` span (rows,
+    capacity m, d, the gathered itemsize, and the valid candidates going
+    in: ``cands_valid`` = sum of v, ``cands_valid_sq`` = sum of v^2), the
+    sort of the pruned rows and the merge under ``graph/merge`` (the
+    ``rows`` rewritten, the ``rows_changed`` that hold a NEW edge after
+    it); each with its launches and, on the card, ``device_ms``. The counts
+    are launched after both spans and read with their times after the
+    enclosing costed block's wait."""
+    from repro_torch.obs import cudahooks as _ch
+    from repro_torch.obs import graphstats as _gs
+    from repro_torch.obs import trace as _tr
+    dev = g.neighbors.device
+    xg = gram_input(x, cfg)
+    with _tr.span("rng_prune/rows") as psp, _ch.span_costs(psp, dev) as pc:
+        keep, red_w, red_d = prune_rows(xg, g.neighbors, g.dists, g.flags, cfg, qx=qx)
+    with _tr.span("graph/merge") as msp, _ch.span_costs(msp, dev) as mc:
+        inf = torch.tensor(float("inf"), device=dev)
+        pruned = G.sort_rows(G.Graph(
+            neighbors=torch.where(keep, g.neighbors, -1),
+            dists=torch.where(keep, g.dists, inf),
+            flags=torch.zeros_like(g.flags),
+        ))
+        cand_dst = torch.where(red_w >= 0, g.neighbors, -1)
+        out = G.merge_candidate_edges(pruned, red_w.reshape(-1), cand_dst.reshape(-1),
+                                      red_d.reshape(-1), merge=cfg.merge,
+                                      n_buckets=cfg.n_buckets)
+    if psp:
+        gathered = xg if qx is None else qx.codes
+        n, m = g.neighbors.shape
+        psp.set(rows=n, m=m, d=gathered.shape[1], itemsize=gathered.element_size())
+        pc.defer(**_gs.prune_counts(g))
+    if msp:
+        msp.set(rows=g.neighbors.shape[0])    # the merge rewrites every row
+        mc.defer(**_gs.merge_counts(out))
+    return out
 
 
 def add_reverse_edges(g: G.Graph, cfg: RNNDescentConfig) -> G.Graph:

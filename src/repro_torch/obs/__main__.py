@@ -8,8 +8,7 @@ operator would pull from a deployment:
 * ``trace.json`` — Chrome/Perfetto trace-event JSON covering the build
   sweeps (``rnn_descent/*``), the search (``search/tiled``), the serving
   request lifecycle (``serving/*`` pump spans and per-request tracks), and
-  the kernel track (``kernel/*``: builds, and the device time of each
-  costed span);
+  the kernel track (``kernel/build``: each nvcc run of the session);
 * ``metrics.prom`` — Prometheus text exposition of the process registry;
 * ``metrics.json`` — the same registry as a JSON snapshot.
 
@@ -25,7 +24,9 @@ fails:
    kernel library.
 
 Plus a structural check that ``trace.json`` loads and covers the build,
-search, serving and kernel span families.
+search and serving span families; on the card also the kernel track where
+the traced session built a kernel, else the device time of the build's
+sweeps.
 
     python -m repro_torch.obs                      # on the card
     python -m repro_torch.obs --device cpu --out /tmp/obs
@@ -44,8 +45,10 @@ def _check(failures: list[str], ok: bool, label: str) -> None:
         failures.append(label)
 
 
-def _validate_trace(path: str, failures: list[str], kernel_track: bool) -> None:
-    """Loadability + coverage check on the emitted Perfetto JSON."""
+def _validate_trace(path: str, failures: list[str], card: bool, built: bool) -> None:
+    """Loadability + coverage check on the emitted Perfetto JSON. On the
+    card (``card``): the kernel track where the session ran nvcc
+    (``built``), else ``device_ms`` on every build sweep span."""
     with open(path) as f:
         doc = json.load(f)
     evs = doc.get("traceEvents", [])
@@ -59,11 +62,16 @@ def _validate_trace(path: str, failures: list[str], kernel_track: bool) -> None:
                 ("search/", "search tile spans"),
                 ("serving/", "serving pump spans"),
                 ("request/", "per-request lifecycle spans")]
-    if kernel_track:
-        families.append(("kernel/", "the kernel track"))
+    if card and built:
+        families.append(("kernel/build", "the kernel track"))
     for family, label in families:
         _check(failures, any(n.startswith(family) for n in names),
                f"trace covers {label} ({family}*)")
+    if card and not built:
+        sweeps = [e for e in xs if e["name"] == "rnn_descent/sweep"]
+        _check(failures, bool(sweeps) and all("device_ms" in e.get("args", {})
+                                              for e in sweeps),
+               "build sweep spans carry their device time (device_ms)")
 
 
 def main(argv=None) -> int:
@@ -150,6 +158,7 @@ def main(argv=None) -> int:
     print("== traced run (obs enabled) ==", flush=True)
     obs.enable()
     obs.reset()
+    traced_builds0 = cudahooks.kernel_builds()
 
     with trace.span("obs/build") as bsp, cudahooks.span_costs(bsp, dev):
         ann, ids_t, dists_t = build_and_probe()
@@ -214,9 +223,9 @@ def main(argv=None) -> int:
     metrics.write_exposition(os.path.join(args.out, "metrics.prom"))
     with open(os.path.join(args.out, "metrics.json"), "w") as f:
         json.dump(metrics.REGISTRY.snapshot(), f, indent=1)
-    # kernels run, and their device time lands on the kernel track, only
-    # on the card
-    _validate_trace(trace_path, failures, kernel_track=dev.type == "cuda")
+    # kernels run, and are built, only on the card
+    _validate_trace(trace_path, failures, card=dev.type == "cuda",
+                    built=cudahooks.kernel_builds() > traced_builds0)
     obs.disable()
 
     print(f"\nartifacts: {trace_path} (open in https://ui.perfetto.dev), "

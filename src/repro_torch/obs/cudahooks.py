@@ -26,9 +26,12 @@ Three capture surfaces:
 * **Span costs** — :func:`span_costs` wraps a block inside a span and sets
   the span's kernel launches (the delta of ``kernels.LAUNCHES``, one
   ``launches_<kernel>`` attribute each) and its device milliseconds
-  between two CUDA events recorded at entry and exit; that device time
-  also lands on the kernel track as a ``kernel/device`` event (placed at
-  the span's host entry: the device starts the block's work no earlier).
+  between two CUDA events recorded at entry and exit. Costs nest: only the
+  outermost costed block waits for its end event; a costed block inside it
+  (a sweep's prune, its merge) is resolved after that one wait, with the
+  device counters handed to :meth:`_SpanCosts.defer`, so the host keeps
+  queueing the next block behind it and a traced sweep still waits on the
+  card once.
 
 Everything here runs on the host between launches and reads only
 counters, allocator statistics and events, so installing the hooks never
@@ -135,15 +138,26 @@ def record_memory(phase: str = "", device: str | torch.device = "cuda") -> dict:
     return {name: picked}
 
 
+_costs_tls = threading.local()     # per-thread stack of open costed blocks
+
+
+def _open_costs() -> list:
+    stack = getattr(_costs_tls, "stack", None)
+    if stack is None:
+        stack = _costs_tls.stack = []
+    return stack
+
+
 class _SpanCosts:
-    __slots__ = ("sp", "device", "before", "ev", "t0")
+    __slots__ = ("sp", "device", "before", "ev", "values", "inner", "done")
 
     def __init__(self, sp, device):
         self.sp, self.device = sp, device
+        self.values, self.inner, self.done = {}, [], False
 
     def __enter__(self):
+        _open_costs().append(self)
         self.before = dict(LAUNCHES)
-        self.t0 = T.clock()
         self.ev = None
         if self.device is not None and self.device.type == "cuda":
             self.ev = (torch.cuda.Event(enable_timing=True),
@@ -152,20 +166,43 @@ class _SpanCosts:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        stack = _open_costs()
+        if stack and stack[-1] is self:
+            stack.pop()
         if exc_type is not None:
             return False
         attrs = {f"launches_{k}": v - self.before.get(k, 0)
                  for k, v in LAUNCHES.items() if v != self.before.get(k, 0)}
         attrs["launches"] = sum(attrs.values())
+        self.sp.set(**attrs)
         if self.ev is not None:
             self.ev[1].record(torch.cuda.current_stream(self.device))
+        if stack:                 # resolved after the outermost block's wait
+            stack[0].inner.append(self)
+            return False
+        if self.ev is not None:
             self.ev[1].synchronize()
-            attrs["device_ms"] = self.ev[0].elapsed_time(self.ev[1])
-            T.add_complete("kernel/device", self.t0, attrs["device_ms"] / 1e3,
-                           tid=KERNEL_TRACK_TID, span=getattr(self.sp, "name", ""),
-                           launches=attrs["launches"])
-        self.sp.set(**attrs)
+        for c in (self, *self.inner):
+            c._resolve()
         return False
+
+    def defer(self, **values: torch.Tensor) -> None:
+        """Device scalars read into the span's attributes as Python numbers
+        once the outermost costed block has waited for the card; read at
+        once if this block is resolved already."""
+        self.values.update(values)
+        if self.done:
+            self._read()
+
+    def _resolve(self) -> None:
+        if self.ev is not None:
+            self.sp.set(device_ms=self.ev[0].elapsed_time(self.ev[1]))
+        self.done = True
+        self._read()
+
+    def _read(self) -> None:
+        self.sp.set(**{k: t.item() for k, t in self.values.items()})
+        self.values.clear()
 
 
 class _NoCosts:
@@ -185,8 +222,10 @@ def span_costs(sp, device: torch.device | None = None):
     """``with trace.span(...) as sp, span_costs(sp, x.device):`` — on exit
     set the block's kernel launches (``launches_<kernel>`` and their total
     ``launches``) and, on a CUDA ``device``, its ``device_ms`` between two
-    events on the current stream. With tracing off (``sp`` falsy) it does
-    nothing at all."""
+    events on the current stream. Inside another costed block the
+    ``device_ms`` (and what :meth:`_SpanCosts.defer` was given) is set when
+    the outermost one exits, after its single wait. With tracing off
+    (``sp`` falsy) it does nothing at all."""
     if not sp:
         return _NO_COSTS
     return _SpanCosts(sp, None if device is None else torch.device(device))

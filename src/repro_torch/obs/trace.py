@@ -25,6 +25,10 @@ tests/test_torch_serving.py on this copy):
 * **Nesting** — a per-thread stack gives every span its parent and depth;
   the Chrome trace-event export emits complete ("X") events whose
   begin/end nesting Perfetto reconstructs per thread track.
+* **On the profiler's clock** — every span opened by :func:`span` also
+  opens a ``torch.profiler`` record function of its name, inside the
+  span's own interval, so a running ``torch.profiler`` lists it among its
+  host events (and can charge what the card waits for to the span).
 
 Exports: :func:`chrome_trace` (load the JSON in https://ui.perfetto.dev),
 :func:`summary` / :func:`summary_table` (flat per-name aggregation — the
@@ -40,6 +44,8 @@ import json
 import threading
 import time
 from typing import Any
+
+import torch
 
 _lock = threading.Lock()
 _enabled = False
@@ -63,7 +69,7 @@ class Span:
     attributes with :meth:`set`. Truthy — the disabled-path sentinel
     :data:`NOOP` is falsy, so ``if sp:`` gates trace-only work."""
 
-    __slots__ = ("name", "t0", "dur_s", "tid", "depth", "attrs")
+    __slots__ = ("name", "t0", "dur_s", "tid", "depth", "attrs", "_rf")
 
     def __init__(self, name: str, attrs: dict[str, Any]):
         self.name = name
@@ -72,6 +78,7 @@ class Span:
         self.dur_s = 0.0
         self.tid = 0
         self.depth = 0
+        self._rf = None
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -88,9 +95,13 @@ class Span:
         self.tid = threading.get_ident()
         stack.append(self)
         self.t0 = _now()
+        # the profiler's record function in its fast form (under a microsecond)
+        self._rf = torch._C._profiler._RecordFunctionFast(self.name)
+        self._rf.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        self._rf.__exit__(exc_type, exc, tb)
         self.dur_s = _now() - self.t0
         stack = getattr(_tls, "stack", [])
         if stack and stack[-1] is self:

@@ -188,17 +188,22 @@ class StreamingANN:
         on the store (``last_remap``) through save/restore. ``repair_sweeps``
         full ``update_neighbors`` passes then re-knit regions that leaned on
         tombstone bridges (0 to skip), row-sharded over the bound mesh (each
-        rank sweeps its rows, then the rows are gathered)."""
+        rank sweeps its rows, then the rows are gathered). Traced, each
+        repair sweep is a ``streaming/repair`` span that waits on the card
+        once, like a build's sweep, for the prune and merge spans in it."""
+        from repro_torch.obs import cudahooks as _ch
+        from repro_torch.obs import trace as _tr
         st, remap = ST.compact(self.store)
         for _ in range(repair_sweeps):
-            if self.mesh is not None:
-                from repro_torch.core import shard
-                g = shard.rnn_update_neighbors(rd.gram_input(st.x, self.cfg.build),
-                                               shard.local_rows(st.graph, self.mesh),
-                                               self.cfg.build, self.mesh)
-                g = shard.gather_rows(g, st.graph.n, self.mesh)
-            else:
-                g = rd.update_neighbors(st.x, st.graph, self.cfg.build)
+            with _tr.span("streaming/repair") as sp, _ch.span_costs(sp, st.x.device):
+                if self.mesh is not None:
+                    from repro_torch.core import shard
+                    g = shard.rnn_update_neighbors(rd.gram_input(st.x, self.cfg.build),
+                                                   shard.local_rows(st.graph, self.mesh),
+                                                   self.cfg.build, self.mesh)
+                    g = shard.gather_rows(g, st.graph.n, self.mesh)
+                else:
+                    g = rd.update_neighbors(st.x, st.graph, self.cfg.build)
             st = st._replace(graph=g)
         self.store = st
         return remap

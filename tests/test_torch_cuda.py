@@ -1274,6 +1274,53 @@ def test_traced_medium_build_equals_untraced_on_the_card(dev):
     assert tiled["attrs"]["work"] == st0["work"] and tiled["attrs"]["launches_beam_score"] > 0
 
 
+def test_traced_sweeps_time_the_prune_and_the_merge_apart_on_the_card(dev, monkeypatch):
+    """Each traced sweep on the card: its ``rng_prune/rows`` span holds the
+    one prune launch, its ``graph/merge`` span none, both with device time
+    inside the sweep's; the card is waited for once a sweep (the sweep's
+    ``graphstats.sync`` and its end event), as before the child spans; the
+    graph is the untraced one bit for bit."""
+    from repro_torch import obs
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.obs import graphstats, trace
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(20_000, 64, generator=gen, device=dev)
+    cfg = rd.RNNDescentConfig(s=16, r=48, t1=3, t2=4, capacity=64)
+    g0 = rd.build(x, cfg, torch.Generator(device=dev).manual_seed(1))
+    waits = {"sync": 0, "event": 0}
+    inner_sync, inner_wait = graphstats.sync, torch.cuda.Event.synchronize
+
+    def sync(t):
+        waits["sync"] += 1
+        inner_sync(t)
+
+    def wait(ev):
+        waits["event"] += 1
+        inner_wait(ev)
+    monkeypatch.setattr(graphstats, "sync", sync)
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", wait)
+    obs.reset()
+    try:
+        with trace.enabled_scope():
+            g1 = rd.build(x, cfg, torch.Generator(device=dev).manual_seed(1))
+        evs = trace.events()
+    finally:
+        obs.disable()
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    passes = cfg.t1 * cfg.t2 + cfg.t1 - 1
+    assert waits == {"sync": passes, "event": passes}
+    by = {k: [e["attrs"] for e in evs if e["name"] == k]
+          for k in ("rnn_descent/sweep", "rng_prune/rows", "graph/merge")}
+    assert all(len(v) == cfg.t1 * cfg.t2 for v in by.values())
+    for sw, pr, mg in zip(*by.values()):
+        assert pr["launches_rng_prune"] == 1 and mg["launches"] == 0
+        assert pr["device_ms"] > 0 and mg["device_ms"] > 0
+        assert pr["device_ms"] + mg["device_ms"] <= sw["device_ms"]
+        assert pr["rows"] == mg["rows"] == 20_000 and pr["itemsize"] == 4
+        assert 0 < pr["cands_valid"] <= pr["cands_valid_sq"]
+        assert 0 < mg["rows_changed"] <= 20_000 and isinstance(mg["rows_changed"], int)
+
+
 # ----------------------------------------------------------- the GNN family
 def _gnn_graph(dev, n=400, deg=3, seed=0):
     """Distinct edges dst = src + U[1, n) mod n and every triplet (k == i

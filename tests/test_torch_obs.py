@@ -27,6 +27,7 @@ from repro.obs import graphstats as rgs
 from repro.obs import metrics as rmetrics
 from repro.obs import trace as rtrace
 from repro_torch import convert, obs
+from repro_torch.core import graph as G
 from repro_torch.core import nn_descent as nnd
 from repro_torch.core import nsg_style as nsg
 from repro_torch.core import rnn_descent as rd
@@ -195,6 +196,138 @@ def test_rnn_descent_traced_equals_untraced(corpus, mode):
     assert [a["sweep"] for _, a in sweeps] == list(range(RNN_KW["t1"] * RNN_KW["t2"]))
 
 
+def _inside(inner, outer, slack_s=0.0) -> bool:
+    return (inner["start_s"] >= outer["start_s"] - slack_s and
+            inner["start_s"] + inner["dur_s"] <= outer["start_s"] + outer["dur_s"] + slack_s)
+
+
+@pytest.mark.parametrize("mode", ["f32", "int8"])
+def test_sweep_prune_and_merge_spans_count_their_work(corpus, monkeypatch, mode):
+    """Each traced sweep holds one ``rng_prune/rows`` and one ``graph/merge``
+    span at depth 1; their counts equal a recomputation from the sweep's
+    input graph and the merged flags; the input rows keep their valid
+    slots leading (the prune roofline's model); the card is waited for once
+    a sweep (``graphstats.sync``); the graph is the untraced one bit for
+    bit."""
+    x, _ = corpus
+    quant = Quantization(mode="int8") if mode == "int8" else Quantization()
+    cfg = rd.RNNDescentConfig(**RNN_KW, quant=quant)
+    g0 = rd.build(torch.from_numpy(x), cfg, torch.Generator().manual_seed(2))
+
+    sweeps, syncs = [], []
+    inner_update, inner_sync = rd.update_neighbors, graphstats.sync
+
+    def update(xg, g, c, qx=None):
+        out = inner_update(xg, g, c, qx=qx)
+        sweeps.append((g, out))
+        return out
+
+    monkeypatch.setattr(rd, "update_neighbors", update)
+    monkeypatch.setattr(graphstats, "sync", lambda t: syncs.append(inner_sync(t)))
+    obs.enable(install_hooks=False)
+    g1 = rd.build(torch.from_numpy(x), cfg, torch.Generator().manual_seed(2))
+    obs.disable()
+    assert _same_graph(g0, g1)
+    n_sweeps = RNN_KW["t1"] * RNN_KW["t2"]
+    assert len(syncs) == n_sweeps + RNN_KW["t1"] - 1      # one a sweep, one a reverse pass
+
+    evs = trace.events()
+    by = {k: [e for e in evs if e["name"] == k]
+          for k in ("rnn_descent/sweep", "rng_prune/rows", "graph/merge")}
+    assert all(len(v) == n_sweeps for v in by.values())
+    for sw, pr, mg, (g_in, g_out) in zip(*by.values(), sweeps):
+        assert sw["depth"] == 0 and pr["depth"] == 1 and mg["depth"] == 1
+        assert _inside(pr, sw) and _inside(mg, sw)
+        assert pr["start_s"] + pr["dur_s"] <= mg["start_s"]
+        valid = g_in.neighbors.numpy() >= 0
+        v = valid.sum(1).astype(np.int64)
+        assert (valid == (np.arange(valid.shape[1])[None, :] < v[:, None])).all()
+        assert pr["attrs"] == {"launches": 0, "rows": N, "m": RNN_KW["capacity"], "d": DIM,
+                               "itemsize": 1 if mode == "int8" else 4,
+                               "cands_valid": int(v.sum()), "cands_valid_sq": int((v * v).sum())}
+        new = (g_out.flags.numpy() == 1) & (g_out.neighbors.numpy() >= 0)
+        assert mg["attrs"] == {"launches": 0, "rows": N, "rows_changed": int(new.any(1).sum())}
+        assert 0 < mg["attrs"]["rows_changed"] <= N
+        assert sw["attrs"]["edges_new"] == int(new.sum())
+
+
+def test_row_counts_are_taken_once_a_graph_state():
+    """A graph state is reduced once for its per-row counts: counting it
+    again (the sweep's readouts, the next prune) reads the kept counts; a
+    new state, or the same tensors changed in place, are counted anew."""
+    nb = torch.tensor([[3, 1, -1], [-1, -1, -1], [0, 2, 1]], dtype=torch.int32)
+    fl = torch.tensor([[1, 0, 0], [1, 0, 0], [0, 0, 1]], dtype=torch.uint8)
+    g = G.Graph(neighbors=nb, dists=torch.zeros(3, 3), flags=fl)
+    live, new = graphstats.row_counts(g)
+    assert live.tolist() == [2, 0, 3] and new.tolist() == [1, 0, 1]
+    assert graphstats.row_counts(g)[0] is live
+    assert graphstats.prune_counts(g) == {"cands_valid": 5, "cands_valid_sq": 13}
+    assert graphstats.merge_counts(g) == {"rows_changed": 2}
+    assert graphstats.sweep_stats(g) == {"edges_live": 5, "edges_new": 2, "occupancy": 5 / 9}
+    fl[2, 2] = 0
+    assert graphstats.row_counts(g)[1].tolist() == [1, 0, 0]
+    g2 = G.Graph(neighbors=nb.clone(), dists=g.dists, flags=fl)
+    assert graphstats.row_counts(g2)[0] is not graphstats.row_counts(g)[0]
+    with torch.inference_mode():
+        g3 = G.Graph(*(t.clone() for t in g))
+    assert graphstats.row_counts(g3)[1].tolist() == [1, 0, 0]
+    assert graphstats.row_counts(g3)[0] is not graphstats.row_counts(g3)[0]
+
+
+def test_compact_repair_sweep_waits_once_for_its_spans(corpus, monkeypatch):
+    """Traced, ``compact``'s repair sweep is one costed ``streaming/repair``
+    span; the sweep's prune and merge spans sit under it at depth 1 and get
+    their counts when it ends, not at their own exits."""
+    from repro_torch.streaming import StreamingANN
+    from repro_torch.streaming import updates as U
+    x, _ = corpus
+    cfg = U.StreamingConfig(build=rd.RNNDescentConfig(**RNN_KW))
+    ann = StreamingANN.from_corpus(torch.from_numpy(x[:200]), cfg)
+    ann.delete(np.arange(0, 200, 7))
+    obs.reset()
+    obs.enable(install_hooks=False)
+    ann.compact()
+    obs.disable()
+    evs = trace.events()
+    (rep,) = [e for e in evs if e["name"] == "streaming/repair"]
+    kids = [e for e in evs if e["name"] in ("rng_prune/rows", "graph/merge")]
+    assert [e["name"] for e in kids] == ["rng_prune/rows", "graph/merge"]
+    assert rep["depth"] == 0 and all(e["depth"] == 1 and _inside(e, rep) for e in kids)
+    assert kids[0]["attrs"]["cands_valid"] > 0 and kids[1]["attrs"]["rows_changed"] >= 0
+
+
+def test_spans_appear_on_the_profilers_clock(corpus):
+    """Under a CPU ``torch.profiler`` every span opened by ``trace.span``
+    is a host event of its name, inside its span's interval (the profiler
+    stamps the wall clock, the tracer ``perf_counter``: their offset is
+    read once, to a few microseconds)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+    x, _ = corpus
+    cfg = rd.RNNDescentConfig(**{**RNN_KW, "t1": 1})
+    names = ("rnn_descent/sweep", "rng_prune/rows", "graph/merge")
+    obs.enable(install_hooks=False)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pairs = []
+        for _ in range(5):
+            a, w, b = trace.clock(), time.time_ns(), trace.clock()
+            pairs.append((b - a, (a + b) / 2, w))
+        bracket, c, w = min(pairs)
+        rd.build(torch.from_numpy(x), cfg, torch.Generator().manual_seed(2))
+    obs.disable()
+    hosts = sorted((e.start_ns(), e.duration_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events() if e.name() in names)
+    spans = sorted((e for e in trace.events() if e["name"] in names),
+                   key=lambda e: e["start_s"])
+    assert [h[2] for h in hosts] == [e["name"] for e in spans]
+    assert len(spans) == 3 * RNN_KW["t2"]
+    origin_ns = (trace._origin - c) * 1e9 + w
+    for (t0, dur, _), e in zip(hosts, spans):
+        ev = {"start_s": (t0 - origin_ns) / 1e9, "dur_s": dur / 1e9}
+        assert _inside(ev, e, slack_s=1e-4 + bracket), (e["name"], ev, e)
+
+
 def test_nsg_style_traced_equals_untraced(corpus):
     x, _ = corpus
     cfg = nsg.NSGStyleConfig(r=8, c=16, knn=nnd.NNDescentConfig(**NN_KW))
@@ -288,6 +421,25 @@ def test_span_costs_sets_launch_deltas(monkeypatch):
         LAUNCHES["beam_score"] += 1
     (ev,) = trace.events()
     assert ev["attrs"] == {"launches_rng_prune": 2, "launches_beam_score": 1, "launches": 3}
+
+
+def test_nested_span_costs_resolve_after_the_outermost():
+    """A costed block inside another one gets its launches at its own exit
+    and its deferred counts only when the outermost block exits (the one
+    wait of a traced sweep); with nothing around it, at once."""
+    obs.enable(install_hooks=False)
+    cpu = torch.device("cpu")
+    with trace.span("outer") as osp, cudahooks.span_costs(osp, cpu):
+        with trace.span("inner") as isp, cudahooks.span_costs(isp, cpu) as ic:
+            pass
+        ic.defer(a=torch.tensor(3), b=torch.tensor(4))
+        assert isp.attrs == {"launches": 0}
+    assert isp.attrs == {"launches": 0, "a": 3, "b": 4}
+    assert type(isp.attrs["a"]) is int
+    with trace.span("alone") as asp, cudahooks.span_costs(asp, cpu) as ac:
+        pass
+    ac.defer(c=torch.tensor(5))
+    assert asp.attrs == {"launches": 0, "c": 5}
 
 
 # ---------------------------------------------------------------------- CLI
