@@ -322,10 +322,12 @@ REF_MEDIUM = {"f32": {"recall_at_10": 0.998, "avg_out_degree": 12.5},
                        "connectivity": 0.9998}}
 QUANT_KW = {"int8": {"mode": "int8", "rerank_k": 64},
             "pq": {"mode": "pq", "m": 32, "rerank_k": 64}}
-# the kernels each corpus mode's path must launch (and no other)
-PATH_KERNELS = {"f32": {"rng_prune", "beam_score", "pairwise_l2"},
-                "int8": {"rng_prune_int8", "beam_score_int8"},
-                "pq": {"rng_prune", "beam_score_pq"}}
+# the kernels each corpus mode's path must launch (and no other); every
+# RNN-Descent build's sweeps merge through the two bucket_merge kernels
+MERGE_KERNELS = {"bucket_scatter", "bucket_row_merge"}
+PATH_KERNELS = {"f32": {"rng_prune", "beam_score", "pairwise_l2"} | MERGE_KERNELS,
+                "int8": {"rng_prune_int8", "beam_score_int8"} | MERGE_KERNELS,
+                "pq": {"rng_prune", "beam_score_pq"} | MERGE_KERNELS}
 # coded recall@10 within this much of the f32 route (benchmarks/bench_quant.py)
 CODED_DELTA = {"int8": 0.03, "pq": 0.05}
 # At 1M a coded path's recall@10 must reach f32 recall x its rerank ceiling
@@ -420,13 +422,14 @@ def plain_versions():
     """Route the path through the kernels' plain PyTorch versions on the
     card (the wrappers themselves only ever launch kernels on CUDA)."""
     from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.kernels.bucket_merge import ops as BM
     from repro_torch.kernels.fm_interact import ops as FM
     from repro_torch.kernels.pairwise_l2 import ops as P
     from repro_torch.kernels.rng_prune import ops as R
     swaps = ((R, "rng_prune", R.rng_prune_plain), (R, "rng_prune_int8", R.rng_prune_int8_plain),
              (B, "beam_score", B.beam_score_ref), (B, "beam_score_int8", B.beam_score_int8_ref),
              (B, "beam_score_pq", B.beam_score_pq_ref), (P, "pairwise_l2", P.pairwise_l2_ref),
-             (FM, "fm_interact", FM.fm_interact_ref))
+             (FM, "fm_interact", FM.fm_interact_ref), (BM, "bucket_merge", BM.bucket_merge_ref))
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -1046,7 +1049,7 @@ def medium_streaming():
                   "search": CHURN_SEARCH, "reference": ref if mode == "f32" else None, **res})
             want = set()
             if route == "kernel":
-                want = {"rng_prune", "beam_score", "pairwise_l2"} | (
+                want = {"rng_prune", "beam_score", "pairwise_l2"} | MERGE_KERNELS | (
                     {f"beam_score_{mode}"} if mode != "f32" else set())
             got = {k for k, v in launches.items() if v > 0}
             check(got == want, f"streaming {mode} {route} launched {got}, expected {want}")
@@ -2034,12 +2037,63 @@ def wide_beam_entries(nbrs, us: list, k: int, base: dict, tol: str) -> list:
          "shape": {**base["shape"], "d": WIDE_D}})
 
 
+def bucket_merge_report(x, g, launches: dict) -> dict:
+    """bucket_merge (``bucket_scatter`` then ``bucket_row_merge``) beside its
+    plain version at the main path's shape, all n rows of M = 128 in B = 256
+    buckets, on two real prune outputs: the built graph's (the next sweep's
+    input) and a random initial graph's (S = 20, a first sweep's, the most
+    candidates). Neighbors, dists' bits, flags and the count of real
+    candidates must be equal; timed on the built graph's, the bound being
+    the merge's inputs read once and its rows written once."""
+    from repro_torch.core import graph as G
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.kernels.bucket_merge import ops as BM
+    cfg = full_build()
+    n, m = g.neighbors.shape
+    b = cfg.n_buckets or G.default_buckets(m)
+    per_path = {launches["bucket_scatter"], launches["bucket_row_merge"]}
+    check(per_path == {cfg.t1 * cfg.t2}, f"the 1M path's merge launches {per_path}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    scattered = {}
+    for label, gi in (("random initial graph", rd.random_init(x, cfg, gen)), ("built graph", g)):
+        args = (gi.neighbors, gi.dists, *rd.prune_rows(x, gi.neighbors, gi.dists, gi.flags, cfg),
+                b)
+        (ker, ker_n), (ref, ref_n) = BM.bucket_merge(*args), BM.bucket_merge_ref(*args)
+        same = {"neighbors": torch.equal(ker.neighbors, ref.neighbors),
+                "dists": torch.equal(ker.dists.view(torch.int32), ref.dists.view(torch.int32)),
+                "flags": torch.equal(ker.flags, ref.flags),
+                "cands_scattered": int(ker_n) == int(ref_n)}
+        emit({"kernel": "bucket_merge", "input": label, "n": n, "M": m, "B": b, **same,
+              "cands_scattered": int(ker_n), "plain_cands_scattered": int(ref_n)})
+        check(all(same.values()), f"bucket_merge at the {label}: kernels != plain ({same})")
+        scattered[label] = int(ker_n)
+        del ker, ref
+    by_kernel = {k: device_ms(lambda i: BM.bucket_merge(*args), 20, f"{k}_kernel")
+                 for k in ("bucket_scatter", "bucket_row_merge")}
+    return {
+        "name": "bucket_merge", "input": "built graph", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bucket_merge.cu",
+        "replaces": "none (src/repro/core/graph.py:458, XLA's scatters and sorts)",
+        "launches": launches["bucket_row_merge"], "max_abs_err": 0.0,
+        "tolerance": "bit for bit: neighbors, dists' bits, flags, cands_scattered",
+        "cands_scattered": scattered,
+        **_timed_keys(time_ms(lambda i: BM.bucket_merge(*args), inner=20),
+                      time_ms(lambda i: BM.bucket_merge_ref(*args), inner=1, rounds=3,
+                              warmup=1)),
+        **_bound(0.0, 26.0 * n * m),
+        "table_bytes": 2 * 8 * n * b,   # this design's own: the sentinel written, words read
+        "device_ms": (sum(by_kernel.values()) if None not in by_kernel.values() else None),
+        "device_ms_by_kernel": by_kernel,
+        "library_ms": None, "shape": {"n": n, "M": m, "B": b}}
+
+
 def kernel_phase(x, q, g, launches, snap):
     """Each kernel beside its plain version on the main path's data."""
     from repro_torch.kernels.beam_score import ops as B
     from repro_torch.kernels.pairwise_l2 import ops as P
     n, d = x.shape
     report = rng_prune_report(x, prune_inputs_of(g, snap), launches["rng_prune"])
+    report.append(bucket_merge_report(x, g, launches))
     sq = (x * x).sum(1)
     # the same draws as the prune's integer corpus, so the beam inputs follow
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -2163,9 +2217,11 @@ def obs_phase(x, q, g, path_res: dict) -> None:
     cfg = build_step.cfg
     check(len(sweeps) == cfg.t1 * cfg.t2 and len(reverses) == cfg.t1 - 1,
           f"traced 1M build: {len(sweeps)} sweep and {len(reverses)} reverse spans")
-    check(all(e["attrs"].get("launches_rng_prune") == 1 and e["attrs"]["launches"] == 1
-              for e in sweeps), "a traced sweep launched other than one rng_prune")
-    check(build_launches == {"rng_prune": cfg.t1 * cfg.t2},
+    check(all(e["attrs"].get("launches_rng_prune") == 1 and e["attrs"]["launches"] == 3
+              and e["attrs"].get("launches_bucket_row_merge") == 1 for e in sweeps),
+          "a traced sweep launched other than one rng_prune and the two merge kernels")
+    check(build_launches == {"rng_prune": cfg.t1 * cfg.t2, "bucket_scatter": cfg.t1 * cfg.t2,
+                             "bucket_row_merge": cfg.t1 * cfg.t2},
           f"traced 1M build launched {build_launches}")
     keys = ["sweep", "t1", "edges_new", "edges_pruned", "edges_live", "occupancy", "wall_ms",
             "device_ms"]
@@ -5188,6 +5244,7 @@ def warm_up() -> None:
     """One tiny launch of each kernel: loads its module, so no phase's
     timing pays for that."""
     from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.kernels.bucket_merge import ops as BM
     from repro_torch.kernels.fm_interact import ops as FM
     from repro_torch.kernels.pairwise_l2 import ops as P
     from repro_torch.kernels.rng_prune import ops as R
@@ -5207,6 +5264,8 @@ def warm_up() -> None:
                     torch.zeros(2, 256, device="cuda"), torch.zeros(4, device="cuda"), 2)
     P.pairwise_l2(x, x)
     FM.fm_interact(torch.zeros(2, 3, 4, device="cuda", dtype=torch.bfloat16))
+    d2 = torch.zeros(4, 2, device="cuda")
+    BM.bucket_merge(ids, d2, ids >= 0, torch.full_like(ids, -1), d2, 2)
     torch.cuda.synchronize()
 
 

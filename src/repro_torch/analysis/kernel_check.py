@@ -53,11 +53,12 @@ from repro_torch.kernels import spec as K
 
 def all_specs(sms: int = K.H100_SMS) -> list[K.LaunchSpec]:
     from repro_torch.kernels.beam_score import ops as beam
+    from repro_torch.kernels.bucket_merge import ops as bm
     from repro_torch.kernels.fm_interact import ops as fm
     from repro_torch.kernels.pairwise_l2 import ops as pl2
     from repro_torch.kernels.rng_prune import ops as prune
     return [*prune.default_specs(sms), *beam.default_specs(), *pl2.default_specs(),
-            *fm.default_specs()]
+            *fm.default_specs(), *bm.default_specs()]
 
 
 # ------------------------------------------------------------------ static

@@ -7,10 +7,10 @@
 
 Every vertex is updated in parallel per sweep; replacement edges (w -> v)
 from the fused RNG prune are buffered and merged (bucketed merge by default,
-the sort oracle on request). The fused prune is the ``rng_prune`` CUDA kernel
-on the card and its plain version on the CPU; under ``quant.mode="int8"``
-it is ``rng_prune_int8``, which gathers code rows and decodes them in
-registers.
+on the card the ``bucket_merge`` CUDA kernels; the sort oracle on request).
+The fused prune is the ``rng_prune`` CUDA kernel on the card and its plain
+version on the CPU; under ``quant.mode="int8"`` it is ``rng_prune_int8``,
+which gathers code rows and decodes them in registers.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import as_tensor
 from repro_torch.core import graph as G
+from repro_torch.kernels.bucket_merge import ops as merge_ops
 from repro_torch.kernels.rng_prune import ops as rng_ops
 from repro_torch.quant import Quantization, QuantizedCorpus, prep_corpus
 
@@ -97,6 +98,18 @@ def prune_rows(x: torch.Tensor, ids: torch.Tensor, dists: torch.Tensor,
     return keep.bool(), red_w, red_d
 
 
+def merge_pruned(g: G.Graph, keep, red_w, red_d, cfg: RNNDescentConfig):
+    """Merge one sweep's prune output into rows of ``g``'s width -> (Graph,
+    the number of real candidates): the bucketed merge through the
+    ``bucket_merge`` wrapper (the kernels on the card, the plain version on
+    the CPU), the sort oracle through the plain version."""
+    ids, dists = g.neighbors, g.dists
+    if cfg.merge == "bucketed":
+        b = cfg.n_buckets or G.default_buckets(ids.shape[1])
+        return merge_ops.bucket_merge(ids, dists, keep, red_w, red_d, b)
+    return merge_ops.bucket_merge_ref(ids, dists, keep, red_w, red_d, None, merge=cfg.merge)
+
+
 def update_neighbors(x: torch.Tensor, g: G.Graph, cfg: RNNDescentConfig,
                      qx: QuantizedCorpus | None = None) -> G.Graph:
     """Paper Algorithm 4, one parallel sweep over all vertices: keep the RNG
@@ -107,37 +120,30 @@ def update_neighbors(x: torch.Tensor, g: G.Graph, cfg: RNNDescentConfig,
     Observability: the prune runs under an ``rng_prune/rows`` span (rows,
     capacity m, d, the gathered itemsize, and the valid candidates going
     in: ``cands_valid`` = sum of v, ``cands_valid_sq`` = sum of v^2), the
-    sort of the pruned rows and the merge under ``graph/merge`` (the
-    ``rows`` rewritten, the ``rows_changed`` that hold a NEW edge after
-    it); each with its launches and, on the card, ``device_ms``. The counts
-    are launched after both spans and read with their times after the
-    enclosing costed block's wait."""
+    merge (:func:`merge_pruned`: on the card the two ``bucket_merge``
+    kernels) under ``graph/merge`` (the ``rows`` rewritten and their width
+    ``m``, the ``rows_changed`` that hold a NEW edge after it, the
+    ``cands_scattered`` real candidates it merged); each with its launches
+    and, on the card, ``device_ms``. The counts are launched after both
+    spans and read with their times after the enclosing costed block's
+    wait."""
     from repro_torch.obs import cudahooks as _ch
     from repro_torch.obs import graphstats as _gs
     from repro_torch.obs import trace as _tr
     dev = g.neighbors.device
+    n, m = g.neighbors.shape
     xg = gram_input(x, cfg)
     with _tr.span("rng_prune/rows") as psp, _ch.span_costs(psp, dev) as pc:
         keep, red_w, red_d = prune_rows(xg, g.neighbors, g.dists, g.flags, cfg, qx=qx)
     with _tr.span("graph/merge") as msp, _ch.span_costs(msp, dev) as mc:
-        inf = torch.tensor(float("inf"), device=dev)
-        pruned = G.sort_rows(G.Graph(
-            neighbors=torch.where(keep, g.neighbors, -1),
-            dists=torch.where(keep, g.dists, inf),
-            flags=torch.zeros_like(g.flags),
-        ))
-        cand_dst = torch.where(red_w >= 0, g.neighbors, -1)
-        out = G.merge_candidate_edges(pruned, red_w.reshape(-1), cand_dst.reshape(-1),
-                                      red_d.reshape(-1), merge=cfg.merge,
-                                      n_buckets=cfg.n_buckets)
+        out, scattered = merge_pruned(g, keep, red_w, red_d, cfg)
     if psp:
         gathered = xg if qx is None else qx.codes
-        n, m = g.neighbors.shape
         psp.set(rows=n, m=m, d=gathered.shape[1], itemsize=gathered.element_size())
         pc.defer(**_gs.prune_counts(g))
     if msp:
-        msp.set(rows=g.neighbors.shape[0])    # the merge rewrites every row
-        mc.defer(**_gs.merge_counts(out))
+        msp.set(rows=n, m=m)                  # the merge rewrites every row
+        mc.defer(cands_scattered=scattered, **_gs.merge_counts(out))
     return out
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {"rng_prune": 0, "rng_prune_int8": 0, "beam_score": 0,
                             "beam_score_int8": 0, "beam_score_pq": 0, "pairwise_l2": 0,
-                            "fm_interact": 0}
+                            "fm_interact": 0, "bucket_scatter": 0, "bucket_row_merge": 0}
 
 
 def reset_launches() -> None:

@@ -25,7 +25,7 @@ from repro_torch.obs import trace as T
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("rng_prune", "rng_prune_wide", "beam_score", "beam_score_pq", "pairwise_l2",
-           "fm_interact")  # sources
+           "fm_interact", "bucket_merge")  # sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -81,7 +81,8 @@ def hand_kernels(arch_id: str, cfg, kind: str) -> list[str]:
     """The hand kernels a cell's step launches on the card."""
     family = configs.get(arch_id).family
     if family == "ann":
-        return ["rng_prune"] if kind == "ann_build" else ["beam_score"]
+        return (["rng_prune", "bucket_scatter", "bucket_row_merge"] if kind == "ann_build"
+                else ["beam_score"])
     if family == "recsys" and kind in ("train", "serve") and \
             cfg.interaction in ("fm", "fm-2way"):
         return ["fm_interact"]

@@ -107,12 +107,13 @@ def test_shipped_specs_clean_and_cover_every_instance():
     specs = KC.all_specs()
     assert KC.run(log=_silent, card=False) == []
     instances = {(s.source, s.instance) for s in specs}
-    assert len(instances) == 36
+    assert len(instances) == 38
     per_source = {src: sorted(i for s_, i in instances if s_ == src)
                   for src in {s for s, _ in instances}}
     assert per_source == {"rng_prune": [0, 1, 2], "rng_prune_wide": [0, 1],
                           "beam_score": list(range(20)), "beam_score_pq": list(range(7)),
-                          "pairwise_l2": [0, 1], "fm_interact": [0, 1]}
+                          "pairwise_l2": [0, 1], "fm_interact": [0, 1],
+                          "bucket_merge": [0, 1]}
     assert len({s.name for s in specs}) == len(specs)
 
 

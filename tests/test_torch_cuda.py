@@ -565,6 +565,135 @@ def test_medium_path_on_the_card(dev):
     assert E.recall_topk(ids, gt) == E.recall_topk(dense, gt)
 
 
+# --------------------------------------------------------------- bucket_merge
+def _crafted_merge_input(n, m, metric, seed):
+    """Prune outputs that hold every case the merge kernels must get right:
+    rows of unique ids in [0, n) with -1 holes, rows offered no candidate
+    (the last eighth), ids sharing a bucket, candidates already in their
+    target row at another distance (n is small against m), self-loops,
+    w >= n, NaN, +-inf and -0.0 distances in the rows and the redirects, and
+    ties; ``ip`` distances are mostly negative."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.full((n, m), -1, dtype=torch.int32)
+    for u in range(n):
+        k = min(int(torch.randint(0, m + 1, (1,), generator=gen)), n)
+        ids[u, :k] = torch.randperm(n, generator=gen)[:k].int()
+        ids[u] = ids[u][torch.randperm(m, generator=gen)]
+    lo = -6 if metric == "ip" else 0
+
+    def values():
+        return torch.randint(lo, 6, (n, m), generator=gen).float() / 2
+
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 0.0,
+                            torch.tensor(-1, dtype=torch.int32).view(torch.float32).item()])
+
+    def sprinkle(t, share):
+        pick = torch.randint(0, len(special), t.shape, generator=gen)
+        return torch.where(torch.rand(t.shape, generator=gen) < share, special[pick], t)
+
+    dists = torch.where(ids >= 0, sprinkle(values(), 0.05), torch.tensor(float("inf")))
+    red_d = sprinkle(values(), 0.1)
+    keep = torch.rand((n, m), generator=gen) < 0.4
+    red_w = torch.randint(-1, n + 3, (n, m), generator=gen).int()
+    red_w = torch.where(torch.rand((n, m), generator=gen) < 0.05, ids, red_w)
+    red_w = torch.where(keep | (torch.rand((n, m), generator=gen) < 0.3), -1, red_w)
+    red_w = torch.where(((red_w >= 7 * n // 8) & (red_w < n)), -1, red_w)
+    return ids, dists, keep, red_w, red_d
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y)
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("n_buckets", [16, 64, 256, 1024])
+@pytest.mark.parametrize("m", [32, 128])
+def test_bucket_merge_on_crafted_rows(dev, m, n_buckets, metric):
+    """The two kernels equal the plain path (``ref.py``) bit for bit in
+    neighbors, dists and flags, and in the count of real candidates, at cap
+    m and at a cap below m: the plain path on the CPU for every input; on
+    the card once each NaN is the positive one, since ``torch.sort`` on
+    CUDA orders a NaN with its sign bit set before -inf (the CPU's sort puts
+    every NaN last; a NaN is never live, in the kernels either)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.bucket_merge import ops as BM
+    crafted = _crafted_merge_input(600, m, metric, seed=m + n_buckets)
+    positive_nan = [t.nan_to_num(float("nan"), float("inf"), -float("inf"))
+                    if t.dtype == torch.float32 else t for t in crafted]
+    for cap in (m, m // 2 + 3):
+        for ins, oracle_dev in ((crafted, "cpu"), (positive_nan, dev)):
+            before = LAUNCHES["bucket_row_merge"]
+            got, count = BM.bucket_merge(*(t.to(dev) for t in ins), n_buckets, cap)
+            torch.cuda.synchronize()
+            assert LAUNCHES["bucket_row_merge"] == before + 1
+            want, want_count = BM.bucket_merge_ref(*(t.to(oracle_dev) for t in ins), n_buckets,
+                                                   cap)
+            assert _same_bits([t.cpu() for t in got], [t.cpu() for t in want])
+            assert int(count) == int(want_count) > 0
+        rows = slice(7 * 600 // 8, 600)          # offered no candidate
+        assert int((got.neighbors[rows] >= 0).sum()) <= int((ins[0][rows] >= 0).sum())
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("m", [32, 128])
+def test_bucket_merge_on_a_sweep(dev, m, metric):
+    """On a real sweep's prune output (a clustered corpus after three sweeps):
+    bit for bit the plain path."""
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
+    from repro_torch.kernels.bucket_merge import ops as BM
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, _ = clustered_vectors(VectorDatasetSpec.sift_like(6000, 10), gen, dev)
+    cfg = rd.RNNDescentConfig(s=16, r=m // 2, t1=1, t2=3, capacity=m, metric=metric)
+    g = rd.random_init(x, cfg, gen)
+    for _ in range(3):
+        g = rd.update_neighbors(x, g, cfg)
+    keep, red_w, red_d = rd.prune_rows(x, g.neighbors, g.dists, g.flags, cfg)
+    b = 2 * m
+    got = BM.bucket_merge(g.neighbors, g.dists, keep, red_w, red_d, b)
+    want = BM.bucket_merge_ref(g.neighbors, g.dists, keep, red_w, red_d, b)
+    assert _same_bits(got[0], want[0]) and int(got[1]) == int(want[1]) > 0
+
+
+def test_bucket_merge_raises_outside_its_limits_on_the_card(dev):
+    """On the card the wrapper launches the kernels or raises: more buckets
+    than the kernels' 2048, or rows wider than 256, never fall back to the
+    plain version."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.bucket_merge import ops as BM
+    for m, b in ((32, 4096), (257, 512)):
+        ins = [t.to(dev) for t in _crafted_merge_input(64, m, "l2", seed=1)]
+        before = dict(LAUNCHES)
+        with pytest.raises(ValueError, match="outside the kernels' limits"):
+            BM.bucket_merge(*ins, b)
+        assert LAUNCHES == before
+
+
+def test_build_with_the_bucket_merge_kernels_equals_the_plain_merge_on_the_card(dev, monkeypatch):
+    """The medium build of ``test_medium_path_on_the_card``: with the merge
+    kernels (two launches a sweep) the graph is the plain merge's, bit for
+    bit."""
+    from repro_torch.core import rnn_descent as rd
+    from repro_torch.data.synthetic import VectorDatasetSpec, clustered_vectors
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.bucket_merge import ops as BM
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, _ = clustered_vectors(VectorDatasetSpec.sift_like(5000, 200), gen, dev)
+    cfg = rd.RNNDescentConfig(t1=2, t2=5)
+    reset_launches()
+    g = rd.build(x, cfg, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    assert LAUNCHES["bucket_scatter"] == LAUNCHES["bucket_row_merge"] == cfg.t1 * cfg.t2
+    monkeypatch.setattr(BM, "bucket_merge", BM.bucket_merge_ref)
+    reset_launches()
+    plain = rd.build(x, cfg, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    assert LAUNCHES["bucket_scatter"] == LAUNCHES["bucket_row_merge"] == 0
+    assert _same_bits(g, plain)
+
+
 # ---------------------------------------------------------------- fm_interact
 # B not a multiple of any tile (1, 257, 262147) and D above the block (300)
 FM_SWEEP = [(4, 3, 8), (512, 39, 10), (1000, 40, 32), (64, 26, 128), (1, 39, 10),
@@ -1234,7 +1363,7 @@ def test_card_rules_clean_on_every_instance(dev):
     from repro_torch.analysis import kernel_check as KC
     findings, rows = KC.check_card(_card_specs(dev), log=lambda *a, **k: None)
     assert findings == []
-    assert len({(r["source"], r["instance"]) for r in rows}) == 36
+    assert len({(r["source"], r["instance"]) for r in rows}) == 38
     assert all(r["ptxas"] is None or "registers" in r["ptxas"] for r in rows)
 
 
@@ -1276,7 +1405,8 @@ def test_traced_medium_build_equals_untraced_on_the_card(dev):
 
 def test_traced_sweeps_time_the_prune_and_the_merge_apart_on_the_card(dev, monkeypatch):
     """Each traced sweep on the card: its ``rng_prune/rows`` span holds the
-    one prune launch, its ``graph/merge`` span none, both with device time
+    one prune launch, its ``graph/merge`` span the two ``bucket_merge``
+    launches and their count of real candidates, both with device time
     inside the sweep's; the card is waited for once a sweep (the sweep's
     ``graphstats.sync`` and its end event), as before the child spans; the
     graph is the untraced one bit for bit."""
@@ -1313,7 +1443,9 @@ def test_traced_sweeps_time_the_prune_and_the_merge_apart_on_the_card(dev, monke
           for k in ("rnn_descent/sweep", "rng_prune/rows", "graph/merge")}
     assert all(len(v) == cfg.t1 * cfg.t2 for v in by.values())
     for sw, pr, mg in zip(*by.values()):
-        assert pr["launches_rng_prune"] == 1 and mg["launches"] == 0
+        assert pr["launches_rng_prune"] == 1 and pr["launches"] == 1
+        assert mg["launches_bucket_scatter"] == mg["launches_bucket_row_merge"] == 1
+        assert mg["launches"] == 2 and 0 < mg["cands_scattered"] <= 20_000 * 64
         assert pr["device_ms"] > 0 and mg["device_ms"] > 0
         assert pr["device_ms"] + mg["device_ms"] <= sw["device_ms"]
         assert pr["rows"] == mg["rows"] == 20_000 and pr["itemsize"] == 4

@@ -205,10 +205,10 @@ def _inside(inner, outer, slack_s=0.0) -> bool:
 def test_sweep_prune_and_merge_spans_count_their_work(corpus, monkeypatch, mode):
     """Each traced sweep holds one ``rng_prune/rows`` and one ``graph/merge``
     span at depth 1; their counts equal a recomputation from the sweep's
-    input graph and the merged flags; the input rows keep their valid
-    slots leading (the prune roofline's model); the card is waited for once
-    a sweep (``graphstats.sync``); the graph is the untraced one bit for
-    bit."""
+    input graph, its prune and the merged flags; the input rows keep their
+    valid slots leading (the prune roofline's model); the card is waited
+    for once a sweep (``graphstats.sync``); the graph is the untraced one
+    bit for bit."""
     x, _ = corpus
     quant = Quantization(mode="int8") if mode == "int8" else Quantization()
     cfg = rd.RNNDescentConfig(**RNN_KW, quant=quant)
@@ -219,7 +219,8 @@ def test_sweep_prune_and_merge_spans_count_their_work(corpus, monkeypatch, mode)
 
     def update(xg, g, c, qx=None):
         out = inner_update(xg, g, c, qx=qx)
-        sweeps.append((g, out))
+        _, red_w, red_d = rd.prune_rows(xg, g.neighbors, g.dists, g.flags, c, qx=qx)
+        sweeps.append((g, out, red_w.numpy(), red_d.numpy()))
         return out
 
     monkeypatch.setattr(rd, "update_neighbors", update)
@@ -235,7 +236,7 @@ def test_sweep_prune_and_merge_spans_count_their_work(corpus, monkeypatch, mode)
     by = {k: [e for e in evs if e["name"] == k]
           for k in ("rnn_descent/sweep", "rng_prune/rows", "graph/merge")}
     assert all(len(v) == n_sweeps for v in by.values())
-    for sw, pr, mg, (g_in, g_out) in zip(*by.values(), sweeps):
+    for sw, pr, mg, (g_in, g_out, red_w, red_d) in zip(*by.values(), sweeps):
         assert sw["depth"] == 0 and pr["depth"] == 1 and mg["depth"] == 1
         assert _inside(pr, sw) and _inside(mg, sw)
         assert pr["start_s"] + pr["dur_s"] <= mg["start_s"]
@@ -246,7 +247,12 @@ def test_sweep_prune_and_merge_spans_count_their_work(corpus, monkeypatch, mode)
                                "itemsize": 1 if mode == "int8" else 4,
                                "cands_valid": int(v.sum()), "cands_valid_sq": int((v * v).sum())}
         new = (g_out.flags.numpy() == 1) & (g_out.neighbors.numpy() >= 0)
-        assert mg["attrs"] == {"launches": 0, "rows": N, "rows_changed": int(new.any(1).sum())}
+        ids = g_in.neighbors.numpy()
+        real = (red_w >= 0) & (red_w < N) & (ids >= 0) & (red_w != ids) & ~np.isnan(red_d)
+        assert mg["attrs"] == {"launches": 0, "rows": N, "m": RNN_KW["capacity"],
+                               "rows_changed": int(new.any(1).sum()),
+                               "cands_scattered": int(real.sum())}
+        assert mg["attrs"]["cands_scattered"] > 0
         assert 0 < mg["attrs"]["rows_changed"] <= N
         assert sw["attrs"]["edges_new"] == int(new.sum())
 
