@@ -88,7 +88,13 @@ Phases (any failure raises and exits non-zero):
      GIST-like corpus: build seconds and the merge's and prune's shares,
      the peak memory of each build stage, launches, out-degree, connectivity, graph quality,
      recall@10 and QPS of the hashed search against pairwise_l2's ground
-     truth; rng_prune on the built graph's rows;
+     truth; rng_prune on the built graph's rows; then bind("rnnd-ann",
+     "build_gist_sq8") over the same corpus, launches zeroed just before
+     it (60 rng_prune_int8, 60 + 60 merge, no f32 prune) and read after a
+     coded search with the f32 rerank (recall@10 near the f32 build's), and
+     beam_score_int8 at d = 960 (its generic instance) on that graph's
+     frontiers and codes, held and timed as in phase 5; the int8 kernels'
+     entries report that path's launches;
   5b. the streaming index over the main path's corpus and graph (capacity
      2^20, StreamingConfig() with the FULL build): 24 rounds of two insert
      batches of 1,024 points (the corpus's mixture) and one delete batch of
@@ -2395,6 +2401,116 @@ def pairwise_l2_report(x, qa, launches: int, label: str) -> dict:
         "shape": {"na": na, "nb": n, "d": d}}
 
 
+def wide_int8_beam_entries(x, q, g, qx, launches: int) -> list:
+    """beam_score_int8 at GIST1M's width (its generic instance) on the SQ8
+    build's graph ``g`` and codes ``qx`` of ``x``, beside its plain version on
+    random frontier ids and on the frontier its search hands it at
+    iteration SNAP_ITER: exact on a small integer code space over the same
+    adjacency (codes in [-8, 8], unit scale, integer zero and queries: every
+    960-term score an exact f32 integer below 2^24), within 1e-5 of |q|^2 +
+    max|x_hat|^2 on the real codes (l2, ip; 2e-5 for cos), and timed (l2)."""
+    from repro_torch.kernels.beam_score import ops as B
+    from repro_torch.quant import int8_decode
+    n, d = x.shape
+    b, k, n_us = q.shape[0], 64, 200
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    us = [torch.randint(0, n, (b,), generator=gen, device="cuda", dtype=torch.int32)
+          for _ in range(n_us)]
+    ci = torch.randint(-8, 9, (n, d), generator=gen, device="cuda").to(torch.int8)
+    ze_i = torch.randint(-3, 4, (d,), generator=gen, device="cuda").float()
+    qi = torch.randint(-8, 9, (b, d), generator=gen, device="cuda").float()
+    one = torch.ones(d, device="cuda")
+    xh = int8_decode(qx.codes, qx.scale, qx.zero)
+    qs = (q * q).sum(1, keepdim=True) + float((xh * xh).sum(1).max())
+    del xh
+    snap_u = frontier_snapshot(x, q, g, "int8", qx)
+    errs = {}
+    for label, u in (("random", us[0]), ("search", snap_u)):
+        for metric in ("l2", "ip"):
+            args = (ci, one, ze_i, g.neighbors, u, qi, k, metric)
+            check(all(torch.equal(a, r) for a, r in zip(B.beam_score_int8(*args),
+                                                        B.beam_score_int8_ref(*args))),
+                  f"beam_score_int8 integer-valued {metric}, d = {d}, {label} frontier: "
+                  "kernel != plain")
+        for metric in ("l2", "ip", "cos"):
+            lim = 1e-5 * qs if metric != "cos" else torch.full_like(qs, 2e-5)
+            args = (qx.codes, qx.scale, qx.zero, g.neighbors, u, q, k, metric)
+            errs[label, metric] = _hold_beam("beam_score_int8", B.beam_score_int8(*args),
+                                             B.beam_score_int8_ref(*args), lim,
+                                             {"frontier": label, "metric": metric, "B": b,
+                                              "k": k, "d": d})
+    del ci
+    call = (qx.codes, qx.scale, qx.zero, g.neighbors)
+    return beam_entries(
+        "beam_score_int8", lambda u: B.beam_score_int8(*call, u, q, k, "l2"),
+        lambda u: B.beam_score_int8_ref(*call, u, q, k, "l2"), us, snap_u,
+        lambda u: beam_bound(g.neighbors, u, k, d, 6.0 * d, 4 * d, 2 * d * 4),
+        {"source": "src/repro_torch/kernels/csrc/beam_score.cu",
+         "replaces": "src/repro/kernels/beam_score/kernel.py:231",
+         "launches": launches, "max_abs_err": errs["random", "l2"],
+         "rows": f"SQ8 codes of the GIST-like corpus, d = {d}",
+         "tolerance": "ids exact; dists <= 1e-5 * (|q|^2 + max|x_hat|^2) (l2, ip), 2e-5 "
+                      "(cos); exact on an integer-valued code space (l2, ip)",
+         "shape": {"B": b, "k": k, "M": g.capacity, "d": d, "n": n}})
+
+
+def sq8_gist(x, q, gt, f32_recall: float) -> tuple[dict, list]:
+    """The ``build_gist_sq8`` cell on the 1M x 960 corpus: launch counts
+    zeroed just before ``bind("rnnd-ann", "build_gist_sq8")``'s build and
+    read after it (every sweep prunes through rng_prune_int8 and merges
+    through the two bucket_merge kernels, no f32 prune) and again after a
+    hashed coded search_tiled (L = K = 64, the f32 rerank of 64) over the
+    program's codes, whose recall@10 is held within CODED_DELTA of the f32
+    build's; then beam_score_int8 on that graph and those codes
+    (:func:`wide_int8_beam_entries`). Returns (the path's launches, the
+    beam kernel's entries)."""
+    from repro_torch.core import eval as E
+    from repro_torch.core import search as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.quant import encode_corpus
+    step = steps.bind("rnnd-ann", "build_gist_sq8", device="cuda")
+    sweeps = step.cfg.t1 * step.cfg.t2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    g = step.step_fn({}, {"x": x, "generator": torch.Generator(device="cuda")
+                          .manual_seed(SEED + 1)})
+    torch.cuda.synchronize()
+    res = {"build_s": time.perf_counter() - t0,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "build_launches": {k: v for k, v in LAUNCHES.items() if v}}
+    built = res["build_launches"]
+    check(built == {"rng_prune_int8": sweeps, "bucket_scatter": sweeps,
+                    "bucket_row_merge": sweeps},
+          f"SQ8 GIST build launched {built}, expected {sweeps} int8 prunes and "
+          f"{sweeps} + {sweeps} merges")
+    qx = encode_corpus(x, step.cfg.quant)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dists = S.search_tiled(x, g, q, S.default_entry_point(x),
+                                full_search(quant=step.cfg.quant), tile_b=1024, qx=qx)
+    torch.cuda.synchronize()
+    res["search_s"] = time.perf_counter() - t0
+    launches = res["launches"] = dict(LAUNCHES)
+    check_launches(launches, "int8")
+    check(ids.shape == (q.shape[0], 10) and bool(torch.isfinite(dists).all())
+          and bool((torch.diff(dists, dim=1) >= 0).all()), "SQ8 GIST search: bad results")
+    res["recall_at_10"] = E.recall_topk(ids, gt)
+    res["avg_out_degree"] = E.degree_stats(g)["avg_out_degree"]
+    emit({"phase": "ann_gist_sq8", "cell": "rnnd-ann/build_gist_sq8", "n": x.shape[0],
+          "d": x.shape[1], "queries": q.shape[0],
+          "build": "bind('rnnd-ann', 'build_gist_sq8'): FULL, int8 codes",
+          "search": "L=64 K=64 topk=10 hashed, int8 codes, f32 rerank 64",
+          "f32_recall_at_10": f32_recall, **res})
+    check(res["recall_at_10"] >= f32_recall - CODED_DELTA["int8"],
+          f"SQ8 GIST recall@10 {res['recall_at_10']} against the f32 build's {f32_recall}")
+    del ids, dists
+    entries = wide_int8_beam_entries(x, q, g, qx, launches["beam_score_int8"])
+    return launches, entries
+
+
 def ann_gist() -> list:
     """The ``build_gist`` cell: the medium GIST-width check, then rng_prune
     (f32, bf16, int8) and pairwise_l2 at d = 960 against their plain
@@ -2406,8 +2522,10 @@ def ann_gist() -> list:
     passes), launches (zeroed just before the build, read after the search),
     out-degree, connectivity, graph quality, recall@10 and QPS of a hashed
     search_tiled (L = K = 64) over GIST_Q queries against pairwise_l2's
-    ground truth; then rng_prune on the built graph's rows. Returns the
-    kernels' entries."""
+    ground truth; then rng_prune on the built graph's rows; then the
+    ``build_gist_sq8`` cell on the same corpus (:func:`sq8_gist`), whose
+    own launches the int8 kernels' entries report. Returns the kernels'
+    entries."""
     from repro_torch.core import eval as E
     from repro_torch.core import rnn_descent as rd
     from repro_torch.core import search as S
@@ -2473,12 +2591,21 @@ def ann_gist() -> list:
           f"GIST 1M recall@10 {res['recall_at_10']} below {GIST_RECALL_FLOOR}")
     check(res["connectivity"] >= 0.99, f"GIST 1M connectivity {res['connectivity']}")
     final = {"GIST final graph (d = 960)": tuple(t[:PRUNE_ROWS].contiguous() for t in g)}
-    del g, gt, ids, dists
+    del g, ids, dists
     report += rng_prune_report(x, final, launches["rng_prune"])
+    torch.cuda.empty_cache()
+    coded, beam_int8 = sq8_gist(x, q, gt, res["recall_at_10"])
     for entry in report:
-        entry["launches"] = launches.get(entry["name"], 0)
-        entry["launches_path"] = "rnnd-ann/build_gist (build, ground truth, search)"
-    del x, q
+        if entry["name"] == "rng_prune_int8":
+            entry["launches"] = coded["rng_prune_int8"]
+            entry["launches_path"] = "rnnd-ann/build_gist_sq8 (build, coded search)"
+        else:
+            entry["launches"] = launches.get(entry["name"], 0)
+            entry["launches_path"] = "rnnd-ann/build_gist (build, ground truth, search)"
+    for entry in beam_int8:
+        entry["launches_path"] = "rnnd-ann/build_gist_sq8 (build, coded search)"
+    report += beam_int8
+    del x, q, gt
     torch.cuda.empty_cache()
     return report
 

@@ -299,4 +299,7 @@ ANN_SHAPES = (
     ShapeSpec("build_1m", "ann_build", dict(n=1_000_000, d=128)),
     ShapeSpec("build_gist", "ann_build", dict(n=1_000_000, d=960)),
     ShapeSpec("search_1m", "ann_search", dict(n=1_000_000, d=128, queries=10_000)),
+    # the port's own (the reference has the three above): GIST1M stored as
+    # per-dimension int8 codes (Faiss's SQ8), built over them
+    ShapeSpec("build_gist_sq8", "ann_build", dict(n=1_000_000, d=960)),
 )

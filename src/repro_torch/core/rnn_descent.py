@@ -22,7 +22,7 @@ from repro_torch import as_tensor
 from repro_torch.core import graph as G
 from repro_torch.kernels.bucket_merge import ops as merge_ops
 from repro_torch.kernels.rng_prune import ops as rng_ops
-from repro_torch.quant import Quantization, QuantizedCorpus, prep_corpus
+from repro_torch.quant import Quantization, QuantizedCorpus, corpus_bytes, prep_corpus
 
 GRAM_DTYPES = ("f32", "bf16")
 
@@ -171,15 +171,25 @@ def build(x, cfg: RNNDescentConfig, generator: torch.Generator | None = None,
     an ``rnn_descent/sweep`` span (each reverse pass under
     ``rnn_descent/reverse``) that synchronises the card once at its end
     and records the sweep's edge readouts, kernel launches and device
-    time; the launches are the same either way, so the built graph is bit
-    for bit the untraced one."""
+    time; a coded build's encode (:func:`prep_corpus`) runs under a
+    ``quant/encode`` span (rows, d, mode, the bytes of the int8 codes the
+    prune gathers, and on the card ``device_ms``). The launches are the same either way, so the built
+    graph is bit for bit the untraced one."""
     from repro_torch.obs import cudahooks as _ch
     from repro_torch.obs import graphstats as _gs
     from repro_torch.obs import trace as _tr
     x = as_tensor(x, device, torch.float32)
     if generator is None:
         generator = torch.Generator(device=x.device).manual_seed(0)
-    x, qx = prep_corpus(x, cfg.quant)
+    qx = None
+    if cfg.quant.is_coded:
+        with _tr.span("quant/encode") as sp, _ch.span_costs(sp, x.device):
+            x, qx = prep_corpus(x, cfg.quant)
+        if sp:
+            n, d = x.shape
+            sp.set(rows=n, d=d, mode=cfg.quant.mode)
+            if qx is not None:      # int8: the codes the prune gathers
+                sp.set(code_bytes=corpus_bytes(qx, n, d)["codes_bytes"])
     if mesh is not None:
         from repro_torch.core import shard
         return shard.build_rnn_descent(x, cfg, generator, mesh, qx=qx)

@@ -24,9 +24,10 @@ tensors with shapes and dtypes and no storage behind them. Reported:
     step runs under ``torch.no_grad()`` (it has no backward: nothing is
     saved). ``hand_kernels`` names the hand kernels the step launches on
     the card; ``fm_interact`` (FM and DeepFM) has a meta path, so those
-    cells are stepped. The ``ann`` cells (``rng_prune``, ``beam_score``)
-    are not: their sweeps and beam loops end on data, which the meta
-    device does not hold. Their ``flops``, ``saved_bytes``, ``peak_bytes``
+    cells are stepped. The ``ann`` cells (``rng_prune``, or
+    ``rng_prune_int8`` for an int8-coded build, and ``beam_score``) are
+    not: their sweeps and beam loops end on data, which the meta device
+    does not hold. Their ``flops``, ``saved_bytes``, ``peak_bytes``
     and ``temp_bytes`` are null;
   * ``per_rank``: for each of the reference's production meshes
     (``launch.mesh.make_production_mesh``: 16 x 16, 2 x 16 x 16), the
@@ -81,8 +82,10 @@ def hand_kernels(arch_id: str, cfg, kind: str) -> list[str]:
     """The hand kernels a cell's step launches on the card."""
     family = configs.get(arch_id).family
     if family == "ann":
-        return (["rng_prune", "bucket_scatter", "bucket_row_merge"] if kind == "ann_build"
-                else ["beam_score"])
+        if kind != "ann_build":
+            return ["beam_score"]
+        prune = "rng_prune_int8" if cfg.quant.mode == "int8" else "rng_prune"
+        return [prune, "bucket_scatter", "bucket_row_merge"]
     if family == "recsys" and kind in ("train", "serve") and \
             cfg.interaction in ("fm", "fm-2way"):
         return ["fm_interact"]

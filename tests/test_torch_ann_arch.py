@@ -38,6 +38,7 @@ from repro_torch.launch import steps
 torch.set_num_threads(1)
 
 SHAPES = ("build_1m", "build_gist", "search_1m")
+PORT_ONLY = ("build_gist_sq8",)    # the port's own shapes (tests/test_torch_sq8_bind.py)
 TORCH_DTYPES = {jnp.float32: torch.float32, jnp.int32: torch.int32}
 # the reference's kernel switches, which the port replaces by the tensor's
 # device (ROADMAP, deliberate differences)
@@ -70,13 +71,19 @@ def test_configs_match_reference(name):
     _same_dataclass(getattr(r_rnnd_ann, name), getattr(rnnd_ann, name))
 
 
+def _shared(shapes):
+    return [s for s in shapes if s.name not in PORT_ONLY]
+
+
 def test_shapes_and_arch_match_reference():
-    assert [(s.name, s.kind, s.dims) for s in cb.ANN_SHAPES] == \
+    """The reference's shapes, in its order, then the port's own."""
+    assert [(s.name, s.kind, s.dims) for s in _shared(cb.ANN_SHAPES)] == \
         [(s.name, s.kind, s.dims) for s in rcb.ANN_SHAPES]
+    assert [s.name for s in cb.ANN_SHAPES] == list(SHAPES + PORT_ONLY)
     ref, port = rconfigs.get("rnnd-ann"), configs.get("rnnd-ann")
     assert port is rnnd_ann.ARCH
     assert (port.arch_id, port.family) == (ref.arch_id, ref.family) == ("rnnd-ann", "ann")
-    assert [s.name for s in port.shapes] == list(SHAPES)
+    assert [s.name for s in port.shapes] == list(SHAPES + PORT_ONLY)
     for shape in SHAPES:
         for reduced in (False, True):
             _same_dataclass(ref.make_config(shape, reduced), port.make_config(shape, reduced))
@@ -89,9 +96,11 @@ def test_registry_keeps_recsys_and_refuses_what_is_not_ported():
         assert [(s.name, s.kind, s.dims) for s in arch.shapes] == \
             [(s.name, s.kind, s.dims) for s in ref.shapes]
     assert configs.ASSIGNED == rconfigs.ASSIGNED
-    for include_ann in (False, True):
-        assert configs.all_cells(include_ann) == rconfigs.all_cells(include_ann)
+    assert configs.all_cells(False) == rconfigs.all_cells(False)
+    assert [c for c in configs.all_cells(True) if c[1] not in PORT_ONLY] == \
+        rconfigs.all_cells(True)
     assert ("rnnd-ann", "build_gist") in configs.all_cells(include_ann=True)
+    assert ("rnnd-ann", "build_gist_sq8") in configs.all_cells(include_ann=True)
     assert configs.get("dimenet").family == rconfigs.get("dimenet").family == "gnn"
     with pytest.raises(KeyError):
         configs.get("no-such-arch")

@@ -103,6 +103,12 @@ def test_pairwise_l2_matches_plain(dev, dtype):
 
 
 def _int8_space(gen, n, d, dev, integer):
+    if integer and d > 256:
+        # a score of d terms stays an exact f32 integer below 2^24: at GIST's
+        # d = 960 codes in [-8, 8], unit scale, integer zero
+        codes = torch.randint(-8, 9, (n, d), generator=gen, device=dev).to(torch.int8)
+        zero = torch.randint(-3, 4, (d,), generator=gen, device=dev).float()
+        return codes, torch.ones(d, device=dev), zero
     codes = torch.randint(-127, 128, (n, d), generator=gen, device=dev).to(torch.int8)
     if integer:   # dyadic scale, integer zero: every decoded value and score exact
         scale = 2.0 ** -torch.randint(1, 4, (d,), generator=gen, device=dev).float()
@@ -151,14 +157,15 @@ def test_rng_prune_int8_matches_plain(dev, metric, m, integer):
 
 
 @pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("d", [37, 128])
+@pytest.mark.parametrize("d", [37, 128, 960])
 @pytest.mark.parametrize("m", [50, 128])
 @pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 def test_rng_prune_ragged_rows(dev, dtype, metric, m, d, integer):
     """One launch over rows of every extent a tile edge can get wrong (0, 1,
     31, 32, 33, 64, 65, 127, 128, capped at m), dense and with holes (-1 and
-    ids >= n) below the last valid slot; d = 37 takes the unaligned gather.
+    ids >= n) below the last valid slot; d = 37 takes the unaligned gather,
+    d = 960 is GIST1M's width (the SQ8 build's int8 prune).
     Integer-valued l2/ip: bit for bit the plain version; otherwise the
     agreement limits of the real-data tests."""
     import numpy as np
@@ -401,13 +408,14 @@ def _misaligned(t, offset):
 
 
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("d", [37, 64, 128, 200])
+@pytest.mark.parametrize("d", [37, 64, 128, 200, 960])
 @pytest.mark.parametrize("m", [32, 50, 128])
 @pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
 def test_beam_score_int8_on_graph_shaped_rows(dev, metric, m, d, offset):
     """Valid-first rows of every valid count, holes, ids >= n, retired and
     bad frontier ids, each k and lane count; exact on an integer-valued code
-    space. offset 1 (and d = 37, 200) takes the kernel's generic instance."""
+    space. offset 1 (and d = 37, 200) takes the kernel's generic instance;
+    d = 960 is the SQ8 GIST index's search."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.beam_score import ops as B
     from repro_torch.quant import int8_decode
@@ -692,6 +700,62 @@ def test_build_with_the_bucket_merge_kernels_equals_the_plain_merge_on_the_card(
     torch.cuda.synchronize()
     assert LAUNCHES["bucket_scatter"] == LAUNCHES["bucket_row_merge"] == 0
     assert _same_bits(g, plain)
+
+
+def test_sq8_build_through_bind_on_the_card(dev):
+    """``bind("rnnd-ann", "build_gist_sq8")`` on a 12,288 x 960 mixture (the
+    FULL sweeps): traced and untraced bit for bit; 60 ``rng_prune_int8``
+    launches and no f32 prune, 60 + 60 merge launches, one ``quant/encode``
+    span with its device time; the listed distances those of a float64
+    decode of the codes; a coded search over them with the f32 rerank."""
+    from repro_torch import obs
+    from repro_torch.core import search as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.obs import trace
+    from repro_torch.quant import encode_corpus
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n, d = 12_288, 960
+    centres = torch.randn(64, d, generator=gen, device=dev)
+    x = centres[torch.randint(0, 64, (n,), generator=gen, device=dev)] + \
+        torch.randn(n, d, generator=gen, device=dev)
+    q = centres[:16] + torch.randn(16, d, generator=gen, device=dev)
+    bound = steps.bind("rnnd-ann", "build_gist_sq8", device=dev)
+    sweeps = bound.cfg.t1 * bound.cfg.t2
+
+    def build():
+        return bound.step_fn({}, {"x": x, "generator": torch.Generator(device=dev).manual_seed(1)})
+
+    reset_launches()
+    g = build()
+    torch.cuda.synchronize()
+    assert (LAUNCHES["rng_prune_int8"], LAUNCHES["rng_prune"]) == (sweeps, 0)
+    assert LAUNCHES["bucket_scatter"] == LAUNCHES["bucket_row_merge"] == sweeps
+    obs.reset()
+    try:
+        with trace.enabled_scope():
+            traced = build()
+        evs = trace.events()
+    finally:
+        obs.disable()
+    assert _same_bits(g, traced)
+    (enc,) = [e for e in evs if e["name"] == "quant/encode"]
+    assert enc["attrs"]["device_ms"] > 0 and enc["attrs"]["code_bytes"] == n * d
+    prunes = [e["attrs"] for e in evs if e["name"] == "rng_prune/rows"]
+    assert len(prunes) == sweeps and all(a["launches_rng_prune_int8"] == 1 and
+                                         a["itemsize"] == 1 for a in prunes)
+    qx = encode_corpus(x, bound.cfg.quant)
+    x_hat = qx.codes.double() * qx.scale.double() + qx.zero.double()
+    live = g.neighbors >= 0
+    src = torch.arange(n, device=dev)[:, None].expand_as(g.neighbors)[live]
+    exact = ((x_hat[src] - x_hat[g.neighbors[live].long()]) ** 2).sum(1)
+    assert float(((g.dists[live].double() - exact).abs() / exact).max()) < 1e-4
+    scfg = S.SearchConfig(l=128, k=64, max_iters=256, topk=10, quant=bound.cfg.quant)
+    before = LAUNCHES["beam_score_int8"]
+    ids, dists = S.search_tiled(x, g, q, S.default_entry_point(x), scfg, tile_b=16, qx=qx)
+    assert LAUNCHES["beam_score_int8"] > before
+    exact_q = ((x[ids.long()].double() - q[:, None].double()) ** 2).sum(-1)
+    assert float(((dists.double() - exact_q).abs() / exact_q).max()) < 1e-5
 
 
 # ---------------------------------------------------------------- fm_interact

@@ -52,6 +52,8 @@ def test_full_cells_on_meta_and_hand_kernel_cells():
                                     ("fm", "serve_bulk", ["fm_interact"]),
                                     ("rnnd-ann", "build_1m",
                                      ["rng_prune", "bucket_scatter", "bucket_row_merge"]),
+                                    ("rnnd-ann", "build_gist_sq8",
+                                     ["rng_prune_int8", "bucket_scatter", "bucket_row_merge"]),
                                     ("rnnd-ann", "search_1m", ["beam_score"])):
         r = dryrun.run_cell(arch_id, shape)
         assert r["hand_kernels"] == kernels
@@ -61,6 +63,9 @@ def test_full_cells_on_meta_and_hand_kernel_cells():
             continue
         assert r["flops"] is None and r["saved_bytes"] is None and r["peak_bytes"] is None
         assert r["total_bytes"] == r["state_bytes"] + r["batch_bytes"]
+        if shape.startswith("build"):    # the f32 corpus, coded builds too
+            d = next(s for s in cb.ANN_SHAPES if s.name == shape).dims["d"]
+            assert r["batch_bytes"] == 1_000_000 * d * 4 and r["fits_one_card"]
     assert dryrun.run_cell("wide-deep", "serve_p99")["hand_kernels"] == []
     assert dryrun.card_bytes() == (torch.cuda.get_device_properties(0).total_memory
                                    if torch.cuda.is_available() else 80 * 2**30)
@@ -194,3 +199,4 @@ def test_restarts_restore_onto_the_states_own_device(tmp_path, monkeypatch, devi
     fault.run_with_restarts(lambda: {"w": torch.empty(4, device="meta")}, step_fn, 6,
                             str(tmp_path), ckpt_every=2, **kw)
     assert failed == [3] and seen == [torch.device(device or "meta")]
+
